@@ -1,11 +1,12 @@
 """State carried across packages as plain values.
 
-This system has no model weights: its state is the catalog, the profile
-table and the problem.  These helpers convert between the port's objects
-and plain tuples and numpy arrays — names, capacities, costs, requirement
-vectors, assignments — so that any producer of the same plain form (a
-file, another implementation of the manager) can feed the port identical
-inputs, and results can be compared value for value.
+The manager's state is the catalog, the profile table and the problem; the
+serving path's is the model's weights.  These helpers convert between the
+port's objects and plain tuples and numpy arrays — names, capacities,
+costs, requirement vectors, assignments, weight arrays — so that any
+producer of the same plain form (a file, another implementation of the
+manager or the model) can feed the port identical inputs, and results can
+be compared value for value.
 
 The ``*_to_plain`` functions read attributes only, so they accept any
 object with the port's field names.
@@ -13,9 +14,14 @@ object with the port's field names.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.binpack.problem import BinType, Choice, Item, Problem
 from .core.profiler import ProfileTable, ResourceProfile
+from .device import resolve_device
+from .models import transformer as tfm
+from .models.attention import Attention
+from .models.layers import MLP
 
 __all__ = [
     "problem_to_plain",
@@ -23,6 +29,7 @@ __all__ = [
     "profile_table_to_plain",
     "profile_table_from_plain",
     "plan_to_plain",
+    "params_from_plain",
 ]
 
 
@@ -130,3 +137,41 @@ def plan_to_plain(plan) -> dict:
             [b.load for b in sol.bins], dtype=np.float64
         ).reshape(len(sol.bins), -1),
     }
+
+
+def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
+    """The port's `Transformer` from the reference's parameter pytree.
+
+    ``tree`` is what the reference's ``init_params`` returns, with every
+    leaf a float32 numpy array: ``embed`` (K, V, d), ``final_norm``,
+    optional ``unembed`` and ``vision_proj``, and ``blocks``, one dict per
+    pattern slot whose leaves are stacked over layer groups.  Layer ``i``
+    is group ``i // len(pattern)`` of slot ``i % len(pattern)``.  Leaves
+    are cast to ``cfg.dtype`` on ``device`` (default: the card); a bf16
+    array widened to float32 comes back exactly.
+    """
+    tfm.check_supported(cfg)
+    dev = resolve_device(device)
+    dt = tfm.torch_dtype(cfg)
+
+    def put(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dt)
+
+    def opt(d: dict, key: str, grp: int | None = None):
+        if key not in d:
+            return None
+        return put(d[key] if grp is None else d[key][grp])
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        grp, slot = divmod(i, len(cfg.layer_pattern))
+        p = tree["blocks"][slot]
+        a, m = p["attn"], p["mlp"]
+        attn = Attention(put(a["wq"][grp]), put(a["wk"][grp]), put(a["wv"][grp]),
+                         put(a["wo"][grp]), opt(a, "q_norm", grp), opt(a, "k_norm", grp))
+        blocks.append(tfm.Block(
+            put(p["ln1"][grp]), attn, put(p["ln2"][grp]),
+            MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp)),
+        ))
+    return tfm.Transformer(put(tree["embed"]), put(tree["final_norm"]), blocks,
+                           unembed=opt(tree, "unembed"), vision_proj=opt(tree, "vision_proj"))

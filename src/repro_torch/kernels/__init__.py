@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch version.
 
   * knapsack — the batched bounded knapsack DP that prices colgen's columns
-    (``csrc/knapsack.cu``, built on first use by ``_build``)
+    (``csrc/knapsack.cu``)
+  * attention — causal flash attention with GQA, sliding window and logit
+    softcap, the serving path's prefill (``csrc/flash_attention.cu``)
+  * decode_attention — flash-decode over a (ring) KV cache, the serving
+    path's decode step (``csrc/decode_attention.cu``)
 
-Kernel libraries are built and loaded inside the call that launches them,
-never at import.
+Each source is built on first use by ``_build``.  Kernel libraries are
+built and loaded inside the call that launches them, never at import.
 """

@@ -3,9 +3,10 @@
 Each kernel source under ``csrc/`` has a plain C interface.  It is compiled
 by ``nvcc`` into a shared library under ``build/repro_torch_kernels/`` at
 the root of the checkout and loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  The library name carries a hash of the source and
-flags, so an edited source is rebuilt and an unchanged one is reused.  A
-failed build raises with nvcc's output.
+a build takes seconds).  The library name carries a hash of the source, the
+headers it includes and its flags, so an edited source is rebuilt and an
+unchanged one is reused.  A failed build raises with nvcc's output.
+`build_all` starts one nvcc process per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -21,7 +22,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["BUILD_INFO", "load_library"]
+__all__ = ["BUILD_INFO", "SOURCES", "build_all", "load_library"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -31,6 +32,16 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: The attention kernels need no bit-identity with their plain versions,
+#: so they let the compiler fuse multiply-adds.
+ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+
+#: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
+SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
+    "knapsack": (NVCC_FLAGS, ()),
+    "flash_attention": (ATTENTION_FLAGS, ("attention_common.cuh",)),
+    "decode_attention": (ATTENTION_FLAGS, ("attention_common.cuh",)),
+}
 
 #: Per source name: {"seconds": build wall time (0.0 when reused),
 #: "log": nvcc's output including the -Xptxas -v report, "path": library}.
@@ -52,33 +63,48 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _library_path(name: str) -> pathlib.Path:
+    flags, headers = SOURCES[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in headers)
+        + " ".join(flags).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it; cached per process."""
+    return build_all((name,))[name]
+
+
+def build_all(names=tuple(SOURCES)) -> dict[str, ctypes.CDLL]:
+    """Build and load several sources, one nvcc process each, all started
+    at once; waits for every process before it raises on a failed one."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
+        todo = [n for n in names if n not in _LIBS]
+        paths = {n: _library_path(n) for n in todo}
+        missing = [n for n in todo if not paths[n].exists()]
+        nvcc = _nvcc() if missing else None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        started = {}
+        for name in missing:
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *SOURCES[name][0], "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            started[name] = (cmd, tmp, time.perf_counter(), proc)
+        built = {}
+        for name, (cmd, tmp, t0, proc) in started.items():
+            log = proc.communicate()[0]
+            built[name] = (time.perf_counter() - t0, log)
+        for name, (cmd, tmp, t0, proc) in started.items():
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {src}:\n"
-                    f"{' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        BUILD_INFO[name] = {"seconds": seconds, "log": log, "path": str(out)}
-        _LIBS[name] = lib
-        return lib
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+                                   f"{' '.join(cmd)}\n{built[name][1]}")
+            os.replace(tmp, paths[name])
+        for name in todo:
+            _LIBS[name] = ctypes.CDLL(str(paths[name]))
+            seconds, log = built.get(name, (0.0, ""))
+            BUILD_INFO[name] = {"seconds": seconds, "log": log, "path": str(paths[name])}
+        return {n: _LIBS[n] for n in names}

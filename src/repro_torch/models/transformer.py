@@ -1,0 +1,243 @@
+"""Decoder-only model assembled from a ModelConfig: the serving path.
+
+Mirrors `repro/models/transformer.py` for configs whose layer pattern holds
+only ``"attention"`` blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron,
+llava's backbone, musicgen's backbone).  The reference stacks parameters
+and caches over layer groups and scans them with ``lax.scan``; PyTorch runs
+eagerly, so the port keeps one `Block` module and one cache per layer and
+loops over them: layer ``i`` is the reference's group ``i // len(pattern)``,
+slot ``i % len(pattern)``.
+
+Entry points:
+  * ``init_params(cfg, *, seed, device)   -> Transformer``
+  * ``init_serve_cache(cfg, batch, cache_len, *, device) -> [cache per layer]``
+  * ``forward_prefill(params, cfg, batch, caches) -> (logits, caches)``
+  * ``forward_decode(params, cfg, tokens, cur_pos, caches) -> (logits, caches)``
+
+``forward_train`` and ``loss_fn`` wait for the training slice (ROADMAP
+queue A item 16); the ``"moe"``, ``"ssd"`` and ``"recurrent"`` blocks raise
+`NotImplementedError` naming their ROADMAP items.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import attention as attn_lib
+from .config import ModelConfig
+from .layers import MLP, init_dense, init_mlp, init_rms_norm, mlp, rms_norm
+
+__all__ = [
+    "Block",
+    "Transformer",
+    "init_params",
+    "embed_inputs",
+    "unembed",
+    "init_serve_cache",
+    "forward_prefill",
+    "forward_decode",
+]
+
+_NOT_PORTED = {
+    "moe": "the 'moe' block (attention + routed experts) is not ported yet: "
+           "ROADMAP queue A item 13 with queue B item 6 (grouped_gemm)",
+    "ssd": "the 'ssd' block (Mamba-2) is not ported yet: "
+           "ROADMAP queue A item 13 with queue B item 4 (ssd_scan)",
+    "recurrent": "the 'recurrent' block (Griffin RG-LRU) is not ported yet: "
+                 "ROADMAP queue A item 13 with queue B item 5 (rglru_scan)",
+}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` for a layer pattern the port cannot run."""
+    for kind in cfg.layer_pattern:
+        if kind != "attention":
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+
+
+def _frozen(t: torch.Tensor | None) -> nn.Parameter | None:
+    return None if t is None else nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One ``"attention"`` layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, ln1: torch.Tensor, attn: attn_lib.Attention,
+                 ln2: torch.Tensor, mlp_: MLP) -> None:
+        super().__init__()
+        self.ln1 = _frozen(ln1)
+        self.attn = attn
+        self.ln2 = _frozen(ln2)
+        self.mlp = mlp_
+
+
+class Transformer(nn.Module):
+    """``embed`` (K, V, d), ``final_norm``, optional ``unembed`` and
+    ``vision_proj``, and one `Block` per layer in ``blocks``."""
+
+    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
+                 blocks: list[Block], unembed: torch.Tensor | None = None,
+                 vision_proj: torch.Tensor | None = None) -> None:
+        super().__init__()
+        self.embed = _frozen(embed)
+        self.final_norm = _frozen(final_norm)
+        self.unembed = _frozen(unembed)
+        self.vision_proj = _frozen(vision_proj)
+        self.blocks = nn.ModuleList(blocks)
+
+
+# ---- init --------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+    """Random weights with the reference's shapes and scales, drawn from a
+    `torch.Generator` seeded with ``seed`` on ``device`` (default: the card)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    embed_shape = (cfg.num_codebooks, cfg.vocab_size, cfg.d_model)
+    embed = (torch.randn(embed_shape, generator=gen, dtype=torch.float32, device=dev)
+             * 0.02).to(dt)
+    unembed = None
+    if not cfg.tie_embeddings:
+        unembed = init_dense(gen, cfg.d_model, cfg.num_codebooks * cfg.vocab_size, dt)
+    vision_proj = None
+    if cfg.modality == "vision_prefix":
+        vision_proj = init_dense(gen, cfg.d_model, cfg.d_model, dt)
+    blocks = []
+    for _ in range(cfg.num_layers):
+        d = cfg.d_model
+        blocks.append(Block(
+            init_rms_norm(d, dt, dev),
+            attn_lib.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim, cfg.qk_norm, dt),
+            init_rms_norm(d, dt, dev),
+            init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dt),
+        ))
+    return Transformer(embed, init_rms_norm(cfg.d_model, dt, dev), blocks,
+                       unembed=unembed, vision_proj=vision_proj)
+
+
+# ---- embeddings / logits ------------------------------------------------------
+
+
+def embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: {"tokens": (B,S) or (B,S,K)} [+ "vision_embeds": (B,Nv,D)]."""
+    tokens = batch["tokens"]
+    if cfg.num_codebooks > 1:
+        # (B,S,K) EnCodec token lattice: sum codebook embeddings.
+        if tokens.dim() != 3:
+            raise ValueError(f"{cfg.name} takes (B, S, K) tokens, got {tuple(tokens.shape)}")
+        x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=params.embed.dtype,
+                        device=tokens.device)
+        for k in range(cfg.num_codebooks):
+            x = x + params.embed[k][tokens[..., k]]
+    else:
+        tok = tokens if tokens.dim() == 2 else tokens[..., 0]
+        x = params.embed[0][tok]
+    if cfg.modality == "vision_prefix" and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(x.dtype) @ params.vision_proj
+        x = torch.cat([vis, x], dim=1)
+    if cfg.embed_scale_by_sqrt_dim:
+        # The reference casts the scale to the activation type first.
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
+
+
+def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits for every position: (B,S,V), or (B,S,K,V) with K codebooks."""
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,kvd->bskv", x, params.embed)
+    else:
+        logits = (x @ params.unembed).reshape(
+            x.shape[0], x.shape[1], cfg.num_codebooks, cfg.vocab_size)
+    logits = logits.float()
+    if cfg.final_logit_softcap is not None:
+        # cap * tanh(logits / cap), in place: at a 256k vocabulary the
+        # logits of a 4 x 2048-token prefill are 8.4 GB.
+        cap = cfg.final_logit_softcap
+        logits.div_(cap).tanh_().mul_(cap)
+    if cfg.num_codebooks == 1:
+        logits = logits[:, :, 0, :]
+    return logits
+
+
+# ---- serving ------------------------------------------------------------------
+
+
+def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+                     long_context: bool = False, device=None) -> list[dict]:
+    """One cache per layer; windowed layers hold ``min(cache_len, window)``
+    slots.  ``device="meta"`` gives shapes and dtypes without memory."""
+    check_supported(cfg)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    dt = torch_dtype(cfg)
+    caches = []
+    for i in range(cfg.num_layers):
+        window = cfg.window_for_slot(i % len(cfg.layer_pattern), long_context=long_context)
+        eff = cache_len if window is None else min(cache_len, window)
+        caches.append(attn_lib.init_cache(batch, eff, cfg.num_kv_heads,
+                                          cfg.resolved_head_dim, dt, dev))
+    return caches
+
+
+def _apply_layer_serve(cfg: ModelConfig, window: int | None, layer: Block,
+                       cache: dict, x: torch.Tensor, positions: torch.Tensor | None,
+                       cur_pos: int | None, decode: bool):
+    """Returns (x, the layer's cache, updated in place)."""
+    h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    kw = dict(
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=window, logit_softcap=cfg.attn_logit_softcap,
+        norm_eps=cfg.norm_eps,
+    )
+    if decode:
+        h, cache = attn_lib.attention_decode(layer.attn, h, cur_pos, cache, **kw)
+    else:
+        h, cache = attn_lib.prefill_into_cache(layer.attn, h, positions, cache, **kw)
+    x = x + h
+    h = rms_norm(x, layer.ln2, cfg.norm_eps)
+    x = x + mlp(layer.mlp, h, cfg.mlp_activation)
+    return x, cache
+
+
+def _forward_serve(params: Transformer, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor | None, cur_pos: int | None,
+                   caches: list, decode: bool, long_context: bool):
+    check_supported(cfg)
+    if len(caches) != cfg.num_layers:
+        raise ValueError(f"{len(caches)} caches for {cfg.num_layers} layers")
+    for i, layer in enumerate(params.blocks):
+        window = cfg.window_for_slot(i % len(cfg.layer_pattern), long_context=long_context)
+        x, caches[i] = _apply_layer_serve(cfg, window, layer, caches[i], x, positions,
+                                          cur_pos, decode)
+    return unembed(params, cfg, x), caches
+
+
+@torch.no_grad()
+def forward_prefill(params: Transformer, cfg: ModelConfig, batch: dict, caches: list,
+                    *, long_context: bool = False):
+    """Logits of every prompt position, and the caches filled (in place)."""
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return _forward_serve(params, cfg, x, positions, None, caches,
+                          decode=False, long_context=long_context)
+
+
+@torch.no_grad()
+def forward_decode(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+                   cur_pos: int, caches: list, *, long_context: bool = False):
+    """tokens: (B,1) or (B,1,K); cur_pos: the host-int position of the token."""
+    x = embed_inputs(params, cfg, {"tokens": tokens})
+    return _forward_serve(params, cfg, x, None, int(cur_pos), caches,
+                          decode=True, long_context=long_context)

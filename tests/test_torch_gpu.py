@@ -1,18 +1,25 @@
-"""The port's CUDA kernel on the card (``gpu`` marker; skips without one).
+"""The port's CUDA kernels on the card (``gpu`` marker; skips without one).
 
 Imports only `repro_torch`, so it runs on a machine that has the card but
 not the JAX package's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The kernel does adds and compares only, so it must equal its plain torch
-version exactly: ``best``, the take bits, and the counts and plans built
-from them.
+The knapsack kernel does adds and compares only, so it must equal its
+plain torch version exactly: ``best``, the take bits, and the counts and
+plans built from them.  The attention kernels sum in another order than
+their plain versions, both in float32: float32 is held to the
+reference's kernel tolerance, 2e-5; in bfloat16 the two round to outputs
+at most one bf16 ulp apart (rtol 2^-7), with atol 1e-4 for the float32
+difference.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.binpack import colgen
 from repro_torch.core.binpack.arcflow import group_items
 from repro_torch.core.catalog import paper_ec2_catalog
@@ -20,7 +27,11 @@ from repro_torch.core.manager import ResourceManager
 from repro_torch.core.profiler import paper_profile_table
 from repro_torch.core.streams import AnalysisProgram, StreamSpec
 from repro_torch.interop import plan_to_plain
+from repro_torch.kernels import attention as flash
+from repro_torch.kernels import decode_attention as decode
 from repro_torch.kernels import knapsack
+from repro_torch.models import transformer as tfm
+from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -29,6 +40,9 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # The plain versions' products compare in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda:0")
 
 
@@ -122,3 +136,102 @@ def test_colgen_fleet_plan_on_card_equals_cpu_plan(cuda):
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
         else:
             assert a[key] == b[key], key
+
+
+# ---- attention kernels ----------------------------------------------------
+
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+       torch.bfloat16: dict(atol=1e-4, rtol=2.0 ** -7)}
+
+
+def _normal(seed, shape, dtype, device):
+    x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _ring_positions(cache_len, cur):
+    slots = np.arange(cache_len)
+    last = cur - (cur - slots) % cache_len
+    return torch.from_numpy(np.where(last >= 0, last, -1).astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,window,softcap", [
+    (1, 512, 8, 4, 256, None, 50.0),
+    (1, 700, 8, 4, 256, 256, 50.0),
+    (2, 300, 16, 8, 128, None, None),
+    (2, 77, 4, 2, 64, 16, 30.0),
+    (1, 1, 2, 1, 64, None, None),
+])
+def test_flash_kernel_matches_plain(cuda, b, s, h, kv, d, window, softcap, dtype):
+    q, k, v = (_normal(i, (b, s, n, d), dtype, cuda) for i, n in enumerate((h, kv, kv)))
+    before = flash.LAUNCHES
+    got = flash.flash_attention(q, k, v, window=window, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == before + 1
+    want = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,r,d,L,cur,window,softcap,ring", [
+    (4, 4, 2, 256, 2064, 2060, None, 50.0, False),
+    (2, 4, 2, 256, 512, 1500, 512, 50.0, True),
+    (4, 8, 2, 128, 528, 300, None, None, False),
+    (3, 2, 4, 64, 77, 70, 32, None, False),
+    (1, 1, 16, 256, 5, 2, None, None, False),
+])
+def test_decode_kernel_matches_plain(cuda, b, kv, r, d, L, cur, window, softcap, ring, dtype):
+    q = _normal(0, (b, kv, r, d), dtype, cuda)
+    k, v = (_normal(i, (b, L, kv, d), dtype, cuda) for i in (1, 2))
+    if ring:
+        pos = _ring_positions(L, cur).to(cuda)
+    else:
+        pos = torch.where(torch.arange(L) <= cur, torch.arange(L), -1).to(cuda, torch.int32)
+    before = decode.LAUNCHES
+    got = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert decode.LAUNCHES == before + 1
+    want = decode.decode_attention_plain(q, k, v, pos, cur, window=window,
+                                         logit_softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_attention_wrappers_raise_instead_of_falling_back(cuda):
+    q = _normal(0, (1, 64, 4, 64), torch.float32, cuda)
+    k = _normal(1, (1, 64, 2, 64), torch.float32, cuda)
+    before = (flash.LAUNCHES, decode.LAUNCHES)
+    with pytest.raises(ValueError):  # not contiguous
+        flash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError):  # a head_dim the kernel is not built for
+        flash.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                              k[..., :48].contiguous())
+    with pytest.raises(ValueError):  # another device
+        flash.flash_attention(q, k.cpu(), k)
+    dq = _normal(2, (1, 2, 2, 64), torch.float32, cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        decode.decode_attention(dq, k, k, pos.cpu(), 10)
+    with pytest.raises(ValueError):
+        decode.decode_attention(dq[..., :32].contiguous(), k[..., :32].contiguous(),
+                                k[..., :32].contiguous(), pos, 10)
+    assert (flash.LAUNCHES, decode.LAUNCHES) == before
+
+
+def test_engine_on_card_gives_the_cpu_engine_tokens(cuda):
+    """Smoke gemma2-2b with GQA in float32: greedy tokens on the card (both
+    kernels) equal those on the CPU (plain versions)."""
+    cfg = dataclasses.replace(smoke_variant(get_config("gemma2-2b")), num_kv_heads=2,
+                              dtype="float32")
+    params = tfm.init_params(cfg, seed=3, device="cpu")
+    tokens = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params.to(dev), batch_slots=2, max_seq=48, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=np.arange(20 + 3 * i) % cfg.vocab_size,
+                               max_new_tokens=12))
+        before = (flash.LAUNCHES, decode.LAUNCHES)
+        tokens[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        launched = (flash.LAUNCHES - before[0], decode.LAUNCHES - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (2 * 2, 2 * 2 * 12))
+    assert tokens["cpu"] == tokens[str(cuda)]

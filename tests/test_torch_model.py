@@ -1,0 +1,244 @@
+"""The port's model stack against the JAX reference, on the CPU.
+
+The reference's parameters (`repro.models.transformer.init_params`) are
+carried across with `repro_torch.interop.params_from_plain`, the same
+numpy-seeded tokens go through both `forward_prefill`/`forward_decode`,
+and the logits are compared.  In float32 the two differ only in the order
+of float32 sums (the reference's blocked online softmax against the
+port's plain attention), so the tolerance is 1e-4.  In bfloat16 the
+reference rounds attention scores and probabilities to bfloat16 where the
+port's kernels keep float32, so the comparison uses the reference's own
+serving tolerance, ``TOL = 0.08`` (`tests/test_serving_consistency.py`).
+
+The smoke variants of gemma2-2b and internlm2-1.8b have as many KV heads
+as query heads, so the GQA cases replace ``num_kv_heads`` with 2.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as jtfm
+from repro.roofline import analysis as janalysis
+from repro.serving import kvcache as jkv
+from repro_torch import configs as tconfigs
+from repro_torch.interop import params_from_plain
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttfm
+from repro_torch.roofline import analysis as tanalysis
+from repro_torch.serving import kvcache as tkv
+
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_TOL = dict(atol=0.08, rtol=0.08)  # test_serving_consistency.TOL
+KEY = jax.random.PRNGKey(0)
+
+
+def _gqa_smoke(arch, dtype="float32"):
+    cfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    return dataclasses.replace(cfg, num_kv_heads=2, dtype=dtype)
+
+
+def _both_params(cfg, seed=0):
+    jp = jtfm.init_params(jax.random.PRNGKey(seed), cfg)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    return jp, params_from_plain(cfg, tree, device="cpu")
+
+
+def _run_both(cfg, b, prompt, total, seed=0):
+    """(reference logits, port logits) of a prefill of ``prompt`` tokens
+    then decode steps up to ``total`` positions."""
+    jp, tp = _both_params(cfg, seed)
+    toks = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, total))
+    jc = jtfm.init_serve_cache(cfg, b, cache_len=total)
+    tc = ttfm.init_serve_cache(cfg, b, total, device="cpu")
+    jl, jc = jax.jit(lambda p, bt, c: jtfm.forward_prefill(p, cfg, bt, c))(
+        jp, {"tokens": jnp.asarray(toks[:, :prompt])}, jc)
+    tl, tc = ttfm.forward_prefill(tp, cfg, {"tokens": torch.from_numpy(toks[:, :prompt])}, tc)
+    pairs = [(np.asarray(jl, np.float32), tl.numpy())]
+    step = jax.jit(lambda p, tok, pos, c: jtfm.forward_decode(p, cfg, tok, pos, c))
+    for t in range(prompt, total):
+        jl, jc = step(jp, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t, jnp.int32), jc)
+        tl, tc = ttfm.forward_decode(tp, cfg, torch.from_numpy(toks[:, t:t + 1]), t, tc)
+        pairs.append((np.asarray(jl, np.float32), tl.numpy()))
+    return pairs, jc, tc
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "internlm2-1.8b"])
+def test_prefill_and_decode_match_reference_float32(arch):
+    """14 prefill positions, then 16 decode steps.  Gemma2's smoke windows
+    are 16 slots, so its local layers' ring wraps during decode."""
+    cfg = _gqa_smoke(arch)
+    pairs, jc, tc = _run_both(cfg, b=2, prompt=14, total=30)
+    assert len(pairs) == 17
+    for t, (want, got) in enumerate(pairs):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, err_msg=f"{arch} step {t}", **F32_TOL)
+    # The caches agree too: the ring's slots and positions, layer by layer.
+    for i, cache in enumerate(tc):
+        grp, slot = divmod(i, len(cfg.layer_pattern))
+        for key in ("k", "v"):
+            np.testing.assert_allclose(cache[key].numpy(), np.asarray(jc[slot][key][grp]),
+                                       **F32_TOL)
+        np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(jc[slot]["pos"][grp]))
+    if arch == "gemma2-2b":
+        assert tc[0]["k"].shape[1] == 16 and int(tc[0]["pos"].max()) == 29  # wrapped
+
+
+def test_prefill_longer_than_window_keeps_the_trailing_ring():
+    """A prompt longer than the local layers' 16-slot window: prefill keeps
+    the trailing window in ring order, then decode continues on it."""
+    cfg = _gqa_smoke("gemma2-2b")
+    pairs, jc, tc = _run_both(cfg, b=1, prompt=21, total=34, seed=3)
+    for want, got in pairs:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_array_equal(tc[0]["pos"].numpy(), np.asarray(jc[0]["pos"][0]))
+
+
+def test_prefill_and_decode_match_reference_bfloat16():
+    cfg = _gqa_smoke("gemma2-2b", dtype="bfloat16")
+    pairs, _, _ = _run_both(cfg, b=2, prompt=12, total=24)
+    for t, (want, got) in enumerate(pairs):
+        np.testing.assert_allclose(got, want, err_msg=f"step {t}", **BF16_TOL)
+
+
+def test_attention_train_matches_reference():
+    cfg = _gqa_smoke("gemma2-2b")
+    jp, tp = _both_params(cfg)
+    x = np.random.RandomState(1).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, window=16,
+              logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps)
+    want = jattn.attention_train(jax.tree.map(lambda a: a[0], jp["blocks"][0]["attn"]),
+                                 jnp.asarray(x), jnp.arange(40, dtype=jnp.int32), **kw)
+    got = tattn.attention_train(tp.blocks[0].attn, torch.from_numpy(x),
+                                torch.arange(40, dtype=torch.int32), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu2"])
+def test_activations_match_reference(name):
+    x = np.linspace(-6, 6, 1001, dtype=np.float32)
+    want = np.asarray(jlayers.activation_fn(name)(jnp.asarray(x)))
+    got = tlayers.activation_fn(name)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_rope_and_rms_norm_match_reference():
+    rng = np.random.RandomState(2)
+    pos = np.arange(0, 4096, 37, dtype=np.int32)
+    sin_j, cos_j = jlayers.rope(jnp.asarray(pos), 256, 10_000.0)
+    sin_t, cos_t = tlayers.rope(torch.from_numpy(pos), 256, 10_000.0)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), atol=2e-4)
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), atol=2e-4)
+    x = rng.standard_normal((2, len(pos), 3, 256)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlayers.apply_rope(torch.from_numpy(x), sin_t, cos_t).numpy(),
+        np.asarray(jlayers.apply_rope(jnp.asarray(x), sin_j, cos_j)), atol=1e-3)
+    w = rng.standard_normal(256).astype(np.float32)
+    np.testing.assert_allclose(
+        tlayers.rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(w))), atol=1e-5, rtol=1e-5)
+
+
+def test_params_carry_across_exactly_in_bfloat16():
+    cfg = _gqa_smoke("gemma2-2b", dtype="bfloat16")
+    jp, tp = _both_params(cfg)
+    np.testing.assert_array_equal(tp.embed.float().numpy(), np.asarray(jp["embed"], np.float32))
+    wq = np.asarray(jp["blocks"][1]["attn"]["wq"][0], np.float32)
+    np.testing.assert_array_equal(tp.blocks[1].attn.wq.float().numpy(), wq)
+    assert tp.blocks[1].attn.wq.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "internlm2-1.8b", "nemotron-4-15b",
+                                  "llava-next-mistral-7b", "musicgen-large", "yi-34b"])
+def test_init_params_has_the_reference_shapes(arch):
+    cfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    jp = jax.eval_shape(lambda k: jtfm.init_params(k, cfg), KEY)
+    tp = ttfm.init_params(cfg, seed=0, device="cpu")
+    sd = {k: tuple(v.shape) for k, v in tp.state_dict().items()}
+    assert sd.pop("embed") == jp["embed"].shape
+    assert sd.pop("final_norm") == jp["final_norm"].shape
+    for key in ("unembed", "vision_proj"):
+        assert sd.pop(key, None) == (jp[key].shape if key in jp else None)
+    flat = jax.tree_util.tree_flatten_with_path(jp["blocks"])[0]
+    want = {}
+    for path, leaf in flat:
+        slot, *rest = [getattr(p, "idx", getattr(p, "key", None)) for p in path]
+        for grp in range(cfg.num_groups):
+            name = ".".join(["blocks", str(grp * len(cfg.layer_pattern) + slot), *rest])
+            want[name] = tuple(leaf.shape[1:])
+    assert sd == want
+    assert all(v.dtype == torch.bfloat16 for v in tp.state_dict().values())
+    assert sum(v.numel() for v in tp.state_dict().values()) == sum(
+        int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(jp))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "grok-1-314b"])
+def test_unported_blocks_raise(arch):
+    cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttfm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkv.make_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_registry_is_the_reference(arch):
+    want = jconfigs.get_config(arch)
+    got = tconfigs.get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(tconfigs.smoke_variant(got)) == dataclasses.asdict(
+        jconfigs.smoke_variant(want))
+    assert got.param_count() == want.param_count()
+    for tokens in (1, 2048):
+        assert tanalysis.model_flops(got, tokens) == janalysis.model_flops(want, tokens)
+        assert tanalysis.model_kv_bytes(got, tokens) == janalysis.model_kv_bytes(want, tokens)
+        assert tanalysis.model_hbm_bytes(got, tokens) == janalysis.model_hbm_bytes(want, tokens)
+    assert tconfigs.DEFAULT_TOKENS_PER_FRAME == jconfigs.DEFAULT_TOKENS_PER_FRAME
+
+
+def _reference_slot_bytes(cfg, cache_len, long_context):
+    """The reference's `slot_kv_bytes`, counted on shapes: at full width its
+    arrays would take hundreds of MB."""
+    shapes = jax.eval_shape(
+        lambda: jtfm.init_serve_cache(cfg, 1, cache_len, long_context=long_context))
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize for s in jax.tree.leaves(shapes))
+
+
+@pytest.mark.parametrize("arch,cache_len,long_context", [
+    ("gemma2-2b", 2064, False), ("gemma2-2b", 8192, False), ("internlm2-1.8b", 528, False),
+    ("yi-34b", 64, True), ("nemotron-4-15b", 96, False),
+])
+def test_cache_bytes_match_reference(arch, cache_len, long_context):
+    full = jconfigs.get_config(arch)
+    smoke = jconfigs.smoke_variant(full)
+    kw = dict(long_context=long_context)
+    assert tkv.slot_kv_bytes(smoke, cache_len, **kw) == jkv.slot_kv_bytes(smoke, cache_len, **kw)
+    assert tkv.slot_kv_bytes(full, cache_len, **kw) == _reference_slot_bytes(
+        full, cache_len, long_context)
+    assert tkv.cache_bytes(tkv.make_cache(smoke, 3, cache_len, device="cpu", **kw)) == \
+        jkv.cache_bytes(jkv.make_cache(smoke, 3, cache_len, **kw))
+
+
+def test_reset_slot_zeroes_one_row_and_keeps_positions():
+    cfg = _gqa_smoke("internlm2-1.8b")
+    cache = tkv.make_cache(cfg, 3, 8, device="cpu")
+    for layer in cache:
+        layer["k"].normal_()
+        layer["v"].normal_()
+        layer["pos"].copy_(torch.arange(8))
+    before = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+    tkv.reset_slot(cache, 1)
+    for layer, old in zip(cache, before):
+        for key in ("k", "v"):
+            assert not layer[key][1].any()
+            torch.testing.assert_close(layer[key][[0, 2]], old[key][[0, 2]])
+        torch.testing.assert_close(layer["pos"], old["pos"])
