@@ -3,8 +3,9 @@
 
 Drives the port's two paths — the paper's resource manager, with
 branch-and-price pricing on the card, and the serving path of the analysis
-programs at gemma2-2b's full width — and holds every CUDA kernel of those
-paths against its plain torch version.  Phases, each raising on failure:
+programs at the full width of gemma2-2b, mamba2-1.3b and recurrentgemma-9b
+— and holds every CUDA kernel of those paths against its plain torch
+version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
@@ -19,27 +20,42 @@ paths against its plain torch version.  Phases, each raising on failure:
    the plan compared with the same fleet allocated with ``device="cpu"``;
 5. knapsack timing: kernel and plain version on the card at the manager
    path's largest pricing call, with CUDA events;
-6. attention kernels vs plain on the card, float32 (atol = rtol = 2e-5)
-   and bfloat16 (rtol one bf16 ulp, 2^-7, atol 1e-4): flash attention at
-   gemma2-2b's served prefill (B=4, S=2048), at 8192 tokens with a
-   binding 4096 window, at internlm2-1.8b's layer and at ragged lengths;
-   flash-decode at gemma2-2b's served cache, a wrapped 4096-slot ring,
-   internlm2-1.8b's cache and a ragged cache;
+6. serving kernels vs plain on the card.  Attention in float32 (atol =
+   rtol = 2e-5) and bfloat16 (rtol one bf16 ulp, 2^-7, atol 1e-4): flash
+   attention at gemma2-2b's served prefill (B=4, S=2048), at 8192 tokens
+   with a binding 4096 window, at internlm2-1.8b's and recurrentgemma-9b's
+   layers (H=16 over one KV head of 256, S=1024, window 2048) and at ragged
+   lengths; flash-decode at gemma2-2b's served cache, a wrapped 4096-slot
+   ring, internlm2-1.8b's and recurrentgemma-9b's caches (R=16, L=1040)
+   and a ragged cache.  The SSD scan in float32 (atol 2e-4, rtol 1e-3) and
+   bfloat16 (one bf16 ulp more) at mamba2-1.3b's served prefill (B=4,
+   S=1024, H=64, P=64, N=128) with and without h0, at ragged S=1000 and
+   S=7, and at the other head, state and chunk sizes it is built for.  The
+   RG-LRU scan in float32 (2e-5) at recurrentgemma-9b's served prefill
+   (B=4, S=1024, W=4096) with h0 and at ragged lengths;
 7. serving path: (a) the launcher `repro_torch.launch.serve.main` for
-   full-width gemma2-2b (the manager plans the fleet, one engine per
-   instance serves it); (b) frame analysis: a `ServingEngine` for
-   full-width gemma2-2b in bf16 serves 8 requests of 2048-token prompts
-   over 4 slots, 16 greedy tokens each, with both kernels' launches
-   counted (26 per prefill wave, 26 per decode step) and CUDA events
-   around every launch and every forward call;
-8. attention timing and the model against its plain path: each kernel
-   held against its plain version on the served inputs of phase 7(b)'s
-   largest call, then timed there beside its plain version and a library
-   yardstick (and at internlm2-1.8b's shape, where
-   ``scaled_dot_product_attention`` computes the same function); then
-   full-width gemma2-2b in float32, one 2 x 2048 prefill and 8 decode
-   steps, on the kernels and again with the kernel dispatch patched to
-   the plain versions, logits compared.
+   full-width gemma2-2b and mamba2-1.3b (the manager plans the fleet, one
+   engine per instance serves it; its 6-10-token prompts are one ragged
+   SSD chunk); (b) frame analysis: a `ServingEngine` for each of
+   full-width gemma2-2b, mamba2-1.3b and recurrentgemma-9b in bf16 serves
+   8 requests of ``DEFAULT_TOKENS_PER_FRAME``-token prompts (2048, 1024,
+   1024) over 4 slots, 16 greedy tokens each, with every kernel's
+   launches counted and asserted by layer kind (gemma2-2b: 26 flash a
+   wave, 26 flash-decode a step; mamba2-1.3b: 48 SSD scans a wave, none a
+   step; recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
+   flash-decode a step) and CUDA events around every launch and every
+   forward call;
+8. kernel timing and the models against their plain paths: each kernel
+   held against its plain version on phase 7(b)'s own served inputs
+   (attention gemma2-2b's and recurrentgemma-9b's, the SSD scan
+   mamba2-1.3b's, the RG-LRU scan recurrentgemma-9b's), then timed there
+   beside its plain version, its bound and a library yardstick where one
+   PyTorch call computes the same function (``scaled_dot_product_attention``
+   at recurrentgemma-9b's attention, whose window does not bind, and at
+   internlm2-1.8b's shapes); then each of the three models at
+   full width and depth in float32, one 2 x prompt prefill and 8 decode
+   steps, on the kernels and again with every kernel's dispatch patched
+   to its plain version, logits compared.
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Phase 1 prints ``nvidia-smi``'s name and power limit on a line
@@ -66,7 +82,7 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config  # noqa: E402
 from repro_torch.core.binpack import colgen  # noqa: E402
 from repro_torch.core.binpack.arcflow import group_items  # noqa: E402
 from repro_torch.core.binpack.problem import BinType  # noqa: E402
@@ -80,6 +96,7 @@ from repro_torch.interop import plan_to_plain  # noqa: E402
 from repro_torch.kernels import _build, knapsack  # noqa: E402
 from repro_torch.kernels import attention as flash  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
+from repro_torch.kernels import rglru, ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -98,16 +115,31 @@ BF16_FLOPS_PER_S = 989e12
 #: round to outputs at most one bf16 ulp apart, which rtol 2^-7 covers, and
 #: atol 1e-4 covers the float32 difference (at most 2.2e-6 measured).
 TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
-#: The serving path's model and its frame-analysis deployment.
-ARCH = "gemma2-2b"
-PROMPT_TOKENS = 2048  # DEFAULT_TOKENS_PER_FRAME["gemma2-2b"]
+#: The SSD kernel vs plain: float32 at the reference's kernel limits
+#: (tests/test_kernels.py:83-84), since both cut S into the same chunks and
+#: differ in the order of their float32 sums; bfloat16 adds one bf16 ulp
+#: (rtol 2^-7), since both round the float32 y once.  The state is float32.
+SSD_TOLERANCE = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (2e-4, 1e-3 + 2.0 ** -7)}
+#: The RG-LRU kernel vs plain: the same float32 multiply-adds, fused or
+#: not, the kernel's composed chunk by chunk: 2e-5, the reference's float32
+#: kernel limit.
+RGLRU_TOLERANCE = (2e-5, 2e-5)
+#: The serving path's models (DEFAULT_TOKENS_PER_FRAME gives each one's
+#: prompt: 2048, 1024 and 1024 tokens) and their frame-analysis deployment.
+SERVE_ARCHS = ("gemma2-2b", "mamba2-1.3b", "recurrentgemma-9b")
+LAUNCHER_ARCHS = ("gemma2-2b", "mamba2-1.3b")
 NEW_TOKENS = 16
 SLOTS = 4
 N_REQUESTS = 8
-#: Phase 8: float32 logits of the kernel path vs the plain path.  Both are
-#: float32 throughout; they differ only in the order of the attention
-#: kernels' sums, carried through 26 layers.
-MODEL_ATOL = 1e-3
+#: Phase 8: float32 logits of the kernel path vs the plain path, absolute.
+#: Both are float32 throughout and differ only in the order of the kernels'
+#: sums, carried through the layers: gemma2-2b's 26 (attention, logits
+#: softcapped at 30); mamba2-1.3b's 48 (the SSD scan: the same chunks,
+#: another order of the block products' sums); recurrentgemma-9b's 38 (the
+#: RG-LRU scan, fused or separate multiply-adds, and attention at rep 16).
+#: Logits are O(1) in all three (tied embeddings of scale 0.02 against
+#: normed activations), so 1e-3 is some 1e-3 of them.
+MODEL_ATOL = {"gemma2-2b": 1e-3, "mamba2-1.3b": 1e-3, "recurrentgemma-9b": 1e-3}
 
 VGG = AnalysisProgram("VGG-16", "vgg16")
 ZF = AnalysisProgram("ZF", "zf")
@@ -417,6 +449,7 @@ FLASH_CASES = [
     ("gemma2-2b layer", 4, 2048, 8, 4, 256, None, 50.0),
     ("gemma2-2b, window binds", 1, 8192, 8, 4, 256, 4096, 50.0),
     ("internlm2-1.8b layer", 4, 512, 16, 8, 128, None, None),
+    ("recurrentgemma-9b layer", 4, 1024, 16, 1, 256, 2048, None),
     ("ragged S=77", 2, 77, 4, 2, 64, None, 30.0),
     ("ragged S=2047, window 100", 1, 2047, 4, 1, 64, 100, None),
 ]
@@ -425,21 +458,60 @@ DECODE_CASES = [
     ("gemma2-2b cache", 4, 4, 2, 256, 2064, 2060, None, 50.0, False),
     ("wrapped ring", 4, 4, 2, 256, 4096, 6000, 4096, 50.0, True),
     ("internlm2-1.8b cache", 4, 8, 2, 128, 528, 520, None, None, False),
+    ("recurrentgemma-9b cache", 4, 1, 16, 256, 1040, 1030, 2048, None, False),
     ("ragged L=77", 3, 2, 4, 64, 77, 70, 32, None, False),
+]
+#: (label, B, S, H, P, N, chunk, with h0)
+SSD_CASES = [
+    ("mamba2-1.3b prefill", 4, 1024, 64, 64, 128, 128, True),
+    ("mamba2-1.3b prefill, no h0", 4, 1024, 64, 64, 128, 128, False),
+    ("ragged S=1000", 4, 1000, 64, 64, 128, 128, True),
+    ("ragged S=7", 4, 7, 64, 64, 128, 128, True),
+    ("P=32 N=32 chunk 32, ragged S=77", 2, 77, 8, 32, 32, 32, True),
+    ("N=64 chunk 64", 2, 256, 4, 64, 64, 64, True),
+]
+#: (label, B, S, W, with h0)
+RGLRU_CASES = [
+    ("recurrentgemma-9b prefill", 4, 1024, 4096, True),
+    ("ragged S=1000", 4, 1000, 4096, True),
+    ("ragged S=7, W=100", 2, 7, 100, False),
+    ("three chunks, S=130, W=77", 3, 130, 77, True),
 ]
 
 
-def _compare(label, dtype, got, want) -> dict:
+def _compare(label, dtype, got, want, tol=None) -> dict:
     torch.cuda.synchronize()
-    atol, rtol = TOLERANCE[dtype]
+    atol, rtol = TOLERANCE[dtype] if tol is None else tol
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError(f"{label} {dtype}: kernel vs plain max abs err {err:.3g} "
                              f"outside atol={atol} rtol={rtol}")
-    return {"label": label, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err}
+    return {"label": label, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "max_abs_want": float(want.float().abs().max())}
 
 
-def phase_attention_vs_plain() -> list[dict]:
+def ssd_inputs(rng, b, s, h, p, n, dtype, with_h0):
+    """x, dt, A, Bm, Cm, h0 on the card, Bm and Cm column slices of one
+    (B, S, 2N) tensor as the model passes them."""
+    x = _normal(rng, (b, s, h, p), dtype)
+    dt = F.softplus(_normal(rng, (b, s, h), torch.float32))
+    A = -torch.exp(0.5 * _normal(rng, (h,), torch.float32))
+    bc = (0.5 * _normal(rng, (b, s, 2 * n), torch.float32)).to(dtype)
+    h0 = 0.1 * _normal(rng, (b, h, p, n), torch.float32) if with_h0 else None
+    return x, dt, A, bc[..., :n], bc[..., n:], h0
+
+
+def compare_ssd(label, args, chunk) -> list[dict]:
+    """The SSD kernel against its plain version: y in its type, the final state."""
+    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    y_p, h_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+    return [{"kernel": "ssd_scan", **_compare(f"ssd {label}", y.dtype, y, y_p,
+                                              SSD_TOLERANCE[y.dtype])},
+            {"kernel": "ssd_scan", **_compare(f"ssd {label} state", h.dtype, h, h_p,
+                                              SSD_TOLERANCE[h.dtype])}]
+
+
+def phase_kernels_vs_plain() -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (label, b, s, h, kv, d, window, cap) in enumerate(FLASH_CASES):
@@ -467,29 +539,88 @@ def phase_attention_vs_plain() -> list[dict]:
                                                  logit_softcap=cap)
             rows.append({"kernel": "decode_attention",
                          **_compare(f"decode {label}", dtype, got, want)})
+        for i, (label, b, s, h, p, n, chunk, with_h0) in enumerate(SSD_CASES):
+            args = ssd_inputs(np.random.RandomState(300 + i), b, s, h, p, n, dtype, with_h0)
+            rows += compare_ssd(label, args, chunk)
+    for i, (label, b, s, w, with_h0) in enumerate(RGLRU_CASES):
+        rng = np.random.RandomState(400 + i)
+        a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32))
+        bb = 0.3 * _normal(rng, (b, s, w), torch.float32)
+        h0 = 0.1 * _normal(rng, (b, w), torch.float32) if with_h0 else None
+        rows.append({"kernel": "rglru_scan", **_compare(
+            f"rglru {label}", torch.float32, rglru.rglru_scan(a, bb, h0),
+            rglru.rglru_scan_plain(a, bb, h0), RGLRU_TOLERANCE)})
     for r in rows:
-        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
+        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g} "
+            f"(max abs {r['max_abs_want']:.3g})")
     return rows
 
 
 # --------------------------------------------------------------- phase 7
 
+#: The serving path's kernels: the wrapper module, and which launch's
+#: inputs `ServeRecorder` keeps: "largest", the first of the most elements
+#: (flash attention's q, k, v are never written after), or "last" (the
+#: decode cache is written before each launch and not after its last; the
+#: scans' inputs are fresh tensors, and their caches are replaced, not
+#: written).
+SERVE_KERNELS = {"flash_attention": (flash, "largest"), "decode_attention": (decode, "last"),
+                 "ssd_scan": (ssd, "last"), "rglru_scan": (rglru, "last")}
+#: Each serving kernel's plain version, with its `_dispatch`'s arguments.
+PLAIN_DISPATCH = {
+    "flash_attention": lambda q, k, v, w, c: flash.flash_attention_plain(
+        q, k, v, window=w, logit_softcap=c),
+    "decode_attention": lambda q, k, v, p, cur, w, c: decode.decode_attention_plain(
+        q, k, v, p, cur, window=w, logit_softcap=c),
+    "ssd_scan": lambda x, dt, A, Bm, Cm, h0, chunk: ssd.ssd_scan_plain(
+        x, dt, A, Bm, Cm, h0, chunk=chunk),
+    "rglru_scan": rglru.rglru_scan_plain,
+}
+PREFILL_KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")
+#: Each serving kernel's source under src/repro_torch/kernels/csrc.
+SOURCE_FILES = {"flash_attention": "flash_attention.cu",
+                "decode_attention": "decode_attention.cu",
+                "ssd_scan": "ssd.cu", "rglru_scan": "rglru.cu"}
+
+
+def expected_launches(cfg, waves: int, steps: int) -> dict:
+    """Launches per kernel for ``waves`` prefills and ``steps`` decode steps:
+    flash per attention layer and wave, flash-decode per attention layer
+    and step, the SSD scan per ``"ssd"`` layer and wave, the RG-LRU scan per
+    ``"recurrent"`` layer and wave.  The scans' decode steps are plain
+    torch and launch nothing."""
+    layers = {kind: cfg.layer_pattern.count(kind) * cfg.num_groups
+              for kind in ("attention", "ssd", "recurrent")}
+    return {"flash_attention": layers["attention"] * waves,
+            "decode_attention": layers["attention"] * steps,
+            "ssd_scan": layers["ssd"] * waves,
+            "rglru_scan": layers["recurrent"] * waves}
+
+
+def _reset_serve_counts() -> None:
+    for mod, _ in SERVE_KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def _serve_counts() -> dict:
+    return {name: mod.LAUNCHES for name, (mod, _) in SERVE_KERNELS.items()}
+
 
 class ServeRecorder:
-    """During the serving path: CUDA events right around every attention
-    kernel launch (the C function each wrapper's `_kernel_fn` returns) and
-    around every `forward_prefill` / `forward_decode` call; the inputs of
-    the largest flash launch and of the last decode launch; the last
-    position's logits of every prefill."""
+    """During the serving path: CUDA events right around every kernel
+    launch (the C function each wrapper's `_kernel_fn` returns) and around
+    every `forward_prefill` / `forward_decode` call; the inputs of one
+    served launch of each kernel (see `SERVE_KERNELS`); the last position's
+    logits of every prefill."""
 
     def __init__(self):
-        self.launches = {"flash_attention": [], "decode_attention": []}
+        self.launches = {name: [] for name in SERVE_KERNELS}
         self.forward = {"prefill": [], "decode": []}
-        self.flash_args = None
-        self.decode_args = None
+        self.args = {name: None for name in SERVE_KERNELS}
         self.prefill_logits = []
-        self._saved = (flash._kernel_fn, decode._kernel_fn, flash._dispatch,
-                       decode._dispatch, tfm.forward_prefill, tfm.forward_decode)
+        self._saved = {name: (mod._kernel_fn, mod._dispatch)
+                       for name, (mod, _) in SERVE_KERNELS.items()}
+        self._saved_forward = (tfm.forward_prefill, tfm.forward_decode)
 
     @staticmethod
     def _timed(events, fn):
@@ -503,37 +634,39 @@ class ServeRecorder:
             return out
         return call
 
+    def _kernel_fn(self, name):
+        kernel_fn = self._saved[name][0]
+        return lambda *a: self._timed(self.launches[name], kernel_fn(*a))
+
+    def _dispatch(self, name, keep):
+        dispatch = self._saved[name][1]
+
+        def call(*args):
+            old = self.args[name]
+            if keep == "last" or old is None or args[0].numel() > old[0].numel():
+                self.args[name] = args
+            return dispatch(*args)
+        return call
+
     def __enter__(self):
-        kf_flash, kf_decode, d_flash, d_decode, prefill, decode_fwd = self._saved
-        flash._kernel_fn = lambda dt: self._timed(self.launches["flash_attention"],
-                                                  kf_flash(dt))
-        decode._kernel_fn = lambda dt: self._timed(self.launches["decode_attention"],
-                                                   kf_decode(dt))
-
-        def flash_dispatch(q, k, v, window, cap):
-            if self.flash_args is None or q.numel() > self.flash_args[0].numel():
-                self.flash_args = (q, k, v, window, cap)  # never written after
-            return d_flash(q, k, v, window, cap)
-
-        def decode_dispatch(q, k, v, pos, cur, window, cap):
-            # The cache is written before each launch and not after its last.
-            self.decode_args = (q, k, v, pos, cur, window, cap)
-            return d_decode(q, k, v, pos, cur, window, cap)
+        for name, (mod, keep) in SERVE_KERNELS.items():
+            mod._kernel_fn = self._kernel_fn(name)
+            mod._dispatch = self._dispatch(name, keep)
+        prefill, decode_fwd = self._saved_forward
 
         def timed_prefill(*args, **kwargs):
             logits, caches = self._timed(self.forward["prefill"], prefill)(*args, **kwargs)
             self.prefill_logits.append(logits[:, -1].clone())
             return logits, caches
 
-        flash._dispatch = flash_dispatch
-        decode._dispatch = decode_dispatch
         tfm.forward_prefill = timed_prefill
         tfm.forward_decode = self._timed(self.forward["decode"], decode_fwd)
         return self
 
     def __exit__(self, *exc):
-        (flash._kernel_fn, decode._kernel_fn, flash._dispatch, decode._dispatch,
-         tfm.forward_prefill, tfm.forward_decode) = self._saved
+        for name, (mod, _) in SERVE_KERNELS.items():
+            mod._kernel_fn, mod._dispatch = self._saved[name]
+        tfm.forward_prefill, tfm.forward_decode = self._saved_forward
 
     @staticmethod
     def total_ms(events) -> float:
@@ -541,100 +674,94 @@ class ServeRecorder:
         return float(sum(s.elapsed_time(e) for s, e in events))
 
 
-def _reset_attention_counts() -> None:
-    flash.LAUNCHES = 0
-    decode.LAUNCHES = 0
-
-
-def phase_serve_launcher() -> dict:
-    argv = ["--arch", ARCH, "--no-smoke-weights", "--streams", "3", "--requests", "2",
+def phase_serve_launcher(arch: str) -> dict:
+    argv = ["--arch", arch, "--no-smoke-weights", "--streams", "3", "--requests", "2",
             "--new-tokens", "4"]
     with ServeRecorder() as rec:
-        _reset_attention_counts()
+        _reset_serve_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = serve.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        counts = (flash.LAUNCHES, decode.LAUNCHES)
-    layers = get_config(ARCH).num_layers
+        counts = _serve_counts()
+    cfg = get_config(arch)
     waves, steps = len(rec.forward["prefill"]), len(rec.forward["decode"])
-    if counts != (layers * waves, layers * steps) or waves == 0 or steps == 0:
-        raise AssertionError(f"launcher: {counts} launches for {waves} waves, {steps} steps")
-    vocab = get_config(ARCH).vocab_size
+    if counts != expected_launches(cfg, waves, steps) or waves == 0 or steps == 0:
+        raise AssertionError(f"launcher {arch}: {counts} launches for {waves} waves, "
+                             f"{steps} steps")
     for rs in out["results"].values():
         for r in rs:
-            if len(r.tokens) != 4 or not all(0 <= t < vocab for t in r.tokens):
-                raise AssertionError(f"launcher request {r.rid}: bad tokens {r.tokens}")
+            if len(r.tokens) != 4 or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"launcher {arch} request {r.rid}: bad tokens {r.tokens}")
     for logits in rec.prefill_logits:
         if not bool(torch.isfinite(logits).all()):
-            raise AssertionError("launcher: non-finite prefill logits")
-    log(f"  launcher: {len(out['plan'].instances)} instances "
+            raise AssertionError(f"launcher {arch}: non-finite prefill logits")
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  launcher {arch}: {len(out['plan'].instances)} instances "
         f"{out['plan'].instance_counts()}, {out['tokens']} tokens in {wall_s:.2f} s; "
-        f"flash launches {counts[0]} ({waves} waves), decode launches {counts[1]} "
-        f"({steps} steps)")
+        f"{waves} waves, {steps} decode steps; launches {launched}")
     return {"instances": len(out["plan"].instances), "hourly_cost": out["plan"].hourly_cost,
             "tokens": out["tokens"], "wall_s": wall_s, "waves": waves, "decode_steps": steps,
-            "flash_launches": counts[0], "decode_launches": counts[1]}
+            "launches": counts}
 
 
-def phase_frame_analysis(params) -> dict:
-    cfg = get_config(ARCH)
-    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_seq=PROMPT_TOKENS + NEW_TOKENS)
+def phase_frame_analysis(arch: str, params) -> dict:
+    cfg = get_config(arch)
+    prompt_tokens = DEFAULT_TOKENS_PER_FRAME[arch]
+    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_seq=prompt_tokens + NEW_TOKENS)
     rng = np.random.RandomState(0)
     for rid in range(N_REQUESTS):
-        engine.submit(Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, PROMPT_TOKENS),
+        engine.submit(Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, prompt_tokens),
                               max_new_tokens=NEW_TOKENS))
     with ServeRecorder() as rec:
-        _reset_attention_counts()
+        _reset_serve_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results = engine.run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        counts = {"flash_attention": flash.LAUNCHES, "decode_attention": decode.LAUNCHES}
+        counts = _serve_counts()
     waves, steps = len(rec.forward["prefill"]), len(rec.forward["decode"])
-    expect = {"flash_attention": cfg.num_layers * waves,
-              "decode_attention": cfg.num_layers * steps}
+    expect = expected_launches(cfg, waves, steps)
     if waves != N_REQUESTS // SLOTS or steps != waves * NEW_TOKENS or counts != expect:
-        raise AssertionError(f"frame analysis: launches {counts} for {waves} waves and "
+        raise AssertionError(f"frame analysis {arch}: launches {counts} for {waves} waves and "
                              f"{steps} decode steps (expected {expect})")
     if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
-        raise AssertionError("frame analysis: missing results")
+        raise AssertionError(f"frame analysis {arch}: missing results")
     for r in results:
         if len(r.tokens) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(f"frame analysis request {r.rid}: bad tokens")
+            raise AssertionError(f"frame analysis {arch} request {r.rid}: bad tokens")
     for logits in rec.prefill_logits:
         if tuple(logits.shape) != (SLOTS, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
-            raise AssertionError("frame analysis: bad prefill logits")
+            raise AssertionError(f"frame analysis {arch}: bad prefill logits")
     prefill_ms = [s.elapsed_time(e) for s, e in rec.forward["prefill"]]
     decode_ms = [s.elapsed_time(e) for s, e in rec.forward["decode"]]
-    kernel_ms = {name: rec.total_ms(ev) for name, ev in rec.launches.items()}
+    kernel_ms = {name: rec.total_ms(ev) for name, ev in rec.launches.items() if ev}
     tokens = sum(len(r.tokens) for r in results)
+    prefill_kernel_ms = sum(kernel_ms.get(k, 0.0) for k in PREFILL_KERNELS)
     out = {
-        "requests": N_REQUESTS, "prompt_tokens": PROMPT_TOKENS, "new_tokens": NEW_TOKENS,
-        "slots": SLOTS, "waves": waves, "decode_steps": steps, "launches": counts,
-        "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "arch": arch, "requests": N_REQUESTS, "prompt_tokens": prompt_tokens,
+        "new_tokens": NEW_TOKENS, "slots": SLOTS, "waves": waves, "decode_steps": steps,
+        "launches": counts, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(decode_ms)),
         "kernel_ms": kernel_ms,
         "kernel_share": {n: ms / 1e3 / wall_s for n, ms in kernel_ms.items()},
-        "prefill_kernel_share": kernel_ms["flash_attention"] / sum(prefill_ms),
-        "decode_kernel_share": kernel_ms["decode_attention"] / sum(decode_ms),
-        "_flash_args": rec.flash_args, "_decode_args": rec.decode_args,
+        "prefill_kernel_share": prefill_kernel_ms / sum(prefill_ms),
+        "decode_kernel_share": kernel_ms.get("decode_attention", 0.0) / sum(decode_ms),
+        "_args": rec.args,
     }
-    log(f"  {N_REQUESTS} requests x {PROMPT_TOKENS}-token prompts, {SLOTS} slots: "
-        f"{waves} waves, {steps} decode steps; flash launches {counts['flash_attention']}, "
-        f"decode launches {counts['decode_attention']}")
+    log(f"  {arch}: {N_REQUESTS} requests x {prompt_tokens}-token prompts, {SLOTS} slots: "
+        f"{waves} waves, {steps} decode steps; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
     log(f"  wall {wall_s:.3f} s, {out['tokens_per_s']:.1f} generated tokens/s; prefill "
         f"{', '.join(f'{ms:.1f}' for ms in prefill_ms)} ms; decode "
         f"{out['decode_ms_per_step']:.3f} ms/step")
-    log(f"  kernel time: flash {kernel_ms['flash_attention']:.2f} ms "
-        f"({out['kernel_share']['flash_attention']:.2%} of wall, "
-        f"{out['prefill_kernel_share']:.2%} of prefill), decode "
-        f"{kernel_ms['decode_attention']:.2f} ms "
-        f"({out['kernel_share']['decode_attention']:.2%} of wall, "
-        f"{out['decode_kernel_share']:.2%} of decode)")
+    log("  kernel time: " + "; ".join(
+        f"{n} {ms:.2f} ms ({out['kernel_share'][n]:.2%} of wall)" for n, ms in kernel_ms.items())
+        + f"; kernels {out['prefill_kernel_share']:.2%} of prefill, "
+        f"{out['decode_kernel_share']:.2%} of decode")
     return out
 
 
@@ -787,6 +914,109 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     return {"flash_attention": f, "decode_attention": dd, "served_checks": served}
 
 
+def phase_attention_timing_rep16(flash_args, decode_args) -> dict:
+    """Both attention kernels on recurrentgemma-9b's served inputs (16 query
+    heads over one KV head of 256, window 2048, no softcap): held against
+    their plain versions, then timed beside them, their bounds and SDPA,
+    which computes the same functions there as long as the window does
+    not bind (S and the cache's positions within it)."""
+    before = (flash.LAUNCHES, decode.LAUNCHES)
+    q, k, v, window, cap = flash_args
+    dq, dk, dv, pos, cur, dwin, dcap = decode_args
+    served = [
+        {"kernel": "flash_attention", **_compare(
+            "flash served prefill, rep 16", q.dtype, flash._dispatch(q, k, v, window, cap),
+            flash.flash_attention_plain(q, k, v, window=window, logit_softcap=cap))},
+        {"kernel": "decode_attention", **_compare(
+            "decode served step, rep 16", dq.dtype,
+            decode._dispatch(dq, dk, dv, pos, cur, dwin, dcap),
+            decode.decode_attention_plain(dq, dk, dv, pos, cur, window=dwin,
+                                          logit_softcap=dcap))},
+    ]
+    for r in served:
+        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
+    if cap is not None or dcap is not None or (window and q.shape[1] > window):
+        raise AssertionError("recurrentgemma-9b's served attention is not SDPA's function")
+    mask = (pos >= 0) & (pos <= cur)
+    if dwin:
+        mask &= pos > cur - dwin
+    f = {"shape": list(q.shape), "kv_heads": k.shape[2], "window": window,
+         "ms": time_cold_ms(lambda: flash._dispatch(q, k, v, window, cap), reps=10),
+         "plain_ms": time_cold_ms(lambda: flash.flash_attention_plain(
+             q, k, v, window=window), reps=5),
+         "library_ms": time_cold_ms(lambda: _sdpa_causal(q, k, v), reps=10),
+         **flash_bound(q, k, window)}
+    dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "window": dwin,
+          "ms": time_cold_ms(lambda: decode._dispatch(dq, dk, dv, pos, cur, dwin, dcap),
+                             reps=50),
+          "plain_ms": time_cold_ms(lambda: decode.decode_attention_plain(
+              dq, dk, dv, pos, cur, window=dwin), reps=20),
+          "library_ms": time_cold_ms(lambda: _sdpa_decode(dq, dk, dv, mask), reps=50),
+          **decode_bound(dq, dk, pos, cur, dwin)}
+    flash.LAUNCHES, decode.LAUNCHES = before
+    for name, t in (("flash_attention", f), ("decode_attention", dd)):
+        log(f"  {name} at recurrentgemma-9b's {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"flash_attention": f, "decode_attention": dd, "served_checks": served}
+
+
+
+
+def ssd_bound(x, Bm, h0, chunk) -> dict:
+    """Bytes: x and y, dt, A, B and C (one (B, S, 2N) tensor), h0 if given
+    and the final state, each once.  Operations: per (b, h) and chunk of q
+    positions, the causal halves of C·Bᵀ and w·(dt x), then C·h_in and the
+    state's outer products, 2 operations per multiply-add."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    item = x.element_size()
+    bytes_moved = (2 * x.numel() * item + b * s * h * 4 + h * 4 + 2 * b * s * n * item
+                   + (1 + (h0 is not None)) * b * h * p * n * 4)
+    q = min(chunk, s)
+    lens = [q] * (s // q) + ([s % q] if s % q else [])
+    ops = 2 * b * h * sum(ln * (ln + 1) // 2 * (n + p) + 2 * ln * n * p for ln in lens)
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else SIMT_OPS_PER_S
+    return _bound(bytes_moved, ops, peak)
+
+
+def rglru_bound(a, h0) -> dict:
+    """Bytes: a, b and h, and h0 if given; one float32 multiply-add a step."""
+    bytes_moved = 3 * a.numel() * 4 + (0 if h0 is None else h0.numel() * 4)
+    return _bound(bytes_moved, 2 * a.numel(), SIMT_OPS_PER_S)
+
+
+def phase_scan_timing(ssd_args, rglru_args) -> dict:
+    """The SSD and RG-LRU kernels against their plain versions on phase
+    7(b)'s served inputs, then timed there beside their plain versions and
+    bounds.  No single PyTorch call computes either function."""
+    before = (ssd.LAUNCHES, rglru.LAUNCHES)
+    *sargs, chunk = ssd_args
+    x, _dt, _A, Bm, _Cm, h0 = sargs
+    a, bb, h0r = rglru_args
+    served = compare_ssd("served prefill", sargs, chunk) + [{"kernel": "rglru_scan", **_compare(
+        "rglru served prefill", a.dtype, rglru._dispatch(a, bb, h0r),
+        rglru.rglru_scan_plain(a, bb, h0r), RGLRU_TOLERANCE)}]
+    for r in served:
+        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
+    s_ = {"shape": list(x.shape), "state": Bm.shape[-1], "chunk": chunk, "h0": h0 is not None,
+          "dtype": str(x.dtype).replace("torch.", "")}
+    s_["ms"] = time_cold_ms(lambda: ssd._dispatch(*ssd_args), reps=10)
+    s_["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_plain(*sargs, chunk=chunk), reps=5)
+    s_.update(ssd_bound(x, Bm, h0, chunk))
+    s_["library_ms"] = None
+    r_ = {"shape": list(a.shape), "h0": h0r is not None, "dtype": "float32"}
+    r_["ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, h0r), reps=20)
+    r_["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_plain(a, bb, h0r), reps=3)
+    r_.update(rglru_bound(a, h0r))
+    r_["library_ms"] = None
+    ssd.LAUNCHES, rglru.LAUNCHES = before  # timing launches are not the path's
+    for name, t in (("ssd_scan", s_), ("rglru_scan", r_)):
+        log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"ssd_scan": s_, "rglru_scan": r_, "served_checks": served}
+
+
 def _model_logits(params, cfg, prompt, steps) -> list[torch.Tensor]:
     b, s = prompt.shape
     caches = tfm.init_serve_cache(cfg, b, s + steps.shape[1])
@@ -798,45 +1028,51 @@ def _model_logits(params, cfg, prompt, steps) -> list[torch.Tensor]:
     return out
 
 
-def phase_model_vs_plain() -> dict:
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+def phase_model_vs_plain(arch: str) -> dict:
+    """The full-width model in float32, one 2 x prompt prefill and 8 decode
+    steps, on the kernels and again with every kernel's dispatch patched to
+    its plain version; the logits compared."""
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    prompt_tokens = DEFAULT_TOKENS_PER_FRAME[arch]
     params = tfm.init_params(cfg, seed=1)
     rng = np.random.RandomState(1)
-    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, PROMPT_TOKENS))).cuda()
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, prompt_tokens))).cuda()
     steps = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 8))).cuda()
-    before = (flash.LAUNCHES, decode.LAUNCHES)
+    before = _serve_counts()
     t0 = time.perf_counter()
     kern = _model_logits(params, cfg, prompt, steps)
     torch.cuda.synchronize()
     kern_s = time.perf_counter() - t0
-    launched = (flash.LAUNCHES - before[0], decode.LAUNCHES - before[1])
-    if launched != (cfg.num_layers, cfg.num_layers * 8):
-        raise AssertionError(f"float32 model: launches {launched}")
-    saved = flash._dispatch, decode._dispatch
-    flash._dispatch = lambda q, k, v, w, c: flash.flash_attention_plain(
-        q, k, v, window=w, logit_softcap=c)
-    decode._dispatch = lambda q, k, v, p, cur, w, c: decode.decode_attention_plain(
-        q, k, v, p, cur, window=w, logit_softcap=c)
+    launched = {k: n - before[k] for k, n in _serve_counts().items()}
+    if launched != expected_launches(cfg, waves=1, steps=8):
+        raise AssertionError(f"float32 {arch}: launches {launched}")
+    saved = {name: mod._dispatch for name, (mod, _) in SERVE_KERNELS.items()}
+    for name, (mod, _) in SERVE_KERNELS.items():
+        mod._dispatch = PLAIN_DISPATCH[name]
     try:
         t0 = time.perf_counter()
         plain = _model_logits(params, cfg, prompt, steps)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     finally:
-        flash._dispatch, decode._dispatch = saved
-    flash.LAUNCHES, decode.LAUNCHES = before
+        for name, (mod, _) in SERVE_KERNELS.items():
+            mod._dispatch = saved[name]
+            mod.LAUNCHES = before[name]
     errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
     for a in kern:
         if not bool(torch.isfinite(a).all()):
-            raise AssertionError("float32 model: non-finite logits")
-    if max(errs) > MODEL_ATOL:
-        raise AssertionError(f"float32 model: kernel vs plain logits differ by {max(errs):.3g} "
-                             f"> {MODEL_ATOL}")
-    log(f"  float32 gemma2-2b, 2 x {PROMPT_TOKENS} prefill + 8 decode steps: logits max abs "
-        f"diff kernel vs plain {errs[0]:.3g} (prefill), {max(errs[1:]):.3g} (decode), "
-        f"atol {MODEL_ATOL}; kernel path {kern_s:.2f} s, plain path {plain_s:.2f} s")
-    return {"prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
-            "atol": MODEL_ATOL, "kernel_path_s": kern_s, "plain_path_s": plain_s}
+            raise AssertionError(f"float32 {arch}: non-finite logits")
+    atol = MODEL_ATOL[arch]
+    if max(errs) > atol:
+        raise AssertionError(f"float32 {arch}: kernel vs plain logits differ by "
+                             f"{max(errs):.3g} > {atol}")
+    log(f"  float32 {arch} ({cfg.num_layers} layers), 2 x {prompt_tokens} prefill + 8 decode "
+        f"steps: logits max abs diff kernel vs plain {errs[0]:.3g} (prefill), "
+        f"{max(errs[1:]):.3g} (decode), atol {atol}; kernel path {kern_s:.2f} s, plain path "
+        f"{plain_s:.2f} s")
+    return {"layers": cfg.num_layers, "prefill_max_abs_err": errs[0],
+            "decode_max_abs_err": max(errs[1:]), "atol": atol, "kernel_path_s": kern_s,
+            "plain_path_s": plain_s}
 
 
 class PhaseTimer:
@@ -911,24 +1147,37 @@ def main(argv=None) -> int:
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
 
-    timer.begin("phase 6", "attention kernels vs plain on the card")
-    attn_checks = phase_attention_vs_plain()
-    result["attention_checks"] = attn_checks
+    timer.begin("phase 6", "attention, SSD and RG-LRU kernels vs plain on the card")
+    kernel_checks = phase_kernels_vs_plain()
+    result["kernel_checks"] = kernel_checks
 
     if not args.kernel_only:
-        timer.begin("phase 7", f"serving path, full-width {ARCH}")
-        result["serve_launcher"] = phase_serve_launcher()
-        params = tfm.init_params(get_config(ARCH), seed=0)
-        frame = phase_frame_analysis(params)
-        del params
-        flash_args, decode_args = frame.pop("_flash_args"), frame.pop("_decode_args")
-        result["frame_analysis"] = frame
-        timer.begin("phase 8", "attention timing; float32 model vs its plain path")
-        attn_timing = phase_attention_timing(flash_args, decode_args)
-        del flash_args, decode_args
-        attn_checks += attn_timing.pop("served_checks")
+        timer.begin("phase 7", f"serving path, full-width {', '.join(SERVE_ARCHS)}")
+        result["serve_launcher"] = {arch: phase_serve_launcher(arch) for arch in LAUNCHER_ARCHS}
+        frames, served = {}, {}
+        for arch in SERVE_ARCHS:
+            params = tfm.init_params(get_config(arch), seed=0)
+            frames[arch] = phase_frame_analysis(arch, params)
+            del params
+            served[arch] = frames[arch].pop("_args")
+            torch.cuda.empty_cache()
+        result["frame_analysis"] = frames
+        timer.begin("phase 8", "kernel timing; float32 models vs their plain paths")
+        gemma, mamba, rg = (served[arch] for arch in SERVE_ARCHS)
+        attn_timing = phase_attention_timing(gemma["flash_attention"], gemma["decode_attention"])
+        rep16 = phase_attention_timing_rep16(rg["flash_attention"], rg["decode_attention"])
+        scan_timing = phase_scan_timing(mamba["ssd_scan"], rg["rglru_scan"])
+        del served, gemma, mamba, rg
+        kernel_checks += (attn_timing.pop("served_checks") + rep16.pop("served_checks")
+                          + scan_timing.pop("served_checks"))
+        for kname in ("flash_attention", "decode_attention"):
+            attn_timing[kname]["recurrentgemma"] = rep16[kname]
         result["attention_timing"] = attn_timing
-        result["model_vs_plain"] = phase_model_vs_plain()
+        result["scan_timing"] = scan_timing
+        result["model_vs_plain"] = {}
+        for arch in SERVE_ARCHS:
+            result["model_vs_plain"][arch] = phase_model_vs_plain(arch)
+            torch.cuda.empty_cache()
 
         timing = result["timing"]
         result["kernels"] = [{
@@ -944,29 +1193,35 @@ def main(argv=None) -> int:
             "bound_by": timing["bound_by"],
             "library_ms": None,
         }]
-        for kname, source, replaces in (
-            ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/attention.py:75"),
-            ("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:72"),
+        for kname, replaces in (
+            ("flash_attention", "src/repro/kernels/attention.py:75"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:72"),
+            ("ssd_scan", "src/repro/kernels/ssd.py:72"),
+            ("rglru_scan", "src/repro/kernels/rglru.py:41"),
         ):
-            t = attn_timing[kname]
-            result["kernels"].append({
+            t = {**attn_timing, **scan_timing}[kname]
+            by_arch = {arch: f["launches"][kname] for arch, f in frames.items()
+                       if f["launches"][kname]}
+            entry = {
                 "name": kname,
                 "route": "cuda",
-                "source": source,
+                "source": f"src/repro_torch/kernels/csrc/{SOURCE_FILES[kname]}",
                 "replaces": replaces,
-                "launches": frame["launches"][kname],
-                "max_abs_err": max(c["max_abs_err"] for c in attn_checks
+                "launches": sum(by_arch.values()),
+                "max_abs_err": max(c["max_abs_err"] for c in kernel_checks
                                    if c["kernel"] == kname),
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"],
-                "internlm2": {k: t["internlm2"][k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms")},
-            })
+                "launches_by_arch": by_arch,
+            }
+            for shapes in ("internlm2", "recurrentgemma"):
+                if shapes in t:
+                    entry[shapes] = {k: t[shapes][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms")}
+            result["kernels"].append(entry)
     result["phase_seconds"] = timer.finish()
     result["seconds"] = time.perf_counter() - t_start
     if args.json:

@@ -19,9 +19,12 @@ import torch
 from .core.binpack.problem import BinType, Choice, Item, Problem
 from .core.profiler import ProfileTable, ResourceProfile
 from .device import resolve_device
+from .models import rglru, ssm
 from .models import transformer as tfm
 from .models.attention import Attention
 from .models.layers import MLP
+from .models.rglru import RGLRU
+from .models.ssm import Mamba2
 
 __all__ = [
     "problem_to_plain",
@@ -146,32 +149,47 @@ def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
     leaf a float32 numpy array: ``embed`` (K, V, d), ``final_norm``,
     optional ``unembed`` and ``vision_proj``, and ``blocks``, one dict per
     pattern slot whose leaves are stacked over layer groups.  Layer ``i``
-    is group ``i // len(pattern)`` of slot ``i % len(pattern)``.  Leaves
-    are cast to ``cfg.dtype`` on ``device`` (default: the card); a bf16
-    array widened to float32 comes back exactly.
+    is group ``i // len(pattern)`` of slot ``i % len(pattern)``; a slot's
+    dict holds ``ln1`` and ``attn``, ``mamba`` or ``rec``, and ``ln2`` and
+    ``mlp`` unless it is ``"ssd"``.  Each leaf is cast, on ``device``
+    (default: the card), to the type the port's own ``init_params`` gives
+    it, which is the reference's: ``cfg.dtype``, except the float32 leaves
+    of `ssm.FLOAT32_PARAMS` and `rglru.FLOAT32_PARAMS`.  A bf16 array
+    widened to float32 comes back exactly.
     """
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     dt = tfm.torch_dtype(cfg)
 
-    def put(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dt)
+    def put(a, dtype=dt) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
     def opt(d: dict, key: str, grp: int | None = None):
         if key not in d:
             return None
         return put(d[key] if grp is None else d[key][grp])
 
+    def leaves(d: dict, grp: int, float32: tuple[str, ...]) -> dict:
+        return {k: put(v[grp], torch.float32 if k in float32 else dt) for k, v in d.items()}
+
     blocks = []
     for i in range(cfg.num_layers):
         grp, slot = divmod(i, len(cfg.layer_pattern))
+        kind = cfg.layer_pattern[slot]
         p = tree["blocks"][slot]
-        a, m = p["attn"], p["mlp"]
-        attn = Attention(put(a["wq"][grp]), put(a["wk"][grp]), put(a["wv"][grp]),
-                         put(a["wo"][grp]), opt(a, "q_norm", grp), opt(a, "k_norm", grp))
-        blocks.append(tfm.Block(
-            put(p["ln1"][grp]), attn, put(p["ln2"][grp]),
-            MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp)),
-        ))
+        ln1 = put(p["ln1"][grp])
+        if kind == "ssd":
+            blocks.append(tfm.Block(kind, ln1, Mamba2(**leaves(p["mamba"], grp,
+                                                              ssm.FLOAT32_PARAMS))))
+            continue
+        if kind == "attention":
+            a = p["attn"]
+            mixer = Attention(put(a["wq"][grp]), put(a["wk"][grp]), put(a["wv"][grp]),
+                              put(a["wo"][grp]), opt(a, "q_norm", grp), opt(a, "k_norm", grp))
+        else:
+            mixer = RGLRU(**leaves(p["rec"], grp, rglru.FLOAT32_PARAMS))
+        m = p["mlp"]
+        blocks.append(tfm.Block(kind, ln1, mixer, put(p["ln2"][grp]),
+                                MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp))))
     return tfm.Transformer(put(tree["embed"]), put(tree["final_norm"]), blocks,
                            unembed=opt(tree, "unembed"), vision_proj=opt(tree, "vision_proj"))

@@ -6,6 +6,10 @@
     softcap, the serving path's prefill (``csrc/flash_attention.cu``)
   * decode_attention — flash-decode over a (ring) KV cache, the serving
     path's decode step (``csrc/decode_attention.cu``)
+  * ssd — the Mamba-2 SSD chunked scan, the ``"ssd"`` block's prefill
+    (``csrc/ssd.cu``)
+  * rglru — the RG-LRU linear recurrence, the ``"recurrent"`` block's
+    prefill (``csrc/rglru.cu``)
 
 Each source is built on first use by ``_build``.  Kernel libraries are
 built and loaded inside the call that launches them, never at import.

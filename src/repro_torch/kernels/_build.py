@@ -32,15 +32,17 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: The attention kernels need no bit-identity with their plain versions,
-#: so they let the compiler fuse multiply-adds.
-ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+#: The attention, SSD and RG-LRU kernels need no bit-identity with their
+#: plain versions, so they let the compiler fuse multiply-adds.
+FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
 SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "knapsack": (NVCC_FLAGS, ()),
-    "flash_attention": (ATTENTION_FLAGS, ("attention_common.cuh",)),
-    "decode_attention": (ATTENTION_FLAGS, ("attention_common.cuh",)),
+    "flash_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
+    "decode_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
+    "ssd": (FMAD_FLAGS, ("attention_common.cuh",)),
+    "rglru": (FMAD_FLAGS, ()),
 }
 
 #: Per source name: {"seconds": build wall time (0.0 when reused),

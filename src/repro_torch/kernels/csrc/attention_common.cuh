@@ -1,4 +1,5 @@
-// Helpers shared by flash_attention.cu and decode_attention.cu.
+// Helpers shared by flash_attention.cu and decode_attention.cu (ssd.cu
+// uses the type conversions and load4/dot4).
 //
 // Tiles of q, k and v sit in shared memory in the input type (float or
 // bfloat16), rows padded by kPad elements, and are read four elements at a

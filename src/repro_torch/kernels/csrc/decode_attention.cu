@@ -23,9 +23,9 @@
 // shared memory, scores each (query head, slot) pair with one thread,
 // runs the online softmax of each query head on one warp, and keeps the
 // (R, D) accumulator in shared memory.  It writes its (max, sum,
-// accumulator) to a float32 scratch; a second kernel, one CTA per (b, g),
-// merges the splits by log-sum-exp.  Slots past L are zero-filled and
-// weigh nothing.
+// accumulator) to a float32 scratch; a second kernel, one thread per
+// output element, merges the splits by log-sum-exp.  Slots past L are
+// zero-filled and weigh nothing.
 #include <stdint.h>
 
 #include "attention_common.cuh"
@@ -157,27 +157,30 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < rd; i += kThreads) out[2 * R + i] = Acc[i];
 }
 
-// One CTA per (b, g): merge the n_split partial softmaxes by log-sum-exp.
+// Merge the n_split partial softmaxes by log-sum-exp: one thread per
+// output element, grid (B * KV, R * D / kThreads), so that the merge's
+// dependent loads spread over many SMs (R = 16 gives 4,096 elements per
+// (b, g)).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     combine_kernel(const float* __restrict__ part, T* __restrict__ o, int R, int D,
                    int n_split) {
   const int rd = R * D;
+  const int i = blockIdx.y * kThreads + threadIdx.x;
+  if (i >= rd) return;
   const size_t stride = static_cast<size_t>(rd + 2 * R);
   const float* base = part + static_cast<size_t>(blockIdx.x) * n_split * stride;
-  for (int i = threadIdx.x; i < rd; i += kThreads) {
-    const int r = i / D;
-    float mx = kNegInf;
-    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, base[s * stride + r]);
-    float sum = 0.f, acc = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* ps = base + s * stride;
-      const float w = expf(ps[r] - mx);
-      sum += ps[R + r] * w;
-      acc += ps[2 * R + i] * w;
-    }
-    store(o + static_cast<size_t>(blockIdx.x) * rd + i, acc / fmaxf(sum, kMinDenom));
+  const int r = i / D;
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, base[s * stride + r]);
+  float sum = 0.f, acc = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float* ps = base + s * stride;
+    const float w = expf(ps[r] - mx);
+    sum += ps[R + r] * w;
+    acc += ps[2 * R + i] * w;
   }
+  store(o + static_cast<size_t>(blockIdx.x) * rd + i, acc / fmaxf(sum, kMinDenom));
 }
 
 template <typename T, int D>
@@ -194,7 +197,9 @@ int launch(const void* q, const void* k, const void* v, const int* pos, void* o,
       L, KV, R, cur, chunk, scale, softcap, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<B * KV, kThreads, 0, stream>>>(part, static_cast<T*>(o), R, D, n_split);
+  const dim3 merge_grid(B * KV, (R * D + kThreads - 1) / kThreads);
+  combine_kernel<T><<<merge_grid, kThreads, 0, stream>>>(part, static_cast<T*>(o), R, D,
+                                                         n_split);
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,8 @@ Two implementations:
 * the CUDA kernels in ``csrc/decode_attention.cu``: the cache's slots are
   split over CTAs (one CTA per (b, g, split), so that about two CTAs per
   SM fill the card even at B·KV = 16), each writing its running
-  (max, sum, accumulator) to a float32 scratch, then a combine kernel
-  merges the splits by log-sum-exp.
+  (max, sum, accumulator) to a float32 scratch, then a combine kernel,
+  one thread per output element, merges the splits by log-sum-exp.
 
 ``cur_pos`` is a host integer, passed to the kernel as an argument: the
 TPU kernel's scalar prefetch becomes a launch argument, and nothing waits

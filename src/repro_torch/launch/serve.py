@@ -11,8 +11,12 @@ boolean flag that ``--no-smoke-weights`` turns off, serving the full
 configuration (the reference's flag is ``store_true`` with default True, so
 it cannot be turned off).
 
+It serves every architecture the port's model runs: attention-only
+configs, mamba2-1.3b (the SSD scan kernel in prefill) and
+recurrentgemma-9b (the RG-LRU scan and both attention kernels).
+
 Example (CPU smoke):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --streams 3 --rate 20 --requests 4 --device cpu
 """
 from __future__ import annotations

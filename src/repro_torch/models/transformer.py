@@ -1,12 +1,13 @@
 """Decoder-only model assembled from a ModelConfig: the serving path.
 
 Mirrors `repro/models/transformer.py` for configs whose layer pattern holds
-only ``"attention"`` blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron,
-llava's backbone, musicgen's backbone).  The reference stacks parameters
-and caches over layer groups and scans them with ``lax.scan``; PyTorch runs
-eagerly, so the port keeps one `Block` module and one cache per layer and
-loops over them: layer ``i`` is the reference's group ``i // len(pattern)``,
-slot ``i % len(pattern)``.
+``"attention"`` blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron,
+llava's backbone, musicgen's backbone), ``"ssd"`` blocks (mamba2-1.3b) and
+``"recurrent"`` blocks beside local attention (recurrentgemma-9b).  The
+reference stacks parameters and caches over layer groups and scans them
+with ``lax.scan``; PyTorch runs eagerly, so the port keeps one `Block`
+module and one cache per layer and loops over them: layer ``i`` is the
+reference's group ``i // len(pattern)``, slot ``i % len(pattern)``.
 
 Entry points:
   * ``init_params(cfg, *, seed, device)   -> Transformer``
@@ -15,8 +16,8 @@ Entry points:
   * ``forward_decode(params, cfg, tokens, cur_pos, caches) -> (logits, caches)``
 
 ``forward_train`` and ``loss_fn`` wait for the training slice (ROADMAP
-queue A item 16); the ``"moe"``, ``"ssd"`` and ``"recurrent"`` blocks raise
-`NotImplementedError` naming their ROADMAP items.
+queue A item 16); the ``"moe"`` block raises `NotImplementedError` naming
+its ROADMAP items.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from torch import nn
 
 from ..device import resolve_device
 from . import attention as attn_lib
+from . import rglru as rglru_lib
+from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import MLP, init_dense, init_mlp, init_rms_norm, mlp, rms_norm
 
@@ -42,11 +45,10 @@ __all__ = [
 _NOT_PORTED = {
     "moe": "the 'moe' block (attention + routed experts) is not ported yet: "
            "ROADMAP queue A item 13 with queue B item 6 (grouped_gemm)",
-    "ssd": "the 'ssd' block (Mamba-2) is not ported yet: "
-           "ROADMAP queue A item 13 with queue B item 4 (ssd_scan)",
-    "recurrent": "the 'recurrent' block (Griffin RG-LRU) is not ported yet: "
-                 "ROADMAP queue A item 13 with queue B item 5 (rglru_scan)",
 }
+#: The attribute of a `Block` that holds each kind's mixer, named as the
+#: reference's parameter dict names it.
+_MIXER = {"attention": "attn", "ssd": "mamba", "recurrent": "rec"}
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -56,7 +58,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` for a layer pattern the port cannot run."""
     for kind in cfg.layer_pattern:
-        if kind != "attention":
+        if kind in _NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
 
 
@@ -65,13 +67,16 @@ def _frozen(t: torch.Tensor | None) -> nn.Parameter | None:
 
 
 class Block(nn.Module):
-    """One ``"attention"`` layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One layer of ``kind``: ``"attention"`` holds ``ln1``, ``attn``,
+    ``ln2`` and ``mlp``; ``"ssd"`` holds ``ln1`` and ``mamba``;
+    ``"recurrent"`` holds ``ln1``, ``rec``, ``ln2`` and ``mlp``."""
 
-    def __init__(self, ln1: torch.Tensor, attn: attn_lib.Attention,
-                 ln2: torch.Tensor, mlp_: MLP) -> None:
+    def __init__(self, kind: str, ln1: torch.Tensor, mixer: nn.Module,
+                 ln2: torch.Tensor | None = None, mlp_: MLP | None = None) -> None:
         super().__init__()
+        self.kind = kind
         self.ln1 = _frozen(ln1)
-        self.attn = attn
+        setattr(self, _MIXER[kind], mixer)
         self.ln2 = _frozen(ln2)
         self.mlp = mlp_
 
@@ -112,18 +117,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     vision_proj = None
     if cfg.modality == "vision_prefix":
         vision_proj = init_dense(gen, cfg.d_model, cfg.d_model, dt)
-    blocks = []
-    for _ in range(cfg.num_layers):
-        d = cfg.d_model
-        blocks.append(Block(
-            init_rms_norm(d, dt, dev),
-            attn_lib.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                                    cfg.resolved_head_dim, cfg.qk_norm, dt),
-            init_rms_norm(d, dt, dev),
-            init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dt),
-        ))
+    blocks = [_init_block(gen, cfg, cfg.layer_pattern[i % len(cfg.layer_pattern)], dt)
+              for i in range(cfg.num_layers)]
     return Transformer(embed, init_rms_norm(cfg.d_model, dt, dev), blocks,
                        unembed=unembed, vision_proj=vision_proj)
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dt: torch.dtype) -> Block:
+    d, dev = cfg.d_model, gen.device
+    ln1 = init_rms_norm(d, dt, dev)
+    if kind == "ssd":
+        return Block(kind, ln1, ssm_lib.init_mamba2(
+            gen, d, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv_width, dt))
+    if kind == "attention":
+        mixer = attn_lib.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, cfg.qk_norm, dt)
+    else:
+        mixer = rglru_lib.init_rglru_block(gen, d, cfg.resolved_lru_width,
+                                           cfg.rglru_conv_width, dt)
+    return Block(kind, ln1, mixer, init_rms_norm(d, dt, dev),
+                 init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dt))
 
 
 # ---- embeddings / logits ------------------------------------------------------
@@ -176,17 +189,29 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                      long_context: bool = False, device=None) -> list[dict]:
-    """One cache per layer; windowed layers hold ``min(cache_len, window)``
-    slots.  ``device="meta"`` gives shapes and dtypes without memory."""
+    """One cache per layer: an attention layer's K/V ring (windowed layers
+    hold ``min(cache_len, window)`` slots), an ``"ssd"`` layer's state and
+    conv tail, a ``"recurrent"`` layer's state and conv tail.
+    ``device="meta"`` gives shapes and dtypes without memory."""
     check_supported(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     dt = torch_dtype(cfg)
     caches = []
     for i in range(cfg.num_layers):
-        window = cfg.window_for_slot(i % len(cfg.layer_pattern), long_context=long_context)
-        eff = cache_len if window is None else min(cache_len, window)
-        caches.append(attn_lib.init_cache(batch, eff, cfg.num_kv_heads,
-                                          cfg.resolved_head_dim, dt, dev))
+        slot = i % len(cfg.layer_pattern)
+        kind = cfg.layer_pattern[slot]
+        if kind == "ssd":
+            caches.append(ssm_lib.mamba2_init_cache(batch, cfg.ssm_d_inner, cfg.ssm_state,
+                                                    cfg.ssm_head_dim, cfg.ssm_conv_width, dt,
+                                                    dev))
+        elif kind == "recurrent":
+            caches.append(rglru_lib.rglru_init_cache(batch, cfg.resolved_lru_width,
+                                                     cfg.rglru_conv_width, dt, dev))
+        else:
+            window = cfg.window_for_slot(slot, long_context=long_context)
+            eff = cache_len if window is None else min(cache_len, window)
+            caches.append(attn_lib.init_cache(batch, eff, cfg.num_kv_heads,
+                                              cfg.resolved_head_dim, dt, dev))
     return caches
 
 
@@ -195,16 +220,28 @@ def _apply_layer_serve(cfg: ModelConfig, window: int | None, layer: Block,
                        cur_pos: int | None, decode: bool):
     """Returns (x, the layer's cache, updated in place)."""
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
-    kw = dict(
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        window=window, logit_softcap=cfg.attn_logit_softcap,
-        norm_eps=cfg.norm_eps,
-    )
-    if decode:
-        h, cache = attn_lib.attention_decode(layer.attn, h, cur_pos, cache, **kw)
+    if layer.kind == "ssd":
+        kw = dict(d_inner=cfg.ssm_d_inner, d_state=cfg.ssm_state,
+                  head_dim=cfg.ssm_head_dim, norm_eps=cfg.norm_eps)
+        if decode:
+            h, cache = ssm_lib.mamba2_decode(layer.mamba, h, cache, **kw)
+        else:
+            h, cache = ssm_lib.mamba2_prefill(layer.mamba, h, cache, chunk=cfg.ssm_chunk, **kw)
+        return x + h, cache
+    if layer.kind == "recurrent":
+        step = rglru_lib.rglru_decode if decode else rglru_lib.rglru_prefill
+        h, cache = step(layer.rec, h, cache)
     else:
-        h, cache = attn_lib.prefill_into_cache(layer.attn, h, positions, cache, **kw)
+        kw = dict(
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=window, logit_softcap=cfg.attn_logit_softcap,
+            norm_eps=cfg.norm_eps,
+        )
+        if decode:
+            h, cache = attn_lib.attention_decode(layer.attn, h, cur_pos, cache, **kw)
+        else:
+            h, cache = attn_lib.prefill_into_cache(layer.attn, h, positions, cache, **kw)
     x = x + h
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
     x = x + mlp(layer.mlp, h, cfg.mlp_activation)

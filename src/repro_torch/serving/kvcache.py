@@ -1,10 +1,10 @@
 """Cache bookkeeping utilities for the serving engine.
 
 Mirrors `repro/serving/kvcache.py`.  The per-layer cache *contents* live in
-`repro_torch.models` (attention ring buffers, see
-``transformer.init_serve_cache``); the port keeps one cache dict per layer
-where the reference stacks them over layer groups, and the byte counts are
-the same.  This module adds the engine-level view: sizing, byte
+`repro_torch.models` (attention ring buffers, SSD and RG-LRU states and
+conv tails, see ``transformer.init_serve_cache``); the port keeps one cache
+dict per layer where the reference stacks them over layer groups, and the
+byte counts are the same.  This module adds the engine-level view: sizing, byte
 accounting, and slot-reset for continuous batching.
 """
 from __future__ import annotations
@@ -38,9 +38,11 @@ def slot_kv_bytes(cfg: ModelConfig, cache_len: int,
 
 def reset_slot(cache: list[dict], slot: int) -> list[dict]:
     """Zero one batch row (a finished request's slot) across every layer, in
-    place.  Position buffers are shared across the batch (synchronized
-    decode), so only ``k`` and ``v`` are cleared."""
+    place: every batch-indexed leaf (``k``, ``v``, ``ssm``, ``conv``,
+    ``h``).  Position buffers are shared across the batch (synchronized
+    decode), so ``pos`` is left alone."""
     for layer in cache:
-        layer["k"][slot].zero_()
-        layer["v"][slot].zero_()
+        for key, leaf in layer.items():
+            if key != "pos":
+                leaf[slot].zero_()
     return cache

@@ -11,7 +11,8 @@ plans built from them.  The attention kernels sum in another order than
 their plain versions, both in float32: float32 is held to the
 reference's kernel tolerance, 2e-5; in bfloat16 the two round to outputs
 at most one bf16 ulp apart (rtol 2^-7), with atol 1e-4 for the float32
-difference.
+difference.  The SSD and RG-LRU scans' limits are stated beside their
+tests.
 """
 import dataclasses
 
@@ -29,7 +30,7 @@ from repro_torch.core.streams import AnalysisProgram, StreamSpec
 from repro_torch.interop import plan_to_plain
 from repro_torch.kernels import attention as flash
 from repro_torch.kernels import decode_attention as decode
-from repro_torch.kernels import knapsack
+from repro_torch.kernels import knapsack, rglru, ssd
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Request, ServingEngine
 
@@ -234,4 +235,121 @@ def test_engine_on_card_gives_the_cpu_engine_tokens(cuda):
         tokens[str(dev)] = {r.rid: r.tokens for r in eng.run()}
         launched = (flash.LAUNCHES - before[0], decode.LAUNCHES - before[1])
         assert launched == ((0, 0) if dev == "cpu" else (2 * 2, 2 * 2 * 12))
+    assert tokens["cpu"] == tokens[str(cuda)]
+
+
+# ---- the SSD and RG-LRU scans ------------------------------------------------
+#
+# The SSD kernel and its plain version cut S into the same chunks and differ
+# in the order of their float32 sums: float32 at the reference's kernel
+# limits (atol 2e-4, rtol 1e-3); bfloat16 y one bf16 ulp more (rtol 2^-7),
+# since both round the float32 result once.  The RG-LRU kernel runs the same
+# multiply-adds, composed chunk by chunk: 2e-5.
+
+SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3),
+           torch.bfloat16: dict(atol=2e-4, rtol=1e-3 + 2.0 ** -7)}
+RGLRU_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, device, with_h0=True):
+    """Bm and Cm as column slices of one (B, S, 2N) tensor, as the model passes them."""
+    x = _normal(0, (b, s, h, p), dtype, device)
+    dt = torch.nn.functional.softplus(_normal(1, (b, s, h), torch.float32, device))
+    A = -torch.exp(0.5 * _normal(2, (h,), torch.float32, device))
+    bc = (0.5 * _normal(3, (b, s, 2 * n), torch.float32, device)).to(dtype)
+    h0 = 0.1 * _normal(4, (b, h, p, n), torch.float32, device) if with_h0 else None
+    return x, dt, A, bc[..., :n], bc[..., n:], h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
+    (4, 1024, 64, 64, 128, 128, True),   # mamba2-1.3b's served prefill
+    (4, 1024, 64, 64, 128, 128, False),
+    (2, 1000, 8, 64, 128, 128, True),    # ragged
+    (2, 7, 8, 64, 128, 128, True),       # one short chunk
+    (2, 256, 4, 64, 32, 64, True),       # tests/test_kernels.py:68-70
+    (1, 128, 2, 32, 128, 128, True),
+    (1, 256, 2, 64, 64, 32, True),
+    (2, 77, 3, 32, 32, 32, False),
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, with_h0, dtype):
+    args = _ssd_inputs(b, s, h, p, n, dtype, cuda, with_h0)
+    before = ssd.LAUNCHES
+    y, hf = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == before + 1
+    y_p, h_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(hf, h_p, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", [
+    (4, 1024, 4096, True),  # recurrentgemma-9b's served prefill
+    (4, 1000, 4096, True),
+    (2, 7, 100, False),     # one chunk: the summary pass is skipped
+    (3, 130, 77, True),     # three chunks, ragged W
+])
+def test_rglru_kernel_matches_plain(cuda, b, s, w, with_h0):
+    a = torch.sigmoid(_normal(0, (b, s, w), torch.float32, cuda))
+    bb = 0.3 * _normal(1, (b, s, w), torch.float32, cuda)
+    h0 = 0.1 * _normal(2, (b, w), torch.float32, cuda) if with_h0 else None
+    before = rglru.LAUNCHES
+    got = rglru.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert rglru.LAUNCHES == before + 1
+    torch.testing.assert_close(got, rglru.rglru_scan_plain(a, bb, h0), **RGLRU_TOL)
+
+
+def test_scan_wrappers_raise_instead_of_falling_back(cuda):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, 64, 2, 64, 64, torch.float32, cuda)
+    before = (ssd.LAUNCHES, rglru.LAUNCHES)
+    with pytest.raises(TypeError):  # a dtype the kernel is not built for
+        ssd.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), h0)
+    with pytest.raises(ValueError):  # P = 48
+        ssd.ssd_scan(x[..., :48], dt, A, Bm, Cm, h0[:, :, :48])
+    with pytest.raises(ValueError):  # N = 48
+        ssd.ssd_scan(x, dt, A, Bm[..., :48], Cm[..., :48], h0[..., :48].contiguous())
+    with pytest.raises(ValueError):  # chunk 16
+        ssd.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=16)
+    with pytest.raises(ValueError):  # x not contiguous
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, h0)
+    with pytest.raises(ValueError):  # Bm strided along N
+        ssd.ssd_scan(x, dt, A, Bm.transpose(0, 2).contiguous().transpose(0, 2), Cm, h0)
+    with pytest.raises(ValueError):  # another device
+        ssd.ssd_scan(x, dt.cpu(), A, Bm, Cm, h0)
+    a = torch.rand(2, 16, 64, device=cuda)
+    with pytest.raises(TypeError):
+        rglru.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError):
+        rglru.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), a)
+    with pytest.raises(ValueError):
+        rglru.rglru_scan(a, a, torch.zeros(2, 64))
+    assert (ssd.LAUNCHES, rglru.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_engines_on_card_give_the_cpu_engine_tokens(cuda, arch):
+    """Smoke mamba2-1.3b (its chunk raised to 32, a size the SSD kernel is
+    built for) and recurrentgemma-9b in float32: greedy tokens on the card
+    (every kernel) equal those on the CPU (plain versions), prompts past
+    one chunk and decode past the 16-slot windows."""
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32", ssm_chunk=32)
+    params = tfm.init_params(cfg, seed=3, device="cpu")
+    tokens = {}
+    kinds = {k: cfg.layer_pattern.count(k) * cfg.num_groups
+             for k in ("attention", "ssd", "recurrent")}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params.to(dev), batch_slots=2, max_seq=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=np.arange(30 + 7 * i) % cfg.vocab_size,
+                               max_new_tokens=12))
+        mods = (flash, decode, ssd, rglru)
+        before = [m.LAUNCHES for m in mods]
+        tokens[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        launched = [m.LAUNCHES - n for m, n in zip(mods, before)]
+        waves, steps = 2, 2 * 12
+        want = [kinds["attention"] * waves, kinds["attention"] * steps, kinds["ssd"] * waves,
+                kinds["recurrent"] * waves]
+        assert launched == ([0, 0, 0, 0] if dev == "cpu" else want)
     assert tokens["cpu"] == tokens[str(cuda)]

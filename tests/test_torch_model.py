@@ -12,8 +12,14 @@ serving tolerance, ``TOL = 0.08`` (`tests/test_serving_consistency.py`).
 
 The smoke variants of gemma2-2b and internlm2-1.8b have as many KV heads
 as query heads, so the GQA cases replace ``num_kv_heads`` with 2.
+
+mamba2-1.3b and recurrentgemma-9b run their smoke variants as they are.
+In bf16 the reference's ``ssd_chunked`` also rounds its block products and
+chunk states to bf16 (`repro/models/ssm.py:68-74`) where the port keeps
+float32, so ``TOL = 0.08`` holds there too.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,29 +46,39 @@ BF16_TOL = dict(atol=0.08, rtol=0.08)  # test_serving_consistency.TOL
 KEY = jax.random.PRNGKey(0)
 
 
+def _smoke(arch, dtype="float32"):
+    return dataclasses.replace(jconfigs.smoke_variant(jconfigs.get_config(arch)), dtype=dtype)
+
+
 def _gqa_smoke(arch, dtype="float32"):
-    cfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
-    return dataclasses.replace(cfg, num_kv_heads=2, dtype=dtype)
+    return dataclasses.replace(_smoke(arch, dtype), num_kv_heads=2)
 
 
+@functools.cache
 def _both_params(cfg, seed=0):
     jp = jtfm.init_params(jax.random.PRNGKey(seed), cfg)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
     return jp, params_from_plain(cfg, tree, device="cpu")
 
 
+@functools.cache
+def _jitted(cfg):
+    """The reference's prefill and decode step, jitted once per config."""
+    return (jax.jit(lambda p, bt, c: jtfm.forward_prefill(p, cfg, bt, c)),
+            jax.jit(lambda p, tok, pos, c: jtfm.forward_decode(p, cfg, tok, pos, c)))
+
+
 def _run_both(cfg, b, prompt, total, seed=0):
     """(reference logits, port logits) of a prefill of ``prompt`` tokens
     then decode steps up to ``total`` positions."""
     jp, tp = _both_params(cfg, seed)
+    prefill, step = _jitted(cfg)
     toks = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, total))
     jc = jtfm.init_serve_cache(cfg, b, cache_len=total)
     tc = ttfm.init_serve_cache(cfg, b, total, device="cpu")
-    jl, jc = jax.jit(lambda p, bt, c: jtfm.forward_prefill(p, cfg, bt, c))(
-        jp, {"tokens": jnp.asarray(toks[:, :prompt])}, jc)
+    jl, jc = prefill(jp, {"tokens": jnp.asarray(toks[:, :prompt])}, jc)
     tl, tc = ttfm.forward_prefill(tp, cfg, {"tokens": torch.from_numpy(toks[:, :prompt])}, tc)
     pairs = [(np.asarray(jl, np.float32), tl.numpy())]
-    step = jax.jit(lambda p, tok, pos, c: jtfm.forward_decode(p, cfg, tok, pos, c))
     for t in range(prompt, total):
         jl, jc = step(jp, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t, jnp.int32), jc)
         tl, tc = ttfm.forward_decode(tp, cfg, torch.from_numpy(toks[:, t:t + 1]), t, tc)
@@ -91,6 +107,38 @@ def test_prefill_and_decode_match_reference_float32(arch):
         assert tc[0]["k"].shape[1] == 16 and int(tc[0]["pos"].max()) == 29  # wrapped
 
 
+def _assert_caches_match(cfg, jc, tc):
+    """Every leaf of every layer's cache: K/V rings and positions, SSD and
+    RG-LRU states and conv tails."""
+    for i, cache in enumerate(tc):
+        grp, slot = divmod(i, len(cfg.layer_pattern))
+        assert set(cache) == set(jc[slot])
+        for key, leaf in cache.items():
+            want = np.asarray(jc[slot][key][grp], np.float32)
+            assert str(leaf.dtype).replace("torch.", "") == str(jc[slot][key].dtype)
+            if key == "pos":
+                np.testing.assert_array_equal(leaf.numpy(), want)
+            else:
+                np.testing.assert_allclose(leaf.float().numpy(), want, err_msg=f"{i} {key}",
+                                           **F32_TOL)
+
+
+@pytest.mark.parametrize("arch,prompt,total", [
+    ("mamba2-1.3b", 14, 18),        # one short chunk (smoke chunk 16)
+    ("mamba2-1.3b", 32, 36),        # two full chunks
+    ("mamba2-1.3b", 40, 44),        # ragged: the reference takes one chunk of 40
+    ("recurrentgemma-9b", 14, 30),  # decode past the 16-slot window wraps the ring
+])
+def test_recurrent_archs_match_reference_float32(arch, prompt, total):
+    cfg = _smoke(arch)
+    pairs, jc, tc = _run_both(cfg, b=2, prompt=prompt, total=total)
+    assert len(pairs) == total - prompt + 1
+    for t, (want, got) in enumerate(pairs):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, err_msg=f"{arch} step {t}", **F32_TOL)
+    _assert_caches_match(cfg, jc, tc)
+
+
 def test_prefill_longer_than_window_keeps_the_trailing_ring():
     """A prompt longer than the local layers' 16-slot window: prefill keeps
     the trailing window in ring order, then decode continues on it."""
@@ -101,8 +149,11 @@ def test_prefill_longer_than_window_keeps_the_trailing_ring():
     np.testing.assert_array_equal(tc[0]["pos"].numpy(), np.asarray(jc[0]["pos"][0]))
 
 
-def test_prefill_and_decode_match_reference_bfloat16():
-    cfg = _gqa_smoke("gemma2-2b", dtype="bfloat16")
+@pytest.mark.parametrize("cfg", [_gqa_smoke("gemma2-2b", "bfloat16"),
+                                 _smoke("mamba2-1.3b", "bfloat16"),
+                                 _smoke("recurrentgemma-9b", "bfloat16")],
+                         ids=["gemma2-2b", "mamba2-1.3b", "recurrentgemma-9b"])
+def test_prefill_and_decode_match_reference_bfloat16(cfg):
     pairs, _, _ = _run_both(cfg, b=2, prompt=12, total=24)
     for t, (want, got) in enumerate(pairs):
         np.testing.assert_allclose(got, want, err_msg=f"step {t}", **BF16_TOL)
@@ -157,31 +208,51 @@ def test_params_carry_across_exactly_in_bfloat16():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "internlm2-1.8b", "nemotron-4-15b",
-                                  "llava-next-mistral-7b", "musicgen-large", "yi-34b"])
+                                  "llava-next-mistral-7b", "musicgen-large", "yi-34b",
+                                  "mamba2-1.3b", "recurrentgemma-9b"])
 def test_init_params_has_the_reference_shapes(arch):
+    """Every parameter has the reference leaf's shape and type: the model's
+    bf16, except the float32 leaves of the SSD and RG-LRU blocks."""
     cfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
     jp = jax.eval_shape(lambda k: jtfm.init_params(k, cfg), KEY)
     tp = ttfm.init_params(cfg, seed=0, device="cpu")
-    sd = {k: tuple(v.shape) for k, v in tp.state_dict().items()}
-    assert sd.pop("embed") == jp["embed"].shape
-    assert sd.pop("final_norm") == jp["final_norm"].shape
+    sd = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+          for k, v in tp.state_dict().items()}
+
+    def spec(leaf, stacked=False):
+        return tuple(leaf.shape[1:] if stacked else leaf.shape), str(leaf.dtype)
+
+    assert sd.pop("embed") == spec(jp["embed"])
+    assert sd.pop("final_norm") == spec(jp["final_norm"])
     for key in ("unembed", "vision_proj"):
-        assert sd.pop(key, None) == (jp[key].shape if key in jp else None)
+        assert sd.pop(key, None) == (spec(jp[key]) if key in jp else None)
     flat = jax.tree_util.tree_flatten_with_path(jp["blocks"])[0]
     want = {}
     for path, leaf in flat:
         slot, *rest = [getattr(p, "idx", getattr(p, "key", None)) for p in path]
         for grp in range(cfg.num_groups):
             name = ".".join(["blocks", str(grp * len(cfg.layer_pattern) + slot), *rest])
-            want[name] = tuple(leaf.shape[1:])
+            want[name] = spec(leaf, stacked=True)
     assert sd == want
-    assert all(v.dtype == torch.bfloat16 for v in tp.state_dict().values())
     assert sum(v.numel() for v in tp.state_dict().values()) == sum(
         int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(jp))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
-                                  "grok-1-314b"])
+def test_params_from_plain_keeps_the_reference_types():
+    """Carried across, each leaf takes the reference's type: bf16, and
+    float32 for the SSD and RG-LRU leaves that the reference keeps so."""
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = _smoke(arch, "bfloat16")
+        jp, tp = _both_params(cfg)
+        flat = jax.tree_util.tree_flatten_with_path(jp["blocks"])[0]
+        for path, leaf in flat:
+            slot, *rest = [getattr(p, "idx", getattr(p, "key", None)) for p in path]
+            got = tp.blocks[slot].get_parameter(".".join(rest))
+            assert str(got.dtype).replace("torch.", "") == str(leaf.dtype), rest
+            np.testing.assert_array_equal(got.float().numpy(), np.asarray(leaf[0], np.float32))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
 def test_unported_blocks_raise(arch):
     cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -215,7 +286,8 @@ def _reference_slot_bytes(cfg, cache_len, long_context):
 
 @pytest.mark.parametrize("arch,cache_len,long_context", [
     ("gemma2-2b", 2064, False), ("gemma2-2b", 8192, False), ("internlm2-1.8b", 528, False),
-    ("yi-34b", 64, True), ("nemotron-4-15b", 96, False),
+    ("yi-34b", 64, True), ("nemotron-4-15b", 96, False), ("mamba2-1.3b", 1040, False),
+    ("recurrentgemma-9b", 1040, False), ("recurrentgemma-9b", 4096, False),
 ])
 def test_cache_bytes_match_reference(arch, cache_len, long_context):
     full = jconfigs.get_config(arch)
@@ -242,3 +314,26 @@ def test_reset_slot_zeroes_one_row_and_keeps_positions():
             assert not layer[key][1].any()
             torch.testing.assert_close(layer[key][[0, 2]], old[key][[0, 2]])
         torch.testing.assert_close(layer["pos"], old["pos"])
+
+
+def test_reset_slot_zeroes_recurrent_states_and_conv_tails():
+    """recurrentgemma-9b holds ``h`` and ``conv`` (RG-LRU layers) beside
+    ``k``/``v``/``pos``; mamba2-1.3b holds ``ssm`` and ``conv``.  One row of
+    each batch-indexed leaf is zeroed, the other rows and ``pos`` are kept."""
+    seen = set()
+    for arch in ("recurrentgemma-9b", "mamba2-1.3b"):
+        cache = tkv.make_cache(_smoke(arch), 3, 20, device="cpu")
+        for layer in cache:
+            for key, leaf in layer.items():
+                leaf.copy_(torch.arange(leaf.numel()).reshape(leaf.shape) + 1)
+        before = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+        tkv.reset_slot(cache, 2)
+        for layer, old in zip(cache, before):
+            for key, leaf in layer.items():
+                seen.add(key)
+                if key == "pos":
+                    torch.testing.assert_close(leaf, old[key])
+                    continue
+                assert not leaf[2].any(), key
+                torch.testing.assert_close(leaf[:2], old[key][:2])
+    assert seen == {"k", "v", "pos", "ssm", "conv", "h"}

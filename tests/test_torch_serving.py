@@ -2,7 +2,8 @@
 
 The engine's greedy tokens must equal the reference engine's on the same
 weights (carried across with `params_from_plain`) and prompts, in float32
-(`tests/test_serving_consistency.py:102-115`'s 5 requests over 2 slots).
+(`tests/test_serving_consistency.py:102-115`'s 5 requests over 2 slots),
+for attention-only models, mamba2-1.3b and recurrentgemma-9b.
 """
 import dataclasses
 import os
@@ -33,7 +34,8 @@ def _requests(cls, vocab, n=5):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("arch,kv_heads", [("internlm2-1.8b", None), ("gemma2-2b", 2)])
+@pytest.mark.parametrize("arch,kv_heads", [("internlm2-1.8b", None), ("gemma2-2b", 2),
+                                           ("mamba2-1.3b", None), ("recurrentgemma-9b", None)])
 def test_engine_greedy_tokens_equal_reference(arch, kv_heads):
     cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
     if kv_heads:
@@ -89,8 +91,9 @@ def test_sample_greedy_and_top_k():
     assert tuple(out.shape) == (2, 4) and int(out.max()) < 16
 
 
-def test_launcher_serves_on_the_cpu(capsys):
-    out = serve.main(["--arch", "internlm2-1.8b", "--streams", "2", "--requests", "2",
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-1.3b"])
+def test_launcher_serves_on_the_cpu(capsys, arch):
+    out = serve.main(["--arch", arch, "--streams", "2", "--requests", "2",
                       "--new-tokens", "3", "--device", "cpu"])
     members = {}
     for p in out["plan"].placements:
