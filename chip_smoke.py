@@ -3,9 +3,9 @@
 
 Drives the port's two paths — the paper's resource manager, with
 branch-and-price pricing on the card, and the serving path of the analysis
-programs at the full width of gemma2-2b, mamba2-1.3b and recurrentgemma-9b
-— and holds every CUDA kernel of those paths against its plain torch
-version.  Phases, each raising on failure:
+programs at the full width of gemma2-2b, mamba2-1.3b, recurrentgemma-9b
+and qwen3-moe-30b-a3b — and holds every CUDA kernel of those paths against
+its plain torch version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
@@ -32,30 +32,46 @@ version.  Phases, each raising on failure:
    S=1024, H=64, P=64, N=128) with and without h0, at ragged S=1000 and
    S=7, and at the other head, state and chunk sizes it is built for.  The
    RG-LRU scan in float32 (2e-5) at recurrentgemma-9b's served prefill
-   (B=4, S=1024, W=4096) with h0 and at ragged lengths;
+   (B=4, S=1024, W=4096) with h0 and at ragged lengths.  The grouped GEMM
+   in float32 and bfloat16 (the attention limits) at qwen3-moe-30b-a3b's
+   served prefill (about 32,768 (token, choice) pairs over 128 experts,
+   K=2048, F=768, and K=768, F=2048 for ``down``), at a decode step's 32
+   pairs with empty experts, at ragged K and F, and through the
+   reference-contract adapter with block_t 64 and 128;
 7. serving path: (a) the launcher `repro_torch.launch.serve.main` for
    full-width gemma2-2b and mamba2-1.3b (the manager plans the fleet, one
    engine per instance serves it; its 6-10-token prompts are one ragged
    SSD chunk); (b) frame analysis: a `ServingEngine` for each of
-   full-width gemma2-2b, mamba2-1.3b and recurrentgemma-9b in bf16 serves
-   8 requests of ``DEFAULT_TOKENS_PER_FRAME``-token prompts (2048, 1024,
-   1024) over 4 slots, 16 greedy tokens each, with every kernel's
-   launches counted and asserted by layer kind (gemma2-2b: 26 flash a
-   wave, 26 flash-decode a step; mamba2-1.3b: 48 SSD scans a wave, none a
-   step; recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
-   flash-decode a step) and CUDA events around every launch and every
-   forward call;
+   full-width, full-depth gemma2-2b, mamba2-1.3b, recurrentgemma-9b and
+   qwen3-moe-30b-a3b in bf16 serves 8 requests of `PROMPT_TOKENS`-token
+   prompts (2048, 1024, 1024, 1024) over 4 slots, 16 greedy tokens each,
+   with every kernel's launches counted and asserted by layer kind, in
+   prefill and in decode (gemma2-2b: 26 flash a wave, 26 flash-decode a
+   step; mamba2-1.3b: 48 SSD scans a wave, none a step;
+   recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
+   flash-decode a step; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
+   a wave, 48 flash-decode and 144 grouped GEMMs a step) and CUDA events
+   around every launch and every forward call.  Each model is freed
+   before the next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
 8. kernel timing and the models against their plain paths: each kernel
    held against its plain version on phase 7(b)'s own served inputs
    (attention gemma2-2b's and recurrentgemma-9b's, the SSD scan
-   mamba2-1.3b's, the RG-LRU scan recurrentgemma-9b's), then timed there
-   beside its plain version, its bound and a library yardstick where one
-   PyTorch call computes the same function (``scaled_dot_product_attention``
-   at recurrentgemma-9b's attention, whose window does not bind, and at
-   internlm2-1.8b's shapes); then each of the three models at
-   full width and depth in float32, one 2 x prompt prefill and 8 decode
-   steps, on the kernels and again with every kernel's dispatch patched
-   to its plain version, logits compared.
+   mamba2-1.3b's, the RG-LRU scan recurrentgemma-9b's, the grouped GEMM
+   qwen3-moe-30b-a3b's first gate product), then timed there beside its
+   plain version, its bound and a library yardstick where one PyTorch
+   call computes the same function (``scaled_dot_product_attention`` at
+   recurrentgemma-9b's attention, whose window does not bind, and at
+   internlm2-1.8b's shapes; ``torch._grouped_mm`` where the card's
+   PyTorch runs it, else one ``torch.bmm`` over the reference's capacity
+   buffer); then each model at full width in float32, one 2 x prompt
+   prefill and 8 decode steps, on the kernels and again with every
+   kernel's dispatch patched to its plain version, logits compared:
+   gemma2-2b, mamba2-1.3b and recurrentgemma-9b at full depth,
+   qwen3-moe-30b-a3b at 8 of its 48 layers (full depth in float32 would
+   take 122 GB).  Routing is a discontinuous function of float32 sums, so
+   the plain run takes the kernel run's expert choices (its own
+   probabilities at them) and counts the choices it would have made
+   otherwise.
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Phase 1 prints ``nvidia-smi``'s name and power limit on a line
@@ -96,8 +112,10 @@ from repro_torch.interop import plan_to_plain  # noqa: E402
 from repro_torch.kernels import _build, knapsack  # noqa: E402
 from repro_torch.kernels import attention as flash  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
+from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rglru, ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -124,9 +142,11 @@ SSD_TOLERANCE = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (2e-4, 1e-3 + 2.0 
 #: not, the kernel's composed chunk by chunk: 2e-5, the reference's float32
 #: kernel limit.
 RGLRU_TOLERANCE = (2e-5, 2e-5)
-#: The serving path's models (DEFAULT_TOKENS_PER_FRAME gives each one's
-#: prompt: 2048, 1024 and 1024 tokens) and their frame-analysis deployment.
-SERVE_ARCHS = ("gemma2-2b", "mamba2-1.3b", "recurrentgemma-9b")
+#: The serving path's models and their frame-analysis deployment.  Their
+#: prompts: DEFAULT_TOKENS_PER_FRAME's (2048, 1024 and 1024 tokens), and
+#: 1024 for qwen3-moe-30b-a3b, which has no entry there.
+SERVE_ARCHS = ("gemma2-2b", "mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b")
+PROMPT_TOKENS = {**DEFAULT_TOKENS_PER_FRAME, "qwen3-moe-30b-a3b": 1024}
 LAUNCHER_ARCHS = ("gemma2-2b", "mamba2-1.3b")
 NEW_TOKENS = 16
 SLOTS = 4
@@ -136,10 +156,16 @@ N_REQUESTS = 8
 #: sums, carried through the layers: gemma2-2b's 26 (attention, logits
 #: softcapped at 30); mamba2-1.3b's 48 (the SSD scan: the same chunks,
 #: another order of the block products' sums); recurrentgemma-9b's 38 (the
-#: RG-LRU scan, fused or separate multiply-adds, and attention at rep 16).
-#: Logits are O(1) in all three (tied embeddings of scale 0.02 against
-#: normed activations), so 1e-3 is some 1e-3 of them.
-MODEL_ATOL = {"gemma2-2b": 1e-3, "mamba2-1.3b": 1e-3, "recurrentgemma-9b": 1e-3}
+#: RG-LRU scan, fused or separate multiply-adds, and attention at rep 16);
+#: qwen3-moe-30b-a3b's 8 (attention at rep 8, the grouped GEMM's K-sums).
+#: Logits are O(1) in all four (normed activations against embeddings of
+#: scale 0.02, or an unembedding of scale 1/sqrt(d)), so 1e-3 is some 1e-3
+#: of them.
+MODEL_ATOL = {"gemma2-2b": 1e-3, "mamba2-1.3b": 1e-3, "recurrentgemma-9b": 1e-3,
+              "qwen3-moe-30b-a3b": 1e-3}
+#: Phase 8's depth cut: the float32 model's layers where full depth does
+#: not fit the card (qwen3-moe-30b-a3b: 122 GB at 48 layers).
+MODEL_LAYERS = {"qwen3-moe-30b-a3b": 8}
 
 VGG = AnalysisProgram("VGG-16", "vgg16")
 ZF = AnalysisProgram("ZF", "zf")
@@ -477,6 +503,20 @@ RGLRU_CASES = [
     ("ragged S=7, W=100", 2, 7, 100, False),
     ("three chunks, S=130, W=77", 3, 130, 77, True),
 ]
+#: (label, kept pairs, experts, K, F, rows past the segments (dropped
+#: pairs), experts left empty).  A pair's expert is drawn uniformly from
+#: the others, so 32 pairs over 128 experts leave most of them empty.
+GG_CASES = [
+    ("qwen3-moe-30b-a3b prefill gate/up", 30_000, 128, 2048, 768, 2_768, ()),
+    ("qwen3-moe-30b-a3b prefill down", 30_000, 128, 768, 2048, 2_768, ()),
+    ("qwen3-moe-30b-a3b decode, 32 pairs", 32, 128, 2048, 768, 0, ()),
+    ("ragged K=100 F=77, empty experts", 40, 16, 100, 77, 5, (0, 3, 4, 15)),
+]
+#: (label, T, E, K, F, block_t) through the reference-contract adapter.
+GG_ADAPTER_CASES = [
+    ("adapter block_t=64", 4096, 16, 512, 256, 64),
+    ("adapter block_t=128", 4096, 16, 512, 256, 128),
+]
 
 
 def _compare(label, dtype, got, want, tol=None) -> dict:
@@ -511,6 +551,26 @@ def compare_ssd(label, args, chunk) -> list[dict]:
                                               SSD_TOLERANCE[h.dtype])}]
 
 
+def gg_inputs(rng, pairs, e, k, f, tail, empty, dtype):
+    """x sorted by expert (``tail`` rows past the segments, as dropped
+    pairs), w and int32 offsets on the card, as the MoE block passes them."""
+    p = np.ones(e)
+    p[list(empty)] = 0.0
+    counts = rng.multinomial(pairs, p / p.sum())
+    x = _normal(rng, (pairs + tail, k), dtype)
+    w = (_normal(rng, (e, k, f), torch.float32) / np.sqrt(k)).to(dtype)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    return x, w, offsets.to("cuda")
+
+
+def compare_gg(label, args) -> dict:
+    """The grouped GEMM against its plain version, in x's type."""
+    x = args[0]
+    return {"kernel": "grouped_gemm", **_compare(f"grouped_gemm {label}", x.dtype,
+                                                 gg.grouped_gemm_ragged(*args),
+                                                 gg.grouped_gemm_plain(*args))}
+
+
 def phase_kernels_vs_plain() -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -542,6 +602,20 @@ def phase_kernels_vs_plain() -> list[dict]:
         for i, (label, b, s, h, p, n, chunk, with_h0) in enumerate(SSD_CASES):
             args = ssd_inputs(np.random.RandomState(300 + i), b, s, h, p, n, dtype, with_h0)
             rows += compare_ssd(label, args, chunk)
+        for i, (label, pairs, e, k, f, tail, empty) in enumerate(GG_CASES):
+            rng = np.random.RandomState(500 + i)
+            rows.append(compare_gg(label, gg_inputs(rng, pairs, e, k, f, tail, empty, dtype)))
+        for i, (label, t, e, k, f, block_t) in enumerate(GG_ADAPTER_CASES):
+            rng = np.random.RandomState(600 + i)
+            x = _normal(rng, (t, k), dtype)
+            w = (_normal(rng, (e, k, f), torch.float32) / np.sqrt(k)).to(dtype)
+            eids = torch.from_numpy(rng.randint(0, e, size=t)).to("cuda")
+            xs, bmap, _inv = gg.pad_and_sort_tokens(x, eids, e, block_t=block_t)
+            got = gg.grouped_gemm(xs, w, bmap, block_t=block_t)
+            counts = torch.bincount(bmap.long(), minlength=e) * block_t
+            offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+            rows.append({"kernel": "grouped_gemm", **_compare(
+                f"grouped_gemm {label}", dtype, got, gg.grouped_gemm_plain(xs, w, offsets))})
     for i, (label, b, s, w, with_h0) in enumerate(RGLRU_CASES):
         rng = np.random.RandomState(400 + i)
         a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32))
@@ -560,12 +634,17 @@ def phase_kernels_vs_plain() -> list[dict]:
 
 #: The serving path's kernels: the wrapper module, and which launch's
 #: inputs `ServeRecorder` keeps: "largest", the first of the most elements
-#: (flash attention's q, k, v are never written after), or "last" (the
+#: (flash attention's q, k, v are never written after), "first" (the
+#: grouped GEMM's first prefill product, layer 0's gate), or "last" (the
 #: decode cache is written before each launch and not after its last; the
 #: scans' inputs are fresh tensors, and their caches are replaced, not
 #: written).
 SERVE_KERNELS = {"flash_attention": (flash, "largest"), "decode_attention": (decode, "last"),
-                 "ssd_scan": (ssd, "last"), "rglru_scan": (rglru, "last")}
+                 "ssd_scan": (ssd, "last"), "rglru_scan": (rglru, "last"),
+                 "grouped_gemm": (gg, "first")}
+#: Kernels whose kept inputs are cloned: the grouped GEMM's weights are a
+#: parameter of a 61 GB model freed before phase 8.
+CLONED_INPUTS = ("grouped_gemm",)
 #: Each serving kernel's plain version, with its `_dispatch`'s arguments.
 PLAIN_DISPATCH = {
     "flash_attention": lambda q, k, v, w, c: flash.flash_attention_plain(
@@ -575,26 +654,31 @@ PLAIN_DISPATCH = {
     "ssd_scan": lambda x, dt, A, Bm, Cm, h0, chunk: ssd.ssd_scan_plain(
         x, dt, A, Bm, Cm, h0, chunk=chunk),
     "rglru_scan": rglru.rglru_scan_plain,
+    "grouped_gemm": gg.grouped_gemm_plain,
 }
-PREFILL_KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")
 #: Each serving kernel's source under src/repro_torch/kernels/csrc.
 SOURCE_FILES = {"flash_attention": "flash_attention.cu",
                 "decode_attention": "decode_attention.cu",
-                "ssd_scan": "ssd.cu", "rglru_scan": "rglru.cu"}
+                "ssd_scan": "ssd.cu", "rglru_scan": "rglru.cu",
+                "grouped_gemm": "grouped_gemm.cu"}
 
 
 def expected_launches(cfg, waves: int, steps: int) -> dict:
     """Launches per kernel for ``waves`` prefills and ``steps`` decode steps:
-    flash per attention layer and wave, flash-decode per attention layer
-    and step, the SSD scan per ``"ssd"`` layer and wave, the RG-LRU scan per
-    ``"recurrent"`` layer and wave.  The scans' decode steps are plain
-    torch and launch nothing."""
+    flash per attention or ``"moe"`` layer and wave, flash-decode per such
+    layer and step, the SSD scan per ``"ssd"`` layer and wave, the RG-LRU
+    scan per ``"recurrent"`` layer and wave, the grouped GEMM per
+    ``"moe"`` layer and expert product (gate, up, down) in every wave and
+    step.  The scans' decode steps are plain torch and launch nothing."""
     layers = {kind: cfg.layer_pattern.count(kind) * cfg.num_groups
-              for kind in ("attention", "ssd", "recurrent")}
-    return {"flash_attention": layers["attention"] * waves,
-            "decode_attention": layers["attention"] * steps,
+              for kind in ("attention", "moe", "ssd", "recurrent")}
+    attention = layers["attention"] + layers["moe"]
+    products = 3 if cfg.gated_mlp else 2
+    return {"flash_attention": attention * waves,
+            "decode_attention": attention * steps,
             "ssd_scan": layers["ssd"] * waves,
-            "rglru_scan": layers["recurrent"] * waves}
+            "rglru_scan": layers["recurrent"] * waves,
+            "grouped_gemm": layers["moe"] * products * (waves + steps)}
 
 
 def _reset_serve_counts() -> None:
@@ -608,13 +692,14 @@ def _serve_counts() -> dict:
 
 class ServeRecorder:
     """During the serving path: CUDA events right around every kernel
-    launch (the C function each wrapper's `_kernel_fn` returns) and around
-    every `forward_prefill` / `forward_decode` call; the inputs of one
-    served launch of each kernel (see `SERVE_KERNELS`); the last position's
-    logits of every prefill."""
+    launch (the C function each wrapper's `_kernel_fn` returns), apart by
+    the forward they ran in, and around every `forward_prefill` /
+    `forward_decode` call; the inputs of one served launch of each kernel
+    (see `SERVE_KERNELS`); the last position's logits of every prefill."""
 
     def __init__(self):
-        self.launches = {name: [] for name in SERVE_KERNELS}
+        self.launches = {name: {"prefill": [], "decode": []} for name in SERVE_KERNELS}
+        self._phase = "prefill"
         self.forward = {"prefill": [], "decode": []}
         self.args = {name: None for name in SERVE_KERNELS}
         self.prefill_logits = []
@@ -636,16 +721,24 @@ class ServeRecorder:
 
     def _kernel_fn(self, name):
         kernel_fn = self._saved[name][0]
-        return lambda *a: self._timed(self.launches[name], kernel_fn(*a))
+        return lambda *a: self._timed(self.launches[name][self._phase], kernel_fn(*a))
 
     def _dispatch(self, name, keep):
         dispatch = self._saved[name][1]
 
         def call(*args):
             old = self.args[name]
-            if keep == "last" or old is None or args[0].numel() > old[0].numel():
-                self.args[name] = args
+            if keep == "last" or old is None or (
+                    keep == "largest" and args[0].numel() > old[0].numel()):
+                self.args[name] = args if name not in CLONED_INPUTS else tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a for a in args)
             return dispatch(*args)
+        return call
+
+    def _in_phase(self, phase, fn):
+        def call(*args, **kwargs):
+            self._phase = phase
+            return fn(*args, **kwargs)
         return call
 
     def __enter__(self):
@@ -655,12 +748,14 @@ class ServeRecorder:
         prefill, decode_fwd = self._saved_forward
 
         def timed_prefill(*args, **kwargs):
-            logits, caches = self._timed(self.forward["prefill"], prefill)(*args, **kwargs)
+            logits, caches = self._timed(self.forward["prefill"], self._in_phase(
+                "prefill", prefill))(*args, **kwargs)
             self.prefill_logits.append(logits[:, -1].clone())
             return logits, caches
 
         tfm.forward_prefill = timed_prefill
-        tfm.forward_decode = self._timed(self.forward["decode"], decode_fwd)
+        tfm.forward_decode = self._timed(self.forward["decode"],
+                                         self._in_phase("decode", decode_fwd))
         return self
 
     def __exit__(self, *exc):
@@ -672,6 +767,14 @@ class ServeRecorder:
     def total_ms(events) -> float:
         torch.cuda.synchronize()
         return float(sum(s.elapsed_time(e) for s, e in events))
+
+    def phase_counts(self, phase) -> dict:
+        """Launches per kernel during the forwards of ``phase``."""
+        return {name: len(ev[phase]) for name, ev in self.launches.items()}
+
+    def phase_ms(self, phase) -> dict:
+        """Kernel ms per kernel during the forwards of ``phase``."""
+        return {name: self.total_ms(ev[phase]) for name, ev in self.launches.items()}
 
 
 def phase_serve_launcher(arch: str) -> dict:
@@ -708,7 +811,7 @@ def phase_serve_launcher(arch: str) -> dict:
 
 def phase_frame_analysis(arch: str, params) -> dict:
     cfg = get_config(arch)
-    prompt_tokens = DEFAULT_TOKENS_PER_FRAME[arch]
+    prompt_tokens = PROMPT_TOKENS[arch]
     engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_seq=prompt_tokens + NEW_TOKENS)
     rng = np.random.RandomState(0)
     for rid in range(N_REQUESTS):
@@ -727,6 +830,11 @@ def phase_frame_analysis(arch: str, params) -> dict:
     if waves != N_REQUESTS // SLOTS or steps != waves * NEW_TOKENS or counts != expect:
         raise AssertionError(f"frame analysis {arch}: launches {counts} for {waves} waves and "
                              f"{steps} decode steps (expected {expect})")
+    for phase, (w, n) in (("prefill", (waves, 0)), ("decode", (0, steps))):
+        if rec.phase_counts(phase) != expected_launches(cfg, w, n):
+            raise AssertionError(f"frame analysis {arch}: {phase} launches "
+                                 f"{rec.phase_counts(phase)}, expected "
+                                 f"{expected_launches(cfg, w, n)}")
     if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
         raise AssertionError(f"frame analysis {arch}: missing results")
     for r in results:
@@ -738,18 +846,21 @@ def phase_frame_analysis(arch: str, params) -> dict:
             raise AssertionError(f"frame analysis {arch}: bad prefill logits")
     prefill_ms = [s.elapsed_time(e) for s, e in rec.forward["prefill"]]
     decode_ms = [s.elapsed_time(e) for s, e in rec.forward["decode"]]
-    kernel_ms = {name: rec.total_ms(ev) for name, ev in rec.launches.items() if ev}
+    by_phase = {phase: rec.phase_ms(phase) for phase in ("prefill", "decode")}
+    kernel_ms = {name: by_phase["prefill"][name] + by_phase["decode"][name]
+                 for name in SERVE_KERNELS if counts[name]}
     tokens = sum(len(r.tokens) for r in results)
-    prefill_kernel_ms = sum(kernel_ms.get(k, 0.0) for k in PREFILL_KERNELS)
     out = {
         "arch": arch, "requests": N_REQUESTS, "prompt_tokens": prompt_tokens,
         "new_tokens": NEW_TOKENS, "slots": SLOTS, "waves": waves, "decode_steps": steps,
         "launches": counts, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(decode_ms)),
         "kernel_ms": kernel_ms,
+        "kernel_ms_by_phase": {ph: {n: ms for n, ms in v.items() if counts[n]}
+                               for ph, v in by_phase.items()},
         "kernel_share": {n: ms / 1e3 / wall_s for n, ms in kernel_ms.items()},
-        "prefill_kernel_share": prefill_kernel_ms / sum(prefill_ms),
-        "decode_kernel_share": kernel_ms.get("decode_attention", 0.0) / sum(decode_ms),
+        "prefill_kernel_share": sum(by_phase["prefill"].values()) / sum(prefill_ms),
+        "decode_kernel_share": sum(by_phase["decode"].values()) / sum(decode_ms),
         "_args": rec.args,
     }
     log(f"  {arch}: {N_REQUESTS} requests x {prompt_tokens}-token prompts, {SLOTS} slots: "
@@ -1017,6 +1128,118 @@ def phase_scan_timing(ssd_args, rglru_args) -> dict:
     return {"ssd_scan": s_, "rglru_scan": r_, "served_checks": served}
 
 
+def gg_bound(x, w, offsets) -> dict:
+    """Bytes: the kept rows of x and of the output, and the weights of every
+    expert that has a row, each once.  Operations: 2·N·K·F over the kept
+    rows, at the bf16 tensor-core peak in bf16."""
+    k, f = w.shape[1:]
+    item = x.element_size()
+    bounds = offsets.cpu().numpy()
+    n_kept = int(bounds[-1] - bounds[0])
+    touched = int((np.diff(bounds) > 0).sum())
+    bytes_moved = (n_kept * (k + f) + touched * k * f) * item
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else SIMT_OPS_PER_S
+    return {**_bound(bytes_moved, 2 * n_kept * k * f, peak), "rows": n_kept,
+            "experts_touched": touched}
+
+
+def _grouped_mm_yardstick(x, w, offsets, want, n_kept):
+    """``(name, fn, max abs err)`` of one library call for the same product:
+    ``torch._grouped_mm`` on the ragged inputs where this PyTorch has it and
+    runs it, else one ``torch.bmm`` over the reference's (E, G·C, K)
+    capacity buffer (qwen3-moe-30b-a3b's served prefill: 16 groups of
+    capacity 20 an expert), which has no error to report."""
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is not None:
+        ends = offsets[1:].contiguous()
+        try:
+            got = grouped_mm(x, w, offs=ends)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as exc:
+            log(f"  torch._grouped_mm refused the served inputs: {str(exc).splitlines()[0]}")
+        else:
+            err = float((got[:n_kept].float() - want[:n_kept].float()).abs().max())
+            return "torch._grouped_mm", lambda: grouped_mm(x, w, offs=ends), err
+    e, k, _ = w.shape
+    cfg = get_config("qwen3-moe-30b-a3b")
+    tokens = SLOTS * PROMPT_TOKENS[cfg.name]
+    groups = cfg.moe_dispatch_groups
+    capacity = int(max(1, cfg.moe_capacity_factor * cfg.experts_per_token * tokens
+                       / (cfg.num_experts * groups)))
+    buf = torch.zeros((e, groups * capacity, k), dtype=x.dtype, device=x.device)
+    buf[:, :capacity] = x[:capacity]
+    return "torch.bmm over the capacity buffer", lambda: torch.bmm(buf, w), None
+
+
+def phase_gg_timing(gg_args) -> dict:
+    """The grouped GEMM against its plain version on phase 7(b)'s served
+    inputs (qwen3-moe-30b-a3b's first gate product, L2 flushed), then timed
+    there beside its plain version, its bound and a library yardstick."""
+    before = gg.LAUNCHES
+    x, w, offsets = gg_args
+    want = gg.grouped_gemm_plain(x, w, offsets)
+    served = [{"kernel": "grouped_gemm", **_compare(
+        "grouped_gemm served prefill", x.dtype, gg._dispatch(x, w, offsets), want)}]
+    for r in served:
+        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
+    t = {"shape": [list(x.shape), list(w.shape)], "dtype": str(x.dtype).replace("torch.", ""),
+         **gg_bound(x, w, offsets)}
+    t["ms"] = time_cold_ms(lambda: gg._dispatch(x, w, offsets), reps=10)
+    t["plain_ms"] = time_cold_ms(lambda: gg.grouped_gemm_plain(x, w, offsets), reps=5)
+    name, fn, err = _grouped_mm_yardstick(x, w, offsets, want, t["rows"])
+    t["library"], t["library_max_abs_err"] = name, err
+    t["library_ms"] = time_cold_ms(fn, reps=10)
+    gg.LAUNCHES = before  # timing launches are not the path's
+    log(f"  grouped_gemm at {t['shape']} {t['dtype']} ({t['rows']} kept rows, "
+        f"{t['experts_touched']} experts): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, {name} {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB, "
+        f"{t['ops'] / 1e9:.1f} GFLOP)")
+    return {"grouped_gemm": t, "served_checks": served}
+
+
+class ForcedRouting:
+    """Around phase 8's two runs of a MoE model: the kernel run records its
+    router's top-k choices, call by call; the plain run takes them (with
+    its own probabilities at those choices) and counts the rows whose own
+    choices differ, since routing is a discontinuous function of float32
+    sums that the two runs take in another order."""
+
+    def __init__(self):
+        self.choices: list[torch.Tensor] = []
+        self.flips = self.forced_calls = 0
+        self._route = moe_lib._route
+
+    def _recording(self, logits, k):
+        out = self._route(logits, k)
+        self.choices.append(out[2])
+        return out
+
+    def recording(self):
+        moe_lib._route = self._recording
+        return self
+
+    def forcing(self):
+        calls = iter(self.choices)
+
+        def forced(logits, k):
+            probs, _, own = self._route(logits, k)
+            top_i = next(calls)
+            self.forced_calls += 1
+            self.flips += int((own.sort(-1).values != top_i.sort(-1).values).any(-1).sum())
+            top_p = probs.gather(-1, top_i)
+            return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_i
+
+        moe_lib._route = forced
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib._route = self._route
+
+
 def _model_logits(params, cfg, prompt, steps) -> list[torch.Tensor]:
     b, s = prompt.shape
     caches = tfm.init_serve_cache(cfg, b, s + steps.shape[1])
@@ -1029,35 +1252,45 @@ def _model_logits(params, cfg, prompt, steps) -> list[torch.Tensor]:
 
 
 def phase_model_vs_plain(arch: str) -> dict:
-    """The full-width model in float32, one 2 x prompt prefill and 8 decode
-    steps, on the kernels and again with every kernel's dispatch patched to
-    its plain version; the logits compared."""
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
-    prompt_tokens = DEFAULT_TOKENS_PER_FRAME[arch]
+    """The full-width model in float32 (`MODEL_LAYERS` cuts the depth), one
+    2 x prompt prefill and 8 decode steps, on the kernels and again with
+    every kernel's dispatch patched to its plain version; the logits
+    compared.  A MoE model's plain run takes the kernel run's expert
+    choices (`ForcedRouting`)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32",
+                              num_layers=MODEL_LAYERS.get(arch, full.num_layers))
+    prompt_tokens = PROMPT_TOKENS[arch]
     params = tfm.init_params(cfg, seed=1)
     rng = np.random.RandomState(1)
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, prompt_tokens))).cuda()
     steps = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 8))).cuda()
     before = _serve_counts()
-    t0 = time.perf_counter()
-    kern = _model_logits(params, cfg, prompt, steps)
-    torch.cuda.synchronize()
-    kern_s = time.perf_counter() - t0
-    launched = {k: n - before[k] for k, n in _serve_counts().items()}
-    if launched != expected_launches(cfg, waves=1, steps=8):
-        raise AssertionError(f"float32 {arch}: launches {launched}")
-    saved = {name: mod._dispatch for name, (mod, _) in SERVE_KERNELS.items()}
-    for name, (mod, _) in SERVE_KERNELS.items():
-        mod._dispatch = PLAIN_DISPATCH[name]
-    try:
+    with ForcedRouting().recording() as routing:
         t0 = time.perf_counter()
-        plain = _model_logits(params, cfg, prompt, steps)
+        kern = _model_logits(params, cfg, prompt, steps)
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-    finally:
+        kern_s = time.perf_counter() - t0
+        launched = {k: n - before[k] for k, n in _serve_counts().items()}
+        if launched != expected_launches(cfg, waves=1, steps=8):
+            raise AssertionError(f"float32 {arch}: launches {launched}")
+        saved = {name: mod._dispatch for name, (mod, _) in SERVE_KERNELS.items()}
         for name, (mod, _) in SERVE_KERNELS.items():
-            mod._dispatch = saved[name]
-            mod.LAUNCHES = before[name]
+            mod._dispatch = PLAIN_DISPATCH[name]
+        routing.forcing()
+        try:
+            t0 = time.perf_counter()
+            plain = _model_logits(params, cfg, prompt, steps)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            for name, (mod, _) in SERVE_KERNELS.items():
+                mod._dispatch = saved[name]
+                mod.LAUNCHES = before[name]
+    moe_layers = cfg.layer_pattern.count("moe") * cfg.num_groups
+    if len(routing.choices) != moe_layers * 9 or routing.forced_calls != moe_layers * 9:
+        raise AssertionError(f"float32 {arch}: {len(routing.choices)} routings recorded, "
+                             f"{routing.forced_calls} forced, for {moe_layers} MoE layers")
     errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
     for a in kern:
         if not bool(torch.isfinite(a).all()):
@@ -1069,10 +1302,12 @@ def phase_model_vs_plain(arch: str) -> dict:
     log(f"  float32 {arch} ({cfg.num_layers} layers), 2 x {prompt_tokens} prefill + 8 decode "
         f"steps: logits max abs diff kernel vs plain {errs[0]:.3g} (prefill), "
         f"{max(errs[1:]):.3g} (decode), atol {atol}; kernel path {kern_s:.2f} s, plain path "
-        f"{plain_s:.2f} s")
+        f"{plain_s:.2f} s" + (f"; {routing.flips} rows of {len(routing.choices)} routings "
+                              f"would have chosen other experts on the plain path"
+                              if moe_layers else ""))
     return {"layers": cfg.num_layers, "prefill_max_abs_err": errs[0],
             "decode_max_abs_err": max(errs[1:]), "atol": atol, "kernel_path_s": kern_s,
-            "plain_path_s": plain_s}
+            "plain_path_s": plain_s, "routing_flips": routing.flips}
 
 
 class PhaseTimer:
@@ -1147,7 +1382,7 @@ def main(argv=None) -> int:
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
 
-    timer.begin("phase 6", "attention, SSD and RG-LRU kernels vs plain on the card")
+    timer.begin("phase 6", "attention, SSD, RG-LRU and grouped GEMM kernels vs plain on the card")
     kernel_checks = phase_kernels_vs_plain()
     result["kernel_checks"] = kernel_checks
 
@@ -1163,17 +1398,19 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         result["frame_analysis"] = frames
         timer.begin("phase 8", "kernel timing; float32 models vs their plain paths")
-        gemma, mamba, rg = (served[arch] for arch in SERVE_ARCHS)
+        gemma, mamba, rg, qwen = (served[arch] for arch in SERVE_ARCHS)
         attn_timing = phase_attention_timing(gemma["flash_attention"], gemma["decode_attention"])
         rep16 = phase_attention_timing_rep16(rg["flash_attention"], rg["decode_attention"])
         scan_timing = phase_scan_timing(mamba["ssd_scan"], rg["rglru_scan"])
-        del served, gemma, mamba, rg
+        gg_timing = phase_gg_timing(qwen["grouped_gemm"])
+        del served, gemma, mamba, rg, qwen
         kernel_checks += (attn_timing.pop("served_checks") + rep16.pop("served_checks")
-                          + scan_timing.pop("served_checks"))
+                          + scan_timing.pop("served_checks") + gg_timing.pop("served_checks"))
         for kname in ("flash_attention", "decode_attention"):
             attn_timing[kname]["recurrentgemma"] = rep16[kname]
         result["attention_timing"] = attn_timing
         result["scan_timing"] = scan_timing
+        result["grouped_gemm_timing"] = gg_timing
         result["model_vs_plain"] = {}
         for arch in SERVE_ARCHS:
             result["model_vs_plain"][arch] = phase_model_vs_plain(arch)
@@ -1198,8 +1435,9 @@ def main(argv=None) -> int:
             ("decode_attention", "src/repro/kernels/decode_attention.py:72"),
             ("ssd_scan", "src/repro/kernels/ssd.py:72"),
             ("rglru_scan", "src/repro/kernels/rglru.py:41"),
+            ("grouped_gemm", "src/repro/kernels/grouped_gemm.py:32"),
         ):
-            t = {**attn_timing, **scan_timing}[kname]
+            t = {**attn_timing, **scan_timing, **gg_timing}[kname]
             by_arch = {arch: f["launches"][kname] for arch, f in frames.items()
                        if f["launches"][kname]}
             entry = {
@@ -1217,6 +1455,8 @@ def main(argv=None) -> int:
                 "library_ms": t["library_ms"],
                 "launches_by_arch": by_arch,
             }
+            if "library" in t:
+                entry["library"] = t["library"]
             for shapes in ("internlm2", "recurrentgemma"):
                 if shapes in t:
                     entry[shapes] = {k: t[shapes][k] for k in (

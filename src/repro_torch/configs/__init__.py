@@ -3,9 +3,7 @@
 A copy of `repro/configs` (plain data).  ``get_config(arch_id)`` returns
 the full production config; ``smoke_variant(cfg)`` derives the reduced
 CPU-testable variant (<=2 pattern repeats, d_model<=512, <=4 experts) used
-by smoke tests.  The port's model runs every config whose layer pattern
-holds ``"attention"``, ``"ssd"`` and ``"recurrent"`` blocks; the ``"moe"``
-block is not ported yet (`repro_torch.models.transformer.check_supported`).
+by smoke tests.  The port's model runs every config.
 """
 from __future__ import annotations
 

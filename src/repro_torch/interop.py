@@ -19,10 +19,11 @@ import torch
 from .core.binpack.problem import BinType, Choice, Item, Problem
 from .core.profiler import ProfileTable, ResourceProfile
 from .device import resolve_device
-from .models import rglru, ssm
+from .models import moe, rglru, ssm
 from .models import transformer as tfm
 from .models.attention import Attention
 from .models.layers import MLP
+from .models.moe import MoE
 from .models.rglru import RGLRU
 from .models.ssm import Mamba2
 
@@ -150,14 +151,14 @@ def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
     optional ``unembed`` and ``vision_proj``, and ``blocks``, one dict per
     pattern slot whose leaves are stacked over layer groups.  Layer ``i``
     is group ``i // len(pattern)`` of slot ``i % len(pattern)``; a slot's
-    dict holds ``ln1`` and ``attn``, ``mamba`` or ``rec``, and ``ln2`` and
-    ``mlp`` unless it is ``"ssd"``.  Each leaf is cast, on ``device``
-    (default: the card), to the type the port's own ``init_params`` gives
-    it, which is the reference's: ``cfg.dtype``, except the float32 leaves
-    of `ssm.FLOAT32_PARAMS` and `rglru.FLOAT32_PARAMS`.  A bf16 array
-    widened to float32 comes back exactly.
+    dict holds ``ln1`` and ``attn``, ``mamba`` or ``rec``, and, unless it
+    is ``"ssd"``, ``ln2`` and ``mlp`` or (``"moe"``) ``moe``.  Each leaf is
+    cast, on ``device`` (default: the card), to the type the port's own
+    ``init_params`` gives it, which is the reference's: ``cfg.dtype``,
+    except the float32 leaves of `ssm.FLOAT32_PARAMS`,
+    `rglru.FLOAT32_PARAMS` and `moe.FLOAT32_PARAMS`.  A bf16 array widened
+    to float32 comes back exactly.
     """
-    tfm.check_supported(cfg)
     dev = resolve_device(device)
     dt = tfm.torch_dtype(cfg)
 
@@ -182,12 +183,16 @@ def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
             blocks.append(tfm.Block(kind, ln1, Mamba2(**leaves(p["mamba"], grp,
                                                               ssm.FLOAT32_PARAMS))))
             continue
-        if kind == "attention":
+        if kind == "recurrent":
+            mixer = RGLRU(**leaves(p["rec"], grp, rglru.FLOAT32_PARAMS))
+        else:
             a = p["attn"]
             mixer = Attention(put(a["wq"][grp]), put(a["wk"][grp]), put(a["wv"][grp]),
                               put(a["wo"][grp]), opt(a, "q_norm", grp), opt(a, "k_norm", grp))
-        else:
-            mixer = RGLRU(**leaves(p["rec"], grp, rglru.FLOAT32_PARAMS))
+        if kind == "moe":
+            blocks.append(tfm.Block(kind, ln1, mixer, put(p["ln2"][grp]),
+                                    moe=MoE(**leaves(p["moe"], grp, moe.FLOAT32_PARAMS))))
+            continue
         m = p["mlp"]
         blocks.append(tfm.Block(kind, ln1, mixer, put(p["ln2"][grp]),
                                 MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp))))

@@ -10,6 +10,8 @@
     (``csrc/ssd.cu``)
   * rglru — the RG-LRU linear recurrence, the ``"recurrent"`` block's
     prefill (``csrc/rglru.cu``)
+  * grouped_gemm — the ragged expert GEMM, the ``"moe"`` block's expert
+    products (``csrc/grouped_gemm.cu``)
 
 Each source is built on first use by ``_build``.  Kernel libraries are
 built and loaded inside the call that launches them, never at import.

@@ -32,8 +32,9 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: The attention, SSD and RG-LRU kernels need no bit-identity with their
-#: plain versions, so they let the compiler fuse multiply-adds.
+#: The attention, SSD, RG-LRU and grouped GEMM kernels need no
+#: bit-identity with their plain versions, so they let the compiler fuse
+#: multiply-adds.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
@@ -43,6 +44,7 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh",)),
     "rglru": (FMAD_FLAGS, ()),
+    "grouped_gemm": (FMAD_FLAGS, ()),
 }
 
 #: Per source name: {"seconds": build wall time (0.0 when reused),

@@ -1,0 +1,183 @@
+"""Grouped (ragged expert) GEMM — the expert products of the ``"moe"`` block.
+
+Replaces the TPU kernel `repro/kernels/grouped_gemm.py:grouped_gemm`
+(body `_kernel`): ``out[r] = x[r] @ w[expert(r)]`` for rows sorted by
+expert, with float32 accumulation and the output rounded once to x's type
+(bfloat16 or float32).
+
+The TPU kernel takes every expert's segment padded to ``block_t`` rows and
+a ``block_expert`` map.  The CUDA kernel takes the ragged layout instead:
+x ``(N, K)`` sorted by expert, w ``(E, K, F)`` and int32 ``offsets``
+``(E + 1,)`` on the device, expert ``e`` owning rows
+``offsets[e]:offsets[e + 1]``.  Rows outside every segment come out zero.
+
+Functions:
+
+* `grouped_gemm_plain` — plain torch: one float32 matmul per non-empty
+  segment, cast once (never a per-row gather of ``w``);
+* `grouped_gemm_ragged` — dispatch by device: CPU tensors run the plain
+  version, CUDA tensors launch the kernel in ``csrc/grouped_gemm.cu`` (or
+  raise).  The MoE block calls this;
+* `grouped_gemm` — the reference's contract ``(x, w, block_expert, *,
+  block_t, block_f)``, a thin adapter that turns the padded segments of a
+  nondecreasing ``block_expert`` into offsets: every row is computed;
+* `pad_and_sort_tokens` — the reference's helper, plain torch, with the
+  same outputs ``(xs, block_expert, inv)``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["LAUNCHES", "grouped_gemm", "grouped_gemm_plain", "grouped_gemm_ragged",
+           "pad_and_sort_tokens"]
+
+#: Number of CUDA kernel launches made by `grouped_gemm_ragged` (and so by
+#: `grouped_gemm`) in this process.
+LAUNCHES = 0
+
+_DTYPES = (torch.bfloat16, torch.float32)
+#: The kernel takes its 128 x 128 tile when the average segment has at
+#: least this many rows, else its 16 x 64 tile.
+_LARGE_TILE_ROWS = 64
+
+
+def grouped_gemm_plain(x, w, offsets):
+    """Plain torch ragged grouped GEMM; any device.  Reads ``offsets`` on
+    the host and raises unless ``0 <= offsets[0] <= ... <= offsets[E] <= N``."""
+    n = x.shape[0]
+    bounds = offsets.tolist()
+    if bounds[0] < 0 or bounds[-1] > n or any(a > b for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"grouped_gemm: offsets must be nondecreasing in [0, {n}]")
+    out = torch.zeros((n, w.shape[2]), dtype=x.dtype, device=x.device)
+    for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        if hi > lo:
+            out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)
+    return out
+
+
+def _check_inputs(x, w, offsets) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_gemm: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"grouped_gemm: x must be bfloat16 or float32, got {x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"grouped_gemm: w is {w.dtype}, x is {x.dtype}")
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"grouped_gemm: offsets must be int32, got {offsets.dtype}")
+    for name, t in (("w", w), ("offsets", offsets)):
+        if t.device != x.device:
+            raise ValueError(f"grouped_gemm: {name} is on {t.device}, x on {x.device}")
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1] or min(w.shape) < 1:
+        raise ValueError(f"grouped_gemm: x must be (N, K) and w (E, K, F), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if tuple(offsets.shape) != (w.shape[0] + 1,):
+        raise ValueError(f"grouped_gemm: offsets must be ({w.shape[0] + 1},), "
+                         f"got {tuple(offsets.shape)}")
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _kernel_fn(dtype: torch.dtype):
+    from ._build import load_library
+
+    lib = load_library("grouped_gemm")
+    fn = lib.grouped_gemm_bf16 if dtype == torch.bfloat16 else lib.grouped_gemm_f32
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def grouped_gemm_ragged(x, w, offsets):
+    """``(N, F)`` in x's type from x ``(N, K)`` sorted by expert, w
+    ``(E, K, F)`` and int32 offsets ``(E + 1,)``, dispatched by device.
+
+    CPU tensors run `grouped_gemm_plain`; CUDA tensors launch the CUDA
+    kernel on the current stream, and anything it does not take raises:
+    another dtype or device, mismatched shapes, a non-contiguous tensor.
+    The kernel does not read the offsets on the host: it clamps each
+    segment into ``[0, N]``.
+    """
+    _check_inputs(x, w, offsets)
+    return _dispatch(x, w, offsets)
+
+
+def _dispatch(x, w, offsets):
+    """`grouped_gemm_ragged` after its checks: the plain version or the kernel."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return grouped_gemm_plain(x, w, offsets)
+    for name, t in (("x", x), ("w", w), ("offsets", offsets)):
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_gemm: {name} must be contiguous on CUDA")
+    n, k = x.shape
+    e, _, f = w.shape
+    fn = _kernel_fn(x.dtype)
+    with torch.cuda.device(x.device):
+        out = torch.zeros((n, f), dtype=x.dtype, device=x.device)
+        rc = fn(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, k, f, e,
+                int(n >= _LARGE_TILE_ROWS * e), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_gemm kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def grouped_gemm(x, w, block_expert, *, block_t: int = 128, block_f: int = 128):
+    """The reference's contract: x ``(T, D)`` in ``block_t``-row blocks,
+    block ``i`` multiplied by ``w[block_expert[i]]``; ``(T, F)`` in x's type.
+
+    The reference's shape assertions raise `ValueError` here.
+    ``block_expert`` must be nondecreasing, as `pad_and_sort_tokens` makes
+    it, so that each expert's blocks form one segment; ``block_f`` is
+    checked and otherwise unused (the kernel picks its own tiles).
+    """
+    t, _ = x.shape
+    e, _, f = w.shape
+    block_t, block_f = min(block_t, t), min(block_f, f)
+    if t % block_t or f % block_f:
+        raise ValueError(f"grouped_gemm: T={t}, F={f} not multiples of blocks "
+                         f"{block_t}, {block_f}")
+    if tuple(block_expert.shape) != (t // block_t,):
+        raise ValueError(f"grouped_gemm: block_expert must be ({t // block_t},), "
+                         f"got {tuple(block_expert.shape)}")
+    be = block_expert.to(device=x.device, dtype=torch.int64)
+    if bool((be[1:] < be[:-1]).any()) or int(be.min()) < 0 or int(be.max()) >= e:
+        raise ValueError(f"grouped_gemm: block_expert must be nondecreasing in [0, {e})")
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).index_add_(
+        0, be, torch.full_like(be, block_t))
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return grouped_gemm_ragged(x, w, offsets)
+
+
+def pad_and_sort_tokens(x, expert_ids, num_experts: int, *, block_t: int = 128):
+    """Sort tokens by expert and pad each segment to a ``block_t`` multiple.
+
+    Returns ``(sorted_padded_x, block_expert, inv)`` as the reference does:
+    ``out_sorted[inv]`` restores token order, padded rows map nowhere, and
+    the padded length is the static bound ``T + E*(block_t-1)``, rounded up
+    to a block.
+    """
+    t, d = x.shape
+    dev = x.device
+    expert_ids = expert_ids.to(torch.int64)
+    order = torch.argsort(expert_ids, stable=True)
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=dev).index_add_(
+        0, expert_ids, torch.ones_like(expert_ids))
+    padded_counts = (counts + block_t - 1) // block_t * block_t
+    padded_ends = padded_counts.cumsum(0)
+    sorted_experts = expert_ids[order]
+    # Destination row of each sorted token: segment start + rank in segment.
+    rank = torch.arange(t, device=dev) - (counts.cumsum(0) - counts)[sorted_experts]
+    dest = (padded_ends - padded_counts)[sorted_experts] + rank
+    total = (t + num_experts * (block_t - 1) + block_t - 1) // block_t * block_t
+    xs = torch.zeros((total, d), dtype=x.dtype, device=dev)
+    xs[dest] = x[order]
+    inv = torch.zeros(t, dtype=torch.int32, device=dev)
+    inv[order] = dest.to(torch.int32)
+    block_starts = torch.arange(total // block_t, device=dev) * block_t
+    block_expert = torch.searchsorted(padded_ends, block_starts, right=True).clamp(
+        0, num_experts - 1).to(torch.int32)
+    return xs, block_expert, inv

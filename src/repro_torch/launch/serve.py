@@ -11,9 +11,10 @@ boolean flag that ``--no-smoke-weights`` turns off, serving the full
 configuration (the reference's flag is ``store_true`` with default True, so
 it cannot be turned off).
 
-It serves every architecture the port's model runs: attention-only
-configs, mamba2-1.3b (the SSD scan kernel in prefill) and
-recurrentgemma-9b (the RG-LRU scan and both attention kernels).
+It serves every architecture: attention-only configs, mamba2-1.3b (the
+SSD scan kernel in prefill), recurrentgemma-9b (the RG-LRU scan and both
+attention kernels) and the MoE configs qwen3-moe-30b-a3b and grok-1-314b
+(both attention kernels and the grouped GEMM).
 
 Example (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \

@@ -1,8 +1,9 @@
 """Decoder-only model assembled from a ModelConfig: the serving path.
 
-Mirrors `repro/models/transformer.py` for configs whose layer pattern holds
-``"attention"`` blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron,
-llava's backbone, musicgen's backbone), ``"ssd"`` blocks (mamba2-1.3b) and
+Mirrors `repro/models/transformer.py` for every config: ``"attention"``
+blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron, llava's backbone,
+musicgen's backbone), ``"moe"`` blocks, attention plus routed experts
+(qwen3-moe-30b-a3b, grok-1-314b), ``"ssd"`` blocks (mamba2-1.3b) and
 ``"recurrent"`` blocks beside local attention (recurrentgemma-9b).  The
 reference stacks parameters and caches over layer groups and scans them
 with ``lax.scan``; PyTorch runs eagerly, so the port keeps one `Block`
@@ -16,8 +17,7 @@ Entry points:
   * ``forward_decode(params, cfg, tokens, cur_pos, caches) -> (logits, caches)``
 
 ``forward_train`` and ``loss_fn`` wait for the training slice (ROADMAP
-queue A item 16); the ``"moe"`` block raises `NotImplementedError` naming
-its ROADMAP items.
+queue A item 16).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from torch import nn
 
 from ..device import resolve_device
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
@@ -42,24 +43,13 @@ __all__ = [
     "forward_decode",
 ]
 
-_NOT_PORTED = {
-    "moe": "the 'moe' block (attention + routed experts) is not ported yet: "
-           "ROADMAP queue A item 13 with queue B item 6 (grouped_gemm)",
-}
 #: The attribute of a `Block` that holds each kind's mixer, named as the
 #: reference's parameter dict names it.
-_MIXER = {"attention": "attn", "ssd": "mamba", "recurrent": "rec"}
+_MIXER = {"attention": "attn", "moe": "attn", "ssd": "mamba", "recurrent": "rec"}
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for a layer pattern the port cannot run."""
-    for kind in cfg.layer_pattern:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
 
 
 def _frozen(t: torch.Tensor | None) -> nn.Parameter | None:
@@ -68,17 +58,20 @@ def _frozen(t: torch.Tensor | None) -> nn.Parameter | None:
 
 class Block(nn.Module):
     """One layer of ``kind``: ``"attention"`` holds ``ln1``, ``attn``,
-    ``ln2`` and ``mlp``; ``"ssd"`` holds ``ln1`` and ``mamba``;
-    ``"recurrent"`` holds ``ln1``, ``rec``, ``ln2`` and ``mlp``."""
+    ``ln2`` and ``mlp``; ``"moe"`` holds ``ln1``, ``attn``, ``ln2`` and
+    ``moe``; ``"ssd"`` holds ``ln1`` and ``mamba``; ``"recurrent"`` holds
+    ``ln1``, ``rec``, ``ln2`` and ``mlp``."""
 
     def __init__(self, kind: str, ln1: torch.Tensor, mixer: nn.Module,
-                 ln2: torch.Tensor | None = None, mlp_: MLP | None = None) -> None:
+                 ln2: torch.Tensor | None = None, mlp_: MLP | None = None,
+                 moe: moe_lib.MoE | None = None) -> None:
         super().__init__()
         self.kind = kind
         self.ln1 = _frozen(ln1)
         setattr(self, _MIXER[kind], mixer)
         self.ln2 = _frozen(ln2)
         self.mlp = mlp_
+        self.moe = moe
 
 
 class Transformer(nn.Module):
@@ -103,7 +96,6 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     """Random weights with the reference's shapes and scales, drawn from a
     `torch.Generator` seeded with ``seed`` on ``device`` (default: the card)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -129,12 +121,15 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dt: torch.dty
     if kind == "ssd":
         return Block(kind, ln1, ssm_lib.init_mamba2(
             gen, d, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv_width, dt))
-    if kind == "attention":
-        mixer = attn_lib.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                                        cfg.resolved_head_dim, cfg.qk_norm, dt)
-    else:
+    if kind == "recurrent":
         mixer = rglru_lib.init_rglru_block(gen, d, cfg.resolved_lru_width,
                                            cfg.rglru_conv_width, dt)
+    else:
+        mixer = attn_lib.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, cfg.qk_norm, dt)
+    if kind == "moe":
+        return Block(kind, ln1, mixer, init_rms_norm(d, dt, dev), moe=moe_lib.init_moe(
+            gen, d, cfg.d_ff, cfg.num_experts, cfg.gated_mlp, dt))
     return Block(kind, ln1, mixer, init_rms_norm(d, dt, dev),
                  init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dt))
 
@@ -189,11 +184,10 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 def init_serve_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                      long_context: bool = False, device=None) -> list[dict]:
-    """One cache per layer: an attention layer's K/V ring (windowed layers
-    hold ``min(cache_len, window)`` slots), an ``"ssd"`` layer's state and
-    conv tail, a ``"recurrent"`` layer's state and conv tail.
-    ``device="meta"`` gives shapes and dtypes without memory."""
-    check_supported(cfg)
+    """One cache per layer: an ``"attention"`` or ``"moe"`` layer's K/V
+    ring (windowed layers hold ``min(cache_len, window)`` slots), an
+    ``"ssd"`` layer's state and conv tail, a ``"recurrent"`` layer's state
+    and conv tail.  ``device="meta"`` gives shapes and dtypes without memory."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     dt = torch_dtype(cfg)
     caches = []
@@ -244,14 +238,21 @@ def _apply_layer_serve(cfg: ModelConfig, window: int | None, layer: Block,
             h, cache = attn_lib.prefill_into_cache(layer.attn, h, positions, cache, **kw)
     x = x + h
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
-    x = x + mlp(layer.mlp, h, cfg.mlp_activation)
-    return x, cache
+    if layer.kind == "moe":
+        h, _ = moe_lib.moe_ffn(
+            layer.moe, h, num_experts=cfg.num_experts,
+            experts_per_token=cfg.experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor, activation=cfg.mlp_activation,
+            dropless=decode,  # decode: capacity = T, no drops
+            dispatch_groups=cfg.moe_dispatch_groups)
+    else:
+        h = mlp(layer.mlp, h, cfg.mlp_activation)
+    return x + h, cache
 
 
 def _forward_serve(params: Transformer, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor | None, cur_pos: int | None,
                    caches: list, decode: bool, long_context: bool):
-    check_supported(cfg)
     if len(caches) != cfg.num_layers:
         raise ValueError(f"{len(caches)} caches for {cfg.num_layers} layers")
     for i, layer in enumerate(params.blocks):

@@ -1,8 +1,9 @@
 """Cache bookkeeping utilities for the serving engine.
 
 Mirrors `repro/serving/kvcache.py`.  The per-layer cache *contents* live in
-`repro_torch.models` (attention ring buffers, SSD and RG-LRU states and
-conv tails, see ``transformer.init_serve_cache``); the port keeps one cache
+`repro_torch.models` (attention ring buffers, of ``"attention"`` and
+``"moe"`` layers alike, SSD and RG-LRU states and conv tails, see
+``transformer.init_serve_cache``); the port keeps one cache
 dict per layer where the reference stacks them over layer groups, and the
 byte counts are the same.  This module adds the engine-level view: sizing, byte
 accounting, and slot-reset for continuous batching.

@@ -11,8 +11,8 @@ plans built from them.  The attention kernels sum in another order than
 their plain versions, both in float32: float32 is held to the
 reference's kernel tolerance, 2e-5; in bfloat16 the two round to outputs
 at most one bf16 ulp apart (rtol 2^-7), with atol 1e-4 for the float32
-difference.  The SSD and RG-LRU scans' limits are stated beside their
-tests.
+difference.  The SSD and RG-LRU scans' and the grouped GEMM's limits are
+stated beside their tests.
 """
 import dataclasses
 
@@ -30,6 +30,7 @@ from repro_torch.core.streams import AnalysisProgram, StreamSpec
 from repro_torch.interop import plan_to_plain
 from repro_torch.kernels import attention as flash
 from repro_torch.kernels import decode_attention as decode
+from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import knapsack, rglru, ssd
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Request, ServingEngine
@@ -352,4 +353,94 @@ def test_recurrent_engines_on_card_give_the_cpu_engine_tokens(cuda, arch):
         want = [kinds["attention"] * waves, kinds["attention"] * steps, kinds["ssd"] * waves,
                 kinds["recurrent"] * waves]
         assert launched == ([0, 0, 0, 0] if dev == "cpu" else want)
+    assert tokens["cpu"] == tokens[str(cuda)]
+
+
+# ---- the grouped GEMM ----------------------------------------------------------
+#
+# Kernel and plain version both accumulate in float32 and round once to the
+# input type; they differ in the order of their sums, so they share the
+# attention kernels' limits (`TOL`): 2e-5 in float32; one bf16 ulp (rtol
+# 2^-7) plus atol 1e-4 in bfloat16.  The weights are N(0, 1/K), as the
+# model draws them, so outputs are O(1) at any K.
+
+
+def _ragged(counts, k, f, dtype, device, tail=0):
+    """x sorted by expert (``tail`` rows past the last segment), w and offsets."""
+    n = sum(counts) + tail
+    x = _normal(0, (n, k), dtype, device)
+    w = _normal(1, (len(counts), k, f), torch.float32, device) / np.sqrt(k)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32)
+    return x, w.to(dtype), offsets.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts,k,f,tail", [
+    ([256] * 128, 2048, 768, 0),                   # qwen3's prefill gate/up: the 128 x 128 tile
+    ([300, 0, 0, 171, 90, 0, 400, 63], 768, 2048, 17),  # empty experts, drops, long rows
+    ([1, 0, 2, 0, 0, 1] + [0] * 122, 2048, 768, 28),  # decode: the 16 x 64 tile
+    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F
+    ([0, 0, 0, 0], 64, 64, 6),                     # every expert empty
+])
+def test_grouped_gemm_kernel_matches_plain(cuda, counts, k, f, tail, dtype):
+    x, w, offsets = _ragged(counts, k, f, dtype, cuda, tail)
+    before = gg.LAUNCHES
+    got = gg.grouped_gemm_ragged(x, w, offsets)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), gg.grouped_gemm_plain(x, w, offsets).float(),
+                               **TOL[dtype])
+    assert not got[sum(counts):].any()  # rows past the last segment stay zero
+
+
+@pytest.mark.parametrize("block_t", [64, 128])
+def test_grouped_gemm_reference_contract_matches_plain(cuda, block_t):
+    """`pad_and_sort_tokens` then the adapter: every padded row computed."""
+    t, d, e, f = 512, 128, 8, 256
+    x = _normal(0, (t, d), torch.bfloat16, cuda)
+    w = (_normal(1, (e, d, f), torch.float32, cuda) / np.sqrt(d)).bfloat16()
+    eids = torch.from_numpy(np.random.RandomState(2).randint(0, e, size=t)).to(cuda)
+    eids[eids == 3] = 4  # an empty expert
+    xs, bmap, inv = gg.pad_and_sort_tokens(x, eids, e, block_t=block_t)
+    before = gg.LAUNCHES
+    got = gg.grouped_gemm(xs, w, bmap, block_t=block_t)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == before + 1
+    want = (x.float()[:, None, :] @ w.float()[eids]).squeeze(1).bfloat16()
+    torch.testing.assert_close(got[inv.long()].float(), want.float(), **TOL[torch.bfloat16])
+
+
+def test_grouped_gemm_wrapper_raises_instead_of_falling_back(cuda):
+    x, w, offsets = _ragged([4, 4], 64, 32, torch.float32, cuda)
+    before = gg.LAUNCHES
+    with pytest.raises(ValueError):  # not contiguous
+        gg.grouped_gemm_ragged(x.t().contiguous().t(), w, offsets)
+    with pytest.raises(ValueError):  # another device
+        gg.grouped_gemm_ragged(x, w, offsets.cpu())
+    with pytest.raises(TypeError):  # a dtype the kernel is not built for
+        gg.grouped_gemm_ragged(x.half(), w.half(), offsets)
+    assert gg.LAUNCHES == before
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_moe_engines_on_card_give_the_cpu_engine_tokens(cuda, arch):
+    """Smoke qwen3-moe-30b-a3b and grok-1-314b in float32: greedy tokens on
+    the card (flash, flash-decode, the grouped GEMM) equal those on the CPU
+    (plain versions); the prefills drop pairs at capacity."""
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
+    params = tfm.init_params(cfg, seed=3, device="cpu")
+    tokens = {}
+    layers = cfg.num_layers
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params.to(dev), batch_slots=2, max_seq=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=np.arange(16 + 5 * i) % cfg.vocab_size,
+                               max_new_tokens=12))
+        mods = (flash, decode, gg)
+        before = [m.LAUNCHES for m in mods]
+        tokens[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        launched = [m.LAUNCHES - n for m, n in zip(mods, before)]
+        waves, steps = 2, 2 * 12
+        want = [layers * waves, layers * steps, 3 * layers * (waves + steps)]
+        assert launched == ([0, 0, 0] if dev == "cpu" else want)
     assert tokens["cpu"] == tokens[str(cuda)]

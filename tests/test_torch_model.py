@@ -13,10 +13,21 @@ serving tolerance, ``TOL = 0.08`` (`tests/test_serving_consistency.py`).
 The smoke variants of gemma2-2b and internlm2-1.8b have as many KV heads
 as query heads, so the GQA cases replace ``num_kv_heads`` with 2.
 
-mamba2-1.3b and recurrentgemma-9b run their smoke variants as they are.
-In bf16 the reference's ``ssd_chunked`` also rounds its block products and
-chunk states to bf16 (`repro/models/ssm.py:68-74`) where the port keeps
-float32, so ``TOL = 0.08`` holds there too.
+mamba2-1.3b, recurrentgemma-9b, qwen3-moe-30b-a3b and grok-1-314b run
+their smoke variants as they are.  In bf16 the reference's ``ssd_chunked``
+also rounds its block products and chunk states to bf16
+(`repro/models/ssm.py:68-74`), and its MoE einsums round where the port's
+grouped GEMM accumulates in float32, so ``TOL = 0.08`` holds there too.
+The MoE smoke variants have 4 experts, top-2: a prefill of 16 prompt
+tokens over 2 rows makes 16 dispatch groups of 2 tokens with capacity 1,
+so pairs are dropped; 14 tokens make one group with capacity 17.  In
+bf16 a near tie of two router logits can round either way in the two
+packages and flip an expert choice, which changes a token's output
+entirely: the reference notes this (`tests/test_serving_consistency.py:
+38-41`) and runs its own MoE serving check in float32.  So the bf16 MoE
+comparison gives the port the reference's expert choices (the port's own
+probabilities at those choices) and checks that every choice the port
+would have made otherwise is such a near tie.
 """
 import dataclasses
 import functools
@@ -30,6 +41,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.roofline import analysis as janalysis
 from repro.serving import kvcache as jkv
@@ -37,6 +49,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.interop import params_from_plain
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 from repro_torch.roofline import analysis as tanalysis
 from repro_torch.serving import kvcache as tkv
@@ -139,6 +152,20 @@ def test_recurrent_archs_match_reference_float32(arch, prompt, total):
     _assert_caches_match(cfg, jc, tc)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+@pytest.mark.parametrize("prompt,total", [(16, 24), (14, 30)])
+def test_moe_archs_match_reference_float32(arch, prompt, total):
+    """Attention plus routed experts: prefill with capacity drops (16
+    dispatch groups) or one group, then dropless decode steps."""
+    cfg = _smoke(arch)
+    pairs, jc, tc = _run_both(cfg, b=2, prompt=prompt, total=total)
+    assert len(pairs) == total - prompt + 1
+    for t, (want, got) in enumerate(pairs):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, err_msg=f"{arch} step {t}", **F32_TOL)
+    _assert_caches_match(cfg, jc, tc)
+
+
 def test_prefill_longer_than_window_keeps_the_trailing_ring():
     """A prompt longer than the local layers' 16-slot window: prefill keeps
     the trailing window in ring order, then decode continues on it."""
@@ -157,6 +184,63 @@ def test_prefill_and_decode_match_reference_bfloat16(cfg):
     pairs, _, _ = _run_both(cfg, b=2, prompt=12, total=24)
     for t, (want, got) in enumerate(pairs):
         np.testing.assert_allclose(got, want, err_msg=f"step {t}", **BF16_TOL)
+
+
+def _reference_logits_and_choices(cfg, b, prompt, total, seed, monkeypatch):
+    """The reference's logits of a prefill then decode steps, run eagerly
+    with its router's top-k choices recorded, one array per `moe_ffn` call."""
+    jp, _ = _both_params(cfg, seed)
+    toks = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, total))
+    choices, route = [], jmoe._route
+
+    def recording(logits, k):
+        out = route(logits, k)
+        choices.append(np.asarray(out[2]))
+        return out
+
+    monkeypatch.setattr(jmoe, "_route", recording)
+    jc = jtfm.init_serve_cache(cfg, b, cache_len=total)
+    with jax.disable_jit():
+        jl, jc = jtfm.forward_prefill(jp, cfg, {"tokens": jnp.asarray(toks[:, :prompt])}, jc)
+        logits = [np.asarray(jl, np.float32)]
+        for t in range(prompt, total):
+            jl, jc = jtfm.forward_decode(jp, cfg, jnp.asarray(toks[:, t:t + 1]),
+                                         jnp.asarray(t, jnp.int32), jc)
+            logits.append(np.asarray(jl, np.float32))
+    return toks, logits, choices
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_moe_archs_match_reference_bfloat16_on_its_routing(arch, monkeypatch):
+    cfg = _smoke(arch, "bfloat16")
+    b, prompt, total = 2, 16, 24
+    toks, want, choices = _reference_logits_and_choices(cfg, b, prompt, total, 0, monkeypatch)
+    _, tp = _both_params(cfg, 0)
+    calls, near_ties, route = iter(choices), [], tmoe._route
+
+    def forced(logits, k):
+        probs, _, own = route(logits, k)
+        top_i = torch.tensor(next(calls), dtype=torch.int64)
+        flipped = (own.sort(-1).values != top_i.sort(-1).values).any(-1)
+        ranked = logits.float().sort(-1, descending=True).values
+        near_ties.extend((ranked[flipped, k - 1] - ranked[flipped, k]).tolist())
+        top_p = probs.gather(-1, top_i)
+        return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_i
+
+    monkeypatch.setattr(tmoe, "_route", forced)
+    tc = ttfm.init_serve_cache(cfg, b, total, device="cpu")
+    tl, tc = ttfm.forward_prefill(tp, cfg, {"tokens": torch.from_numpy(toks[:, :prompt])}, tc)
+    got = [tl.float().numpy()]
+    for t in range(prompt, total):
+        tl, tc = ttfm.forward_decode(tp, cfg, torch.from_numpy(toks[:, t:t + 1]), t, tc)
+        got.append(tl.float().numpy())
+    assert next(calls, None) is None and len(choices) == cfg.num_layers * (1 + total - prompt)
+    for t, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_allclose(g, w, err_msg=f"{arch} step {t}", **BF16_TOL)
+    # A choice the port would have made otherwise is a near tie of its
+    # router logits at the k-th place: within a few bf16 roundings of the
+    # activations (logits are O(1)).
+    assert all(gap < 0.05 for gap in near_ties), near_ties
 
 
 def test_attention_train_matches_reference():
@@ -209,10 +293,11 @@ def test_params_carry_across_exactly_in_bfloat16():
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "internlm2-1.8b", "nemotron-4-15b",
                                   "llava-next-mistral-7b", "musicgen-large", "yi-34b",
-                                  "mamba2-1.3b", "recurrentgemma-9b"])
+                                  "mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "grok-1-314b"])
 def test_init_params_has_the_reference_shapes(arch):
     """Every parameter has the reference leaf's shape and type: the model's
-    bf16, except the float32 leaves of the SSD and RG-LRU blocks."""
+    bf16, except the float32 leaves of the SSD, RG-LRU and MoE blocks."""
     cfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
     jp = jax.eval_shape(lambda k: jtfm.init_params(k, cfg), KEY)
     tp = ttfm.init_params(cfg, seed=0, device="cpu")
@@ -240,8 +325,9 @@ def test_init_params_has_the_reference_shapes(arch):
 
 def test_params_from_plain_keeps_the_reference_types():
     """Carried across, each leaf takes the reference's type: bf16, and
-    float32 for the SSD and RG-LRU leaves that the reference keeps so."""
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+    float32 for the SSD, RG-LRU and MoE (``router``) leaves that the
+    reference keeps so."""
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b", "grok-1-314b"):
         cfg = _smoke(arch, "bfloat16")
         jp, tp = _both_params(cfg)
         flat = jax.tree_util.tree_flatten_with_path(jp["blocks"])[0]
@@ -250,15 +336,6 @@ def test_params_from_plain_keeps_the_reference_types():
             got = tp.blocks[slot].get_parameter(".".join(rest))
             assert str(got.dtype).replace("torch.", "") == str(leaf.dtype), rest
             np.testing.assert_array_equal(got.float().numpy(), np.asarray(leaf[0], np.float32))
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
-def test_unported_blocks_raise(arch):
-    cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.make_cache(cfg, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
@@ -288,6 +365,7 @@ def _reference_slot_bytes(cfg, cache_len, long_context):
     ("gemma2-2b", 2064, False), ("gemma2-2b", 8192, False), ("internlm2-1.8b", 528, False),
     ("yi-34b", 64, True), ("nemotron-4-15b", 96, False), ("mamba2-1.3b", 1040, False),
     ("recurrentgemma-9b", 1040, False), ("recurrentgemma-9b", 4096, False),
+    ("qwen3-moe-30b-a3b", 1040, False), ("grok-1-314b", 96, True),
 ])
 def test_cache_bytes_match_reference(arch, cache_len, long_context):
     full = jconfigs.get_config(arch)

@@ -3,7 +3,9 @@
 The engine's greedy tokens must equal the reference engine's on the same
 weights (carried across with `params_from_plain`) and prompts, in float32
 (`tests/test_serving_consistency.py:102-115`'s 5 requests over 2 slots),
-for attention-only models, mamba2-1.3b and recurrentgemma-9b.
+for attention-only models, mamba2-1.3b, recurrentgemma-9b and the MoE
+models qwen3-moe-30b-a3b and grok-1-314b (whose prefills drop pairs at
+capacity, as the reference's do).
 """
 import dataclasses
 import os
@@ -35,7 +37,8 @@ def _requests(cls, vocab, n=5):
 
 
 @pytest.mark.parametrize("arch,kv_heads", [("internlm2-1.8b", None), ("gemma2-2b", 2),
-                                           ("mamba2-1.3b", None), ("recurrentgemma-9b", None)])
+                                           ("mamba2-1.3b", None), ("recurrentgemma-9b", None),
+                                           ("qwen3-moe-30b-a3b", None), ("grok-1-314b", None)])
 def test_engine_greedy_tokens_equal_reference(arch, kv_heads):
     cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
     if kv_heads:
