@@ -33,11 +33,16 @@ its plain torch version.  Phases, each raising on failure:
    S=7, and at the other head, state and chunk sizes it is built for.  The
    RG-LRU scan in float32 (2e-5) at recurrentgemma-9b's served prefill
    (B=4, S=1024, W=4096) with h0 and at ragged lengths.  The grouped GEMM
-   in float32 and bfloat16 (the attention limits) at qwen3-moe-30b-a3b's
-   served prefill (about 32,768 (token, choice) pairs over 128 experts,
-   K=2048, F=768, and K=768, F=2048 for ``down``), at a decode step's 32
-   pairs with empty experts, at ragged K and F, and through the
-   reference-contract adapter with block_t 64 and 128;
+   in float32 and bfloat16 (the attention limits), each launch checked for
+   the variant `_variant` picks (``wgmma`` or ``simt``) and
+   for zero rows outside the segments: at qwen3-moe-30b-a3b's served
+   prefill (about 32,768 (token, choice) pairs over 128 experts, K=2048,
+   F=768, and K=768, F=2048 for ``down``), at a decode step's 32 pairs
+   with empty experts, at ragged K and F, at segments of 0, 1, 63, 64,
+   65, 129 and 320 rows (N=647, F=136; down's shape; over 650 experts),
+   with all rows on one expert, at K=72, every variant forced on the same
+   edge segments, identity weights rotated per expert (exact), and
+   through the reference-contract adapter with block_t 64 and 128;
 7. serving path: (a) the launcher `repro_torch.launch.serve.main` for
    full-width gemma2-2b and mamba2-1.3b (the manager plans the fleet, one
    engine per instance serves it; its 6-10-token prompts are one ragged
@@ -50,20 +55,23 @@ its plain torch version.  Phases, each raising on failure:
    step; mamba2-1.3b: 48 SSD scans a wave, none a step;
    recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
    flash-decode a step; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
-   a wave, 48 flash-decode and 144 grouped GEMMs a step) and CUDA events
-   around every launch and every forward call.  Each model is freed
+   a wave, all on the ``wgmma`` variant, 48 flash-decode and 144 grouped
+   GEMMs a step, all on ``wgmma``) and CUDA events around every launch
+   and every forward call.  Each model is freed
    before the next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
 8. kernel timing and the models against their plain paths: each kernel
    held against its plain version on phase 7(b)'s own served inputs
    (attention gemma2-2b's and recurrentgemma-9b's, the SSD scan
    mamba2-1.3b's, the RG-LRU scan recurrentgemma-9b's, the grouped GEMM
-   qwen3-moe-30b-a3b's first gate product), then timed there beside its
-   plain version, its bound and a library yardstick where one PyTorch
-   call computes the same function (``scaled_dot_product_attention`` at
-   recurrentgemma-9b's attention, whose window does not bind, and at
-   internlm2-1.8b's shapes; ``torch._grouped_mm`` where the card's
-   PyTorch runs it, else one ``torch.bmm`` over the reference's capacity
-   buffer); then each model at full width in float32, one 2 x prompt
+   qwen3-moe-30b-a3b's first gate and down products and first decode
+   step's gate product), then timed there beside its plain version, its
+   bound and a library yardstick where one PyTorch call computes the same
+   function (``scaled_dot_product_attention`` at recurrentgemma-9b's
+   attention, whose window does not bind, and at internlm2-1.8b's shapes;
+   ``torch._grouped_mm`` where the card's PyTorch runs it, else, at
+   prefill, one ``torch.bmm`` over the reference's capacity buffer), the
+   decode product also with L2 flushed by reads only and not flushed;
+   then each model at full width in float32, one 2 x prompt
    prefill and 8 decode steps, on the kernels and again with every
    kernel's dispatch patched to its plain version, logits compared:
    gemma2-2b, mamba2-1.3b and recurrentgemma-9b at full depth,
@@ -74,12 +82,17 @@ its plain torch version.  Phases, each raising on failure:
    otherwise.
 
 float32 products run in full float32: TF32 is switched off for matmuls
-and cuDNN.  Phase 1 prints ``nvidia-smi``'s name and power limit on a line
+and cuDNN.  Every kernel time is taken with a cold L2 by `time_cold_ms`,
+which spins the card for at least twice the host's dispatch time of one
+call before each, so that the host's launch time stays outside the
+events.  Phase 1 prints ``nvidia-smi``'s name and power limit on a line
 of its own.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Needs one
 CUDA card:
 
     python3 chip_smoke.py [--json PATH] [--kernel-only]
+
+``--kernel-only`` runs phases 1-3 and 6.
 """
 from __future__ import annotations
 
@@ -512,6 +525,20 @@ GG_CASES = [
     ("qwen3-moe-30b-a3b decode, 32 pairs", 32, 128, 2048, 768, 0, ()),
     ("ragged K=100 F=77, empty experts", 40, 16, 100, 77, 5, (0, 3, 4, 15)),
 ]
+#: Segments of 0, 1, 63, 64, 65, 129 and 320 rows: one short of, at and past
+#: the kernels' row tiles (128; 64 a warpgroup).
+EDGE_SEGMENTS = [0, 1, 63, 64, 65, 129, 320]
+#: (label, rows of each expert's segment, K, F, rows past the segments).
+GG_SEGMENT_CASES = [
+    ("edge segments, N=647, F=136", EDGE_SEGMENTS + [0], 2048, 136, 5),
+    ("edge segments, down's K=768 F=2048", EDGE_SEGMENTS, 768, 2048, 3),
+    ("edge segments over 650 experts", EDGE_SEGMENTS + [0] * 643, 256, 136, 7),
+    ("all rows on one expert", [0, 0, 4096, 0], 2048, 768, 0),
+    ("a decode step on one expert", [0] * 100 + [32] + [0] * 27, 2048, 768, 0),
+    ("K=72, a K tail of 8", [100, 200, 0, 50], 72, 64, 9),
+]
+#: Every variant forced on the same inputs: (K, F) of the edge segments.
+GG_FORCED_SHAPES = [(2048, 768), (768, 136)]
 #: (label, T, E, K, F, block_t) through the reference-contract adapter.
 GG_ADAPTER_CASES = [
     ("adapter block_t=64", 4096, 16, 512, 256, 64),
@@ -563,12 +590,64 @@ def gg_inputs(rng, pairs, e, k, f, tail, empty, dtype):
     return x, w, offsets.to("cuda")
 
 
-def compare_gg(label, args) -> dict:
+def gg_segment_inputs(rng, counts, k, f, tail, dtype):
+    """x, w and offsets on the card for explicit segment lengths."""
+    x = _normal(rng, (sum(counts) + tail, k), dtype)
+    w = (_normal(rng, (len(counts), k, f), torch.float32) / np.sqrt(k)).to(dtype)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return x, w, torch.from_numpy(offsets).to("cuda")
+
+
+def gg_launch(x, w, offsets, variant=None) -> tuple[str, torch.Tensor]:
+    """The grouped GEMM through the wrapper (or with ``variant`` forced),
+    checked to have launched that variant once and to leave the rows
+    outside every segment zero; ``(variant, output)``."""
+    k, f = w.shape[1:]
+    want = variant or gg._variant(k, f, x.dtype)
+    before = dict(gg.LAUNCHES_BY_VARIANT)
+    got = (gg._dispatch(x, w, offsets, variant) if variant
+           else gg.grouped_gemm_ragged(x, w, offsets))
+    torch.cuda.synchronize()
+    rose = {v: gg.LAUNCHES_BY_VARIANT[v] - before[v] for v in before}
+    if rose != {v: int(v == want) for v in before}:
+        raise AssertionError(f"grouped_gemm: expected one {want} launch, counted {rose}")
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    if bool(got[:lo].any()) or bool(got[hi:].any()):
+        raise AssertionError(f"grouped_gemm {want}: rows outside the segments are not zero")
+    return want, got
+
+
+def compare_gg(label, args, variant=None) -> dict:
     """The grouped GEMM against its plain version, in x's type."""
     x = args[0]
-    return {"kernel": "grouped_gemm", **_compare(f"grouped_gemm {label}", x.dtype,
-                                                 gg.grouped_gemm_ragged(*args),
-                                                 gg.grouped_gemm_plain(*args))}
+    variant, got = gg_launch(*args, variant=variant)
+    return {"kernel": "grouped_gemm", "variant": variant, **_compare(
+        f"grouped_gemm {label} [{variant}]", x.dtype, got, gg.grouped_gemm_plain(*args))}
+
+
+def compare_gg_identity(variant) -> dict:
+    """w[e] the identity with its columns rotated by e, in bf16: out[r, j]
+    must equal x[r, (j - e) mod F] exactly.  A B tile read transposed, with
+    the wrong swizzle or from the wrong expert cannot pass."""
+    counts, k, f = [70, 0, 129, 1, 64, 200], 2048, 768
+    x, _, offsets = gg_segment_inputs(np.random.RandomState(700), counts, k, f, 4,
+                                      torch.bfloat16)
+    e_n = len(counts)
+    w = torch.zeros((e_n, k, f), dtype=torch.bfloat16, device="cuda")
+    rows = torch.arange(f, device="cuda")
+    for e in range(e_n):
+        w[e, rows, (rows + e) % f] = 1.0
+    _, got = gg_launch(x, w, offsets, variant)
+    want = torch.zeros_like(got)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    for e in range(e_n):
+        want[bounds[e]:bounds[e + 1]] = x[bounds[e]:bounds[e + 1], (rows - e) % f]
+    if not torch.equal(got, want):
+        raise AssertionError(f"grouped_gemm {variant}: identity weights not reproduced exactly "
+                             f"({int((got != want).sum())} elements differ)")
+    return {"kernel": "grouped_gemm", "variant": variant,
+            "label": f"grouped_gemm identity weights [{variant}]", "dtype": "bfloat16",
+            "max_abs_err": 0.0, "max_abs_want": float(want.float().abs().max())}
 
 
 def phase_kernels_vs_plain() -> list[dict]:
@@ -605,6 +684,17 @@ def phase_kernels_vs_plain() -> list[dict]:
         for i, (label, pairs, e, k, f, tail, empty) in enumerate(GG_CASES):
             rng = np.random.RandomState(500 + i)
             rows.append(compare_gg(label, gg_inputs(rng, pairs, e, k, f, tail, empty, dtype)))
+        for i, (label, counts, k, f, tail) in enumerate(GG_SEGMENT_CASES):
+            rng = np.random.RandomState(520 + i)
+            rows.append(compare_gg(label, gg_segment_inputs(rng, counts, k, f, tail, dtype)))
+        variants = ("wgmma", "simt") if dtype == torch.bfloat16 else ("simt",)
+        for i, (k, f) in enumerate(GG_FORCED_SHAPES):
+            args = gg_segment_inputs(np.random.RandomState(540 + i), [0] + EDGE_SEGMENTS + [2, 0],
+                                     k, f, 11, dtype)
+            for variant in variants:
+                rows.append(compare_gg(f"edge segments K={k} F={f}, forced", args, variant))
+        if dtype == torch.bfloat16:
+            rows += [compare_gg_identity(variant) for variant in variants]
         for i, (label, t, e, k, f, block_t) in enumerate(GG_ADAPTER_CASES):
             rng = np.random.RandomState(600 + i)
             x = _normal(rng, (t, k), dtype)
@@ -634,17 +724,21 @@ def phase_kernels_vs_plain() -> list[dict]:
 
 #: The serving path's kernels: the wrapper module, and which launch's
 #: inputs `ServeRecorder` keeps: "largest", the first of the most elements
-#: (flash attention's q, k, v are never written after), "first" (the
-#: grouped GEMM's first prefill product, layer 0's gate), or "last" (the
+#: (flash attention's q, k, v are never written after), "products" (the
+#: grouped GEMM's launches named in `GG_KEPT`: fresh activations and the
+#: model's parameters, never written after, so a reference keeps them; it
+#: also keeps the weights alive after the model is freed), or "last" (the
 #: decode cache is written before each launch and not after its last; the
 #: scans' inputs are fresh tensors, and their caches are replaced, not
 #: written).
 SERVE_KERNELS = {"flash_attention": (flash, "largest"), "decode_attention": (decode, "last"),
                  "ssd_scan": (ssd, "last"), "rglru_scan": (rglru, "last"),
-                 "grouped_gemm": (gg, "first")}
-#: Kernels whose kept inputs are cloned: the grouped GEMM's weights are a
-#: parameter of a 61 GB model freed before phase 8.
-CLONED_INPUTS = ("grouped_gemm",)
+                 "grouped_gemm": (gg, "products")}
+#: The grouped GEMM launches kept, by (phase, index of the launch in that
+#: phase): layer 0's gate and down products of the first wave, and layer
+#: 0's gate product of the first decode step.
+GG_KEPT = {("prefill", 0): "prefill gate", ("prefill", 2): "prefill down",
+           ("decode", 0): "decode gate"}
 #: Each serving kernel's plain version, with its `_dispatch`'s arguments.
 PLAIN_DISPATCH = {
     "flash_attention": lambda q, k, v, w, c: flash.flash_attention_plain(
@@ -681,6 +775,16 @@ def expected_launches(cfg, waves: int, steps: int) -> dict:
             "grouped_gemm": layers["moe"] * products * (waves + steps)}
 
 
+def expected_gg_variants(cfg, waves: int, steps: int) -> dict:
+    """The grouped GEMM's launches by phase and variant for a bf16 model:
+    every product on ``wgmma`` (qwen3-moe-30b-a3b: 144 a wave, 144 a
+    step)."""
+    products = (3 if cfg.gated_mlp else 2) * cfg.layer_pattern.count("moe") * cfg.num_groups
+    if not products:
+        return {"prefill": {}, "decode": {}}
+    return {"prefill": {"wgmma": products * waves}, "decode": {"wgmma": products * steps}}
+
+
 def _reset_serve_counts() -> None:
     for mod, _ in SERVE_KERNELS.values():
         mod.LAUNCHES = 0
@@ -702,6 +806,9 @@ class ServeRecorder:
         self._phase = "prefill"
         self.forward = {"prefill": [], "decode": []}
         self.args = {name: None for name in SERVE_KERNELS}
+        self.args["grouped_gemm"] = {}
+        self.gg_seen = {"prefill": 0, "decode": 0}
+        self.gg_variants = {"prefill": {}, "decode": {}}
         self.prefill_logits = []
         self._saved = {name: (mod._kernel_fn, mod._dispatch)
                        for name, (mod, _) in SERVE_KERNELS.items()}
@@ -721,18 +828,28 @@ class ServeRecorder:
 
     def _kernel_fn(self, name):
         kernel_fn = self._saved[name][0]
-        return lambda *a: self._timed(self.launches[name][self._phase], kernel_fn(*a))
+
+        def fn(*a):
+            if name == "grouped_gemm":  # a = (variant, dtype)
+                counts = self.gg_variants[self._phase]
+                counts[a[0]] = counts.get(a[0], 0) + 1
+            return self._timed(self.launches[name][self._phase], kernel_fn(*a))
+        return fn
 
     def _dispatch(self, name, keep):
         dispatch = self._saved[name][1]
 
-        def call(*args):
+        def call(*args, **kwargs):
             old = self.args[name]
-            if keep == "last" or old is None or (
+            if keep == "products":
+                label = GG_KEPT.get((self._phase, self.gg_seen[self._phase]))
+                self.gg_seen[self._phase] += 1
+                if label is not None and label not in old:
+                    old[label] = args
+            elif keep == "last" or old is None or (
                     keep == "largest" and args[0].numel() > old[0].numel()):
-                self.args[name] = args if name not in CLONED_INPUTS else tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-            return dispatch(*args)
+                self.args[name] = args
+            return dispatch(*args, **kwargs)
         return call
 
     def _in_phase(self, phase, fn):
@@ -835,6 +952,9 @@ def phase_frame_analysis(arch: str, params) -> dict:
             raise AssertionError(f"frame analysis {arch}: {phase} launches "
                                  f"{rec.phase_counts(phase)}, expected "
                                  f"{expected_launches(cfg, w, n)}")
+    if rec.gg_variants != expected_gg_variants(cfg, waves, steps):
+        raise AssertionError(f"frame analysis {arch}: grouped GEMM variants {rec.gg_variants}, "
+                             f"expected {expected_gg_variants(cfg, waves, steps)}")
     if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
         raise AssertionError(f"frame analysis {arch}: missing results")
     for r in results:
@@ -853,7 +973,8 @@ def phase_frame_analysis(arch: str, params) -> dict:
     out = {
         "arch": arch, "requests": N_REQUESTS, "prompt_tokens": prompt_tokens,
         "new_tokens": NEW_TOKENS, "slots": SLOTS, "waves": waves, "decode_steps": steps,
-        "launches": counts, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "launches": counts, "grouped_gemm_variants": rec.gg_variants,
+        "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(decode_ms)),
         "kernel_ms": kernel_ms,
         "kernel_ms_by_phase": {ph: {n: ms for n, ms in v.items() if counts[n]}
@@ -865,7 +986,8 @@ def phase_frame_analysis(arch: str, params) -> dict:
     }
     log(f"  {arch}: {N_REQUESTS} requests x {prompt_tokens}-token prompts, {SLOTS} slots: "
         f"{waves} waves, {steps} decode steps; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }"
+        + (f"; grouped GEMM variants {rec.gg_variants}" if counts["grouped_gemm"] else ""))
     log(f"  wall {wall_s:.3f} s, {out['tokens_per_s']:.1f} generated tokens/s; prefill "
         f"{', '.join(f'{ms:.1f}' for ms in prefill_ms)} ms; decode "
         f"{out['decode_ms_per_step']:.3f} ms/step")
@@ -879,19 +1001,60 @@ def phase_frame_analysis(arch: str, params) -> dict:
 # --------------------------------------------------------------- phase 8
 
 
-def time_cold_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms of ``fn`` with L2 flushed before each call (events right
-    around each call): the serving path reaches each kernel after other
-    layers' weights have passed through L2.  A spin of about 1 ms before
-    each flush lets the host queue the call before the card reaches the
-    start event, so the host's launch time stays outside the events."""
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+#: Every `time_cold_ms` call's host dispatch time and spin, in ms.
+COLD_TIMINGS: list[dict] = []
+_SPIN_CYCLES_PER_MS: list[float] = []
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` a millisecond, measured once."""
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+#: How `time_cold_ms` flushes L2 before each call, by name: "write" zeroes
+#: a 64 MB buffer (leaving dirty lines for the timed call to write back),
+#: "read" reads it, "none" does not flush.
+FLUSHES = {"write": lambda buf: buf.zero_(), "read": lambda buf: buf.max(),
+           "none": lambda buf: None}
+
+
+def time_cold_ms(fn, reps: int, warmup: int = 2, flush: str = "write") -> float:
+    """Mean ms of ``fn`` with L2 flushed before each call as `FLUSHES`
+    [``flush``] does (events right around each call): the serving path
+    reaches each kernel after other layers' weights have passed through
+    L2.  Before each flush the card spins for at least 1 ms and at least
+    twice the host time of one ``fn()`` call (the most of three, measured
+    on an idle card), so the host has queued the call before the card
+    reaches the start event and the host's dispatch time stays outside the
+    events.  Logs both times."""
+    buf = torch.zeros(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     for _ in range(warmup):
         fn()
+    host_ms = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    spin_ms = max(1.0, 2.0 * host_ms)
+    cycles = int(spin_ms * _spin_cycles_per_ms())
+    COLD_TIMINGS.append({"host_ms": host_ms, "spin_ms": spin_ms})
+    log(f"    cold timing ({flush} flush): host dispatch {host_ms:.4f} ms, "
+        f"spin {spin_ms:.4f} ms")
     events = []
     for _ in range(reps):
-        torch.cuda._sleep(2_000_000)  # clock cycles: about 1 ms at the H100's ~2 GHz
-        flush.zero_()
+        torch.cuda._sleep(cycles)
+        FLUSHES[flush](buf)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1143,12 +1306,13 @@ def gg_bound(x, w, offsets) -> dict:
             "experts_touched": touched}
 
 
-def _grouped_mm_yardstick(x, w, offsets, want, n_kept):
+def _grouped_mm_yardstick(x, w, offsets, want, n_kept, capacity_fallback):
     """``(name, fn, max abs err)`` of one library call for the same product:
     ``torch._grouped_mm`` on the ragged inputs where this PyTorch has it and
-    runs it, else one ``torch.bmm`` over the reference's (E, G·C, K)
-    capacity buffer (qwen3-moe-30b-a3b's served prefill: 16 groups of
-    capacity 20 an expert), which has no error to report."""
+    runs it; else, where ``capacity_fallback``, one ``torch.bmm`` over the
+    reference's (E, G·C, K) capacity buffer (qwen3-moe-30b-a3b's served
+    prefill: 16 groups of capacity 20 an expert), which has no error to
+    report; else ``(None, None, None)``."""
     grouped_mm = getattr(torch, "_grouped_mm", None)
     if grouped_mm is not None:
         ends = offsets[1:].contiguous()
@@ -1160,6 +1324,8 @@ def _grouped_mm_yardstick(x, w, offsets, want, n_kept):
         else:
             err = float((got[:n_kept].float() - want[:n_kept].float()).abs().max())
             return "torch._grouped_mm", lambda: grouped_mm(x, w, offs=ends), err
+    if not capacity_fallback:
+        return None, None, None
     e, k, _ = w.shape
     cfg = get_config("qwen3-moe-30b-a3b")
     tokens = SLOTS * PROMPT_TOKENS[cfg.name]
@@ -1171,30 +1337,54 @@ def _grouped_mm_yardstick(x, w, offsets, want, n_kept):
     return "torch.bmm over the capacity buffer", lambda: torch.bmm(buf, w), None
 
 
-def phase_gg_timing(gg_args) -> dict:
-    """The grouped GEMM against its plain version on phase 7(b)'s served
-    inputs (qwen3-moe-30b-a3b's first gate product, L2 flushed), then timed
-    there beside its plain version, its bound and a library yardstick."""
-    before = gg.LAUNCHES
-    x, w, offsets = gg_args
+def _gg_served_timing(label, x, w, offsets, reps, other_flushes=()) -> tuple[dict, dict]:
+    """One served grouped GEMM: held against its plain version, then timed
+    beside it, its bound and a library yardstick; kernel and yardstick
+    timed again under each of ``other_flushes`` (`FLUSHES`)."""
     want = gg.grouped_gemm_plain(x, w, offsets)
-    served = [{"kernel": "grouped_gemm", **_compare(
-        "grouped_gemm served prefill", x.dtype, gg._dispatch(x, w, offsets), want)}]
-    for r in served:
-        log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
+    variant, got = gg_launch(x, w, offsets)
+    check = {"kernel": "grouped_gemm", "variant": variant, **_compare(
+        f"grouped_gemm served {label} [{variant}]", x.dtype, got, want)}
     t = {"shape": [list(x.shape), list(w.shape)], "dtype": str(x.dtype).replace("torch.", ""),
-         **gg_bound(x, w, offsets)}
-    t["ms"] = time_cold_ms(lambda: gg._dispatch(x, w, offsets), reps=10)
+         "variant": variant, **gg_bound(x, w, offsets)}
+    t["ms"] = time_cold_ms(lambda: gg._dispatch(x, w, offsets), reps=reps)
     t["plain_ms"] = time_cold_ms(lambda: gg.grouped_gemm_plain(x, w, offsets), reps=5)
-    name, fn, err = _grouped_mm_yardstick(x, w, offsets, want, t["rows"])
+    name, fn, err = _grouped_mm_yardstick(x, w, offsets, want, t["rows"],
+                                          capacity_fallback=label.startswith("prefill"))
     t["library"], t["library_max_abs_err"] = name, err
-    t["library_ms"] = time_cold_ms(fn, reps=10)
-    gg.LAUNCHES = before  # timing launches are not the path's
-    log(f"  grouped_gemm at {t['shape']} {t['dtype']} ({t['rows']} kept rows, "
-        f"{t['experts_touched']} experts): kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, {name} {t['library_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB, "
-        f"{t['ops'] / 1e9:.1f} GFLOP)")
+    t["library_ms"] = None if fn is None else time_cold_ms(fn, reps=reps)
+    t["flushes"] = {flush: {
+        "ms": time_cold_ms(lambda: gg._dispatch(x, w, offsets), reps=reps, flush=flush),
+        "library_ms": None if fn is None else time_cold_ms(fn, reps=reps, flush=flush),
+    } for flush in other_flushes}
+    for flush, f in t["flushes"].items():
+        log(f"  grouped_gemm {label}, {flush} flush: kernel {f['ms']:.4f} ms, "
+            f"library {f['library_ms']} ms")
+    lib = "no library call" if fn is None else f"{name} {t['library_ms']:.4f} ms"
+    log(f"  grouped_gemm {label} at {t['shape']} {t['dtype']} [{variant}] ({t['rows']} kept "
+        f"rows, {t['experts_touched']} experts): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+        f"{t['bytes'] / 1e6:.1f} MB, {t['ops'] / 1e9:.2f} GFLOP)")
+    return t, check
+
+
+def phase_gg_timing(gg_args: dict) -> dict:
+    """The grouped GEMM on phase 7(b)'s served inputs (qwen3-moe-30b-a3b's
+    first gate and down products and first decode step's gate product, L2
+    flushed): each held against its plain version, then timed; the decode
+    product also with L2 flushed by reads only and not flushed."""
+    before = gg.LAUNCHES, dict(gg.LAUNCHES_BY_VARIANT)
+    rows, served = {}, []
+    for label, reps, other_flushes in (("prefill gate", 10, ()), ("prefill down", 10, ()),
+                                       ("decode gate", 50, ("read", "none"))):
+        rows[label], check = _gg_served_timing(label, *gg_args[label], reps=reps,
+                                               other_flushes=other_flushes)
+        served.append(check)
+        log(f"  {check['label']} {check['dtype']}: max abs err {check['max_abs_err']:.3g}")
+    gg.LAUNCHES = before[0]  # timing launches are not the path's
+    gg.LAUNCHES_BY_VARIANT.update(before[1])
+    t = rows["prefill gate"]
+    t["down"], t["decode"] = rows["prefill down"], rows["decode gate"]
     return {"grouped_gemm": t, "served_checks": served}
 
 
@@ -1461,7 +1651,18 @@ def main(argv=None) -> int:
                 if shapes in t:
                     entry[shapes] = {k: t[shapes][k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms")}
+            if kname == "grouped_gemm":
+                # The prefill row above is the gate product's; beside it the
+                # served down product's and a decode step's gate product's.
+                entry["variant"] = t["variant"]
+                for row in ("down", "decode"):
+                    entry[row] = {k: t[row][k] for k in (
+                        "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                entry["launches_by_variant"] = {
+                    arch: f["grouped_gemm_variants"] for arch, f in frames.items()
+                    if f["launches"][kname]}
             result["kernels"].append(entry)
+        result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()
     result["seconds"] = time.perf_counter() - t_start
     if args.json:

@@ -44,7 +44,7 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh",)),
     "rglru": (FMAD_FLAGS, ()),
-    "grouped_gemm": (FMAD_FLAGS, ()),
+    "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),
 }
 
 #: Per source name: {"seconds": build wall time (0.0 when reused),

@@ -6,18 +6,30 @@ expert, with float32 accumulation and the output rounded once to x's type
 (bfloat16 or float32).
 
 The TPU kernel takes every expert's segment padded to ``block_t`` rows and
-a ``block_expert`` map.  The CUDA kernel takes the ragged layout instead:
+a ``block_expert`` map.  The CUDA kernels take the ragged layout instead:
 x ``(N, K)`` sorted by expert, w ``(E, K, F)`` and int32 ``offsets``
 ``(E + 1,)`` on the device, expert ``e`` owning rows
 ``offsets[e]:offsets[e + 1]``.  Rows outside every segment come out zero.
+
+On the card the wrapper picks one of two kernels in
+``csrc/grouped_gemm.cu`` by dtype and alignment (`_variant`), before the
+launch and without reading the offsets:
+
+* ``"wgmma"`` — bf16 with K and F multiples of 8 (TMA's 16-byte strides):
+  128 x 256 tiles on the tensor cores (wgmma), fed by TMA (the prefill and
+  decode products);
+* ``"simt"`` — the rest (float32, bf16 K or F that TMA does not take):
+  128 x 128 tiles of float32 FMAs.
+
+A build or launch that fails raises; nothing falls back to another kernel.
 
 Functions:
 
 * `grouped_gemm_plain` — plain torch: one float32 matmul per non-empty
   segment, cast once (never a per-row gather of ``w``);
 * `grouped_gemm_ragged` — dispatch by device: CPU tensors run the plain
-  version, CUDA tensors launch the kernel in ``csrc/grouped_gemm.cu`` (or
-  raise).  The MoE block calls this;
+  version, CUDA tensors launch a kernel (or raise).  The MoE block calls
+  this;
 * `grouped_gemm` — the reference's contract ``(x, w, block_expert, *,
   block_t, block_f)``, a thin adapter that turns the padded segments of a
   nondecreasing ``block_expert`` into offsets: every row is computed;
@@ -30,17 +42,31 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "grouped_gemm", "grouped_gemm_plain", "grouped_gemm_ragged",
-           "pad_and_sort_tokens"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_plain",
+           "grouped_gemm_ragged", "pad_and_sort_tokens"]
 
 #: Number of CUDA kernel launches made by `grouped_gemm_ragged` (and so by
 #: `grouped_gemm`) in this process.
 LAUNCHES = 0
+#: The same launches by variant (`_variant`).
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
-#: The kernel takes its 128 x 128 tile when the average segment has at
-#: least this many rows, else its 16 x 64 tile.
-_LARGE_TILE_ROWS = 64
+#: The variants' codes in the C interface.
+_VARIANT_CODES = {"simt": 0, "wgmma": 1}
+
+
+def _variant(k: int, f: int, dtype: torch.dtype, *, aligned: bool = True) -> str:
+    """The kernel for x ``(N, k)`` and w ``(E, k, f)`` of ``dtype``:
+    ``"wgmma"`` for bf16 whose rows TMA can address (k and f multiples of
+    8, x and w starting on 16-byte boundaries: ``aligned``), else
+    ``"simt"``.  Prefill and decode take the same kernel: at qwen3-moe-30b-a3b's
+    decode shape a weight-streaming kernel was no faster than ``wgmma`` on
+    an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).  The offsets are never
+    read."""
+    if aligned and dtype == torch.bfloat16 and k % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def grouped_gemm_plain(x, w, offsets):
@@ -80,7 +106,9 @@ def _check_inputs(x, w, offsets) -> None:
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _kernel_fn(dtype: torch.dtype):
+def _kernel_fn(variant: str, dtype: torch.dtype):
+    """The C function that launches ``variant`` for ``dtype`` (it takes the
+    variant's code among its arguments)."""
     from ._build import load_library
 
     lib = load_library("grouped_gemm")
@@ -94,18 +122,20 @@ def grouped_gemm_ragged(x, w, offsets):
     """``(N, F)`` in x's type from x ``(N, K)`` sorted by expert, w
     ``(E, K, F)`` and int32 offsets ``(E + 1,)``, dispatched by device.
 
-    CPU tensors run `grouped_gemm_plain`; CUDA tensors launch the CUDA
-    kernel on the current stream, and anything it does not take raises:
-    another dtype or device, mismatched shapes, a non-contiguous tensor.
-    The kernel does not read the offsets on the host: it clamps each
-    segment into ``[0, N]``.
+    CPU tensors run `grouped_gemm_plain`; CUDA tensors launch the kernel
+    `_variant` picks on the current stream, and anything it does not take
+    raises: another dtype or device, mismatched shapes, a non-contiguous
+    tensor.  The kernels do not read the offsets on the host: they clamp
+    each segment into ``[0, N]``.
     """
     _check_inputs(x, w, offsets)
     return _dispatch(x, w, offsets)
 
 
-def _dispatch(x, w, offsets):
-    """`grouped_gemm_ragged` after its checks: the plain version or the kernel."""
+def _dispatch(x, w, offsets, variant: str | None = None):
+    """`grouped_gemm_ragged` after its checks: the plain version or a kernel.
+    ``variant`` forces a kernel (for tests and measurements); a kernel that
+    does not take the shapes then raises."""
     global LAUNCHES
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, offsets)
@@ -114,14 +144,19 @@ def _dispatch(x, w, offsets):
             raise ValueError(f"grouped_gemm: {name} must be contiguous on CUDA")
     n, k = x.shape
     e, _, f = w.shape
-    fn = _kernel_fn(x.dtype)
+    if variant is None:
+        variant = _variant(k, f, x.dtype,
+                           aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    fn = _kernel_fn(variant, x.dtype)
     with torch.cuda.device(x.device):
-        out = torch.zeros((n, f), dtype=x.dtype, device=x.device)
+        # Every kernel writes every row, the zero rows outside the segments too.
+        out = torch.empty((n, f), dtype=x.dtype, device=x.device)
         rc = fn(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, k, f, e,
-                int(n >= _LARGE_TILE_ROWS * e), torch.cuda.current_stream(x.device).cuda_stream)
+                _VARIANT_CODES[variant], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"grouped_gemm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"grouped_gemm {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return out
 
 

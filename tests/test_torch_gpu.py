@@ -374,23 +374,86 @@ def _ragged(counts, k, f, dtype, device, tail=0):
     return x, w.to(dtype), offsets.to(device)
 
 
+#: Segments of 0, 1, 63, 64, 65, 129 and 320 rows: one short of, at and past
+#: the kernels' row tiles (128, 64 a warpgroup).
+EDGE_SEGMENTS = [0, 1, 63, 64, 65, 129, 320]
+
+
+def _launch_checked(x, w, offsets, variant=None):
+    """The kernel (``variant`` forced, or the one `_variant` picks), with
+    its variant's launch count checked; rows outside the segments zero."""
+    k, f = w.shape[1:]
+    want = variant or gg._variant(k, f, x.dtype)
+    before = dict(gg.LAUNCHES_BY_VARIANT)
+    got = (gg._dispatch(x, w, offsets, variant) if variant
+           else gg.grouped_gemm_ragged(x, w, offsets))
+    torch.cuda.synchronize()
+    assert {v: gg.LAUNCHES_BY_VARIANT[v] - before[v] for v in before} == {
+        v: int(v == want) for v in before}
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not got[:lo].any() and not got[hi:].any()  # rows outside every segment
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("counts,k,f,tail", [
-    ([256] * 128, 2048, 768, 0),                   # qwen3's prefill gate/up: the 128 x 128 tile
+    ([256] * 128, 2048, 768, 0),                   # qwen3's prefill gate/up: wgmma in bf16
     ([300, 0, 0, 171, 90, 0, 400, 63], 768, 2048, 17),  # empty experts, drops, long rows
-    ([1, 0, 2, 0, 0, 1] + [0] * 122, 2048, 768, 28),  # decode: the 16 x 64 tile
-    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F
+    ([1, 0, 2, 0, 0, 1] + [0] * 122, 2048, 768, 28),  # decode: wgmma in bf16
+    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F: simt
     ([0, 0, 0, 0], 64, 64, 6),                     # every expert empty
+    (EDGE_SEGMENTS + [0], 2048, 136, 5),           # N = 647; F = 136: a partial column tile
+    (EDGE_SEGMENTS, 768, 2048, 3),                 # down's shape
+    (EDGE_SEGMENTS + [0] * 643, 256, 136, 7),      # 650 experts
+    ([0, 0, 4096, 0], 2048, 768, 0),               # all rows on one expert
+    ([0] * 100 + [32] + [0] * 27, 2048, 768, 0),   # a decode step on one expert
+    ([100, 200, 0, 50], 72, 64, 9),                # K = 72: a K tail of 8
 ])
 def test_grouped_gemm_kernel_matches_plain(cuda, counts, k, f, tail, dtype):
     x, w, offsets = _ragged(counts, k, f, dtype, cuda, tail)
     before = gg.LAUNCHES
-    got = gg.grouped_gemm_ragged(x, w, offsets)
-    torch.cuda.synchronize()
+    got = _launch_checked(x, w, offsets)
     assert gg.LAUNCHES == before + 1
     torch.testing.assert_close(got.float(), gg.grouped_gemm_plain(x, w, offsets).float(),
                                **TOL[dtype])
     assert not got[sum(counts):].any()  # rows past the last segment stay zero
+
+
+@pytest.mark.parametrize("variant,dtype", [
+    ("wgmma", torch.bfloat16), ("simt", torch.bfloat16), ("simt", torch.float32)])
+@pytest.mark.parametrize("k,f", [(2048, 768), (768, 136)])
+def test_grouped_gemm_each_variant_matches_plain(cuda, variant, dtype, k, f):
+    """Every kernel on the same inputs, whatever `_variant` would pick:
+    the edge segments, a leading empty expert and dropped rows."""
+    counts = [0] + EDGE_SEGMENTS + [2, 0]
+    x, w, offsets = _ragged(counts, k, f, dtype, cuda, tail=11)
+    got = _launch_checked(x, w, offsets, variant)
+    torch.testing.assert_close(got.float(), gg.grouped_gemm_plain(x, w, offsets).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("k,f", [(2048, 768), (256, 136)])
+def test_grouped_gemm_identity_weights_are_exact(cuda, variant, k, f):
+    """w[e] is the identity, its columns rotated by e: out[r, j] must be
+    x[r, (j - e) mod F] exactly, in bf16.  A B tile read transposed, with
+    the wrong swizzle or the wrong expert, cannot pass."""
+    counts = [70, 0, 129, 1, 64, 200]
+    x, _, offsets = _ragged(counts, k, f, torch.bfloat16, cuda, tail=4)
+    e_n = len(counts)
+    w = torch.zeros((e_n, k, f), dtype=torch.bfloat16, device=cuda)
+    rows = torch.arange(min(k, f), device=cuda)
+    for e in range(e_n):
+        w[e, rows, (rows + e) % f] = 1.0
+    got = _launch_checked(x, w, offsets, variant)
+    want = torch.zeros_like(got)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    cols = torch.arange(f, device=cuda)
+    for e in range(e_n):
+        lo, hi = int(bounds[e]), int(bounds[e + 1])
+        src = (cols - e) % f
+        want[lo:hi] = torch.where(src < k, x[lo:hi, src.clamp(max=k - 1)], 0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("block_t", [64, 128])

@@ -144,3 +144,63 @@ def test_reference_contract_checks_blocks():
         gg.grouped_gemm(x, w, torch.tensor([0, 4], dtype=torch.int32), block_t=64)
     with pytest.raises(ValueError):
         gg.grouped_gemm(x, w, torch.zeros(2, dtype=torch.int32), block_t=64, block_f=48)
+
+
+# ---- the kernel variant, chosen from dtype and alignment alone ---------------
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("n,k,f,e,dtype,want", [
+    (32_768, 2048, 768, 128, _BF16, "wgmma"),   # qwen3-moe-30b-a3b's served prefill gate
+    (32_768, 2048, 768, 128, _BF16, "wgmma"),   # ... and up
+    (32_768, 768, 2048, 128, _BF16, "wgmma"),   # ... and down
+    (32, 2048, 768, 128, _BF16, "wgmma"),       # a decode step's gate and up
+    (32, 768, 2048, 128, _BF16, "wgmma"),       # ... and down
+    (32_768, 2048, 768, 128, _F32, "simt"),     # float32 prefill
+    (32, 2048, 768, 128, _F32, "simt"),         # float32 decode
+    (40, 100, 77, 16, _BF16, "simt"),           # F = 77: no TMA row stride
+    (4096, 100, 77, 16, _BF16, "simt"),         # K = 100: no TMA row stride
+    (4096, 100, 64, 16, _BF16, "simt"),
+    (4096, 72, 64, 4, _BF16, "wgmma"),          # K = 72: a K tail of 8
+    (40, 100, 77, 16, _F32, "simt"),
+    (8, 4096, 6, 8, _F32, "simt"),              # F = 6 float32
+    (8, 4096, 12, 8, _F32, "simt"),             # F = 12 float32
+])
+def test_variant_follows_shape_and_dtype(n, k, f, e, dtype, want):
+    """N and E (so the rows an expert) do not enter the choice."""
+    del n, e
+    assert gg._variant(k, f, dtype) == want
+
+
+def test_variant_threshold_and_alignment():
+    """No threshold on the rows: bf16 goes to `wgmma` at every K and F that
+    are multiples of 8, and only for 16-byte-aligned x and w."""
+    for k, f in ((2048, 768), (768, 2048), (72, 64), (8, 8)):
+        assert gg._variant(k, f, _BF16) == "wgmma"
+        assert gg._variant(k, f, _BF16, aligned=False) == "simt"
+        assert gg._variant(k, f, _F32) == "simt"
+    for k, f in ((2048, 764), (2044, 768), (100, 77)):
+        assert gg._variant(k, f, _BF16) == "simt"
+
+
+def test_cpu_tensors_run_the_plain_version_and_never_build(monkeypatch):
+    """On the CPU the wrapper neither builds nor loads a kernel, launches
+    nothing, and returns `grouped_gemm_plain`'s result."""
+    from repro_torch.kernels import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(gg, "_kernel_fn", refuse)
+    rng = np.random.RandomState(3)
+    for dtype in (_F32, _BF16):
+        x = torch.from_numpy(rng.standard_normal((20, 16)).astype(np.float32)).to(dtype)
+        w = torch.from_numpy(rng.standard_normal((3, 16, 8)).astype(np.float32)).to(dtype)
+        offsets = _offsets([5, 0, 12])
+        before = gg.LAUNCHES, dict(gg.LAUNCHES_BY_VARIANT)
+        got = gg.grouped_gemm_ragged(x, w, offsets)
+        assert (gg.LAUNCHES, gg.LAUNCHES_BY_VARIANT) == before
+        assert torch.equal(got, gg.grouped_gemm_plain(x, w, offsets))
+        assert not got[17:].any()
