@@ -9,7 +9,9 @@ its plain torch version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
-   process per source, all at once;
+   process per source, all at once; ptxas's report of each kernel's
+   registers and spills is logged, and a spill store in a ``flash_wgmma``
+   instantiation fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    take bits and the backtracked counts: a seeded sweep of small pricings
    (float64 and float32), the 500-camera fleet's pricing grid with 18
@@ -24,8 +26,12 @@ its plain torch version.  Phases, each raising on failure:
    rtol = 2e-5) and bfloat16 (rtol one bf16 ulp, 2^-7, atol 1e-4): flash
    attention at gemma2-2b's served prefill (B=4, S=2048), at 8192 tokens
    with a binding 4096 window, at internlm2-1.8b's and recurrentgemma-9b's
-   layers (H=16 over one KV head of 256, S=1024, window 2048) and at ragged
-   lengths; flash-decode at gemma2-2b's served cache, a wrapped 4096-slot
+   layers (H=16 over one KV head of 256, S=1024, window 2048), at ragged
+   lengths and at ragged lengths with a binding window at D=128 and 256,
+   each launch checked for the variant `_variant` picks (``wgmma`` for
+   bf16, ``simt`` for float32), and, on ``wgmma``, the exact case for D =
+   64, 128 and 256 (q_i = 2048 e_i, k_j = e_j: the output must be v bit
+   for bit); flash-decode at gemma2-2b's served cache, a wrapped 4096-slot
    ring, internlm2-1.8b's and recurrentgemma-9b's caches (R=16, L=1040)
    and a ragged cache.  The SSD scan in float32 (atol 2e-4, rtol 1e-3) and
    bfloat16 (one bf16 ulp more) at mamba2-1.3b's served prefill (B=4,
@@ -42,7 +48,8 @@ its plain torch version.  Phases, each raising on failure:
    65, 129 and 320 rows (N=647, F=136; down's shape; over 650 experts),
    with all rows on one expert, at K=72, every variant forced on the same
    edge segments, identity weights rotated per expert (exact), and
-   through the reference-contract adapter with block_t 64 and 128;
+   through the reference-contract adapter with block_t 64 and 128, and
+   with its blocks in shuffled order;
 7. serving path: (a) the launcher `repro_torch.launch.serve.main` for
    full-width gemma2-2b and mamba2-1.3b (the manager plans the fleet, one
    engine per instance serves it; its 6-10-token prompts are one ragged
@@ -55,25 +62,29 @@ its plain torch version.  Phases, each raising on failure:
    step; mamba2-1.3b: 48 SSD scans a wave, none a step;
    recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
    flash-decode a step; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
-   a wave, all on the ``wgmma`` variant, 48 flash-decode and 144 grouped
-   GEMMs a step, all on ``wgmma``) and CUDA events around every launch
-   and every forward call.  Each model is freed
-   before the next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
+   a wave, 48 flash-decode and 144 grouped GEMMs a step; every flash and
+   grouped GEMM launch on its ``wgmma`` variant) and CUDA events around
+   every launch and every forward call.  Each model is freed before the
+   next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
 8. kernel timing and the models against their plain paths: each kernel
    held against its plain version on phase 7(b)'s own served inputs
-   (attention gemma2-2b's and recurrentgemma-9b's, the SSD scan
-   mamba2-1.3b's, the RG-LRU scan recurrentgemma-9b's, the grouped GEMM
+   (attention gemma2-2b's and recurrentgemma-9b's, flash attention also
+   qwen3-moe-30b-a3b's, the SSD scan mamba2-1.3b's, the RG-LRU scan
+   recurrentgemma-9b's, the grouped GEMM
    qwen3-moe-30b-a3b's first gate and down products and first decode
    step's gate product), then timed there beside its plain version, its
-   bound and a library yardstick where one PyTorch call computes the same
+   bound (gemma2-2b's flash call also in float32, on ``simt``) and a
+   library yardstick where one PyTorch call computes the same
    function (``scaled_dot_product_attention`` at recurrentgemma-9b's
-   attention, whose window does not bind, and at internlm2-1.8b's shapes;
-   ``torch._grouped_mm`` where the card's PyTorch runs it, else, at
+   attention, whose window does not bind, at qwen3-moe-30b-a3b's flash
+   attention and at internlm2-1.8b's shapes; ``torch._grouped_mm`` where
+   the card's PyTorch runs it, else, at
    prefill, one ``torch.bmm`` over the reference's capacity buffer), the
    decode product also with L2 flushed by reads only and not flushed;
    then each model at full width in float32, one 2 x prompt
    prefill and 8 decode steps, on the kernels and again with every
-   kernel's dispatch patched to its plain version, logits compared:
+   kernel's dispatch patched to its plain version (flash attention on its
+   ``simt`` variant, checked), logits compared:
    gemma2-2b, mamba2-1.3b and recurrentgemma-9b at full depth,
    qwen3-moe-30b-a3b at 8 of its 48 layers (full depth in float32 would
    take 122 GB).  Routing is a discontinuous function of float32 sums, so
@@ -100,6 +111,7 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -206,6 +218,38 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+PTXAS_FUNCTION = re.compile(
+    r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+    r"stores, (\d+) bytes spill loads\s*\n.*?Used (\d+) registers")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Per kernel function of an ``-Xptxas -v`` log: registers a thread and
+    bytes of spill stores and loads."""
+    return {m[1]: {"registers": int(m[5]), "spill_stores": int(m[3]), "spill_loads": int(m[4])}
+            for m in PTXAS_FUNCTION.finditer(build_log)}
+
+
+def check_flash_wgmma_spills() -> dict:
+    """Phase 2's spill check: every ``flash_wgmma`` instantiation (one per
+    head_dim) must build without spill stores.  A library reused from an
+    earlier build in this checkout has no log, and is reported as such."""
+    info = _build.BUILD_INFO["flash_attention"]
+    if not info["log"]:
+        log("  flash_attention reused from an earlier build: no ptxas report to check")
+        return {}
+    report = {f: r for f, r in ptxas_report(info["log"]).items() if "flash_wgmma" in f}
+    if len(report) != len(flash.HEAD_DIMS):
+        raise AssertionError(f"ptxas report: {len(report)} flash_wgmma instantiations, "
+                             f"expected {len(flash.HEAD_DIMS)}")
+    spilled = {f: r for f, r in report.items() if r["spill_stores"]}
+    if spilled:
+        raise AssertionError(f"flash_wgmma spills: {spilled}")
+    log(f"  flash_wgmma registers {sorted(r['registers'] for r in report.values())}, "
+        "no spill stores")
+    return report
 
 
 # --------------------------------------------------------------- phase 3
@@ -491,7 +535,11 @@ FLASH_CASES = [
     ("recurrentgemma-9b layer", 4, 1024, 16, 1, 256, 2048, None),
     ("ragged S=77", 2, 77, 4, 2, 64, None, 30.0),
     ("ragged S=2047, window 100", 1, 2047, 4, 1, 64, 100, None),
+    ("ragged S=1000, window 300 binds, D=128", 2, 1000, 8, 2, 128, 300, None),
+    ("ragged S=333, window 100 binds, D=256", 2, 333, 8, 4, 256, 100, 50.0),
 ]
+#: The exact case's head_dims (S = D).
+FLASH_EXACT_DIMS = (64, 128, 256)
 #: (label, B, KV, R, D, L, cur, window, softcap, ring)
 DECODE_CASES = [
     ("gemma2-2b cache", 4, 4, 2, 256, 2064, 2060, None, 50.0, False),
@@ -650,6 +698,41 @@ def compare_gg_identity(variant) -> dict:
             "max_abs_err": 0.0, "max_abs_want": float(want.float().abs().max())}
 
 
+def flash_launch(q, k, v, window, cap) -> tuple[str, torch.Tensor]:
+    """Flash attention through the wrapper, checked to have launched the
+    variant of q's dtype once; ``(variant, output)``."""
+    want = flash._variant(q.dtype)
+    before = dict(flash.LAUNCHES_BY_VARIANT)
+    got = flash.flash_attention(q, k, v, window=window, logit_softcap=cap)
+    torch.cuda.synchronize()
+    rose = {n: flash.LAUNCHES_BY_VARIANT[n] - before[n] for n in before}
+    if rose != {n: int(n == want) for n in before}:
+        raise AssertionError(f"flash_attention: expected one {want} launch, counted {rose}")
+    return want, got
+
+
+def compare_flash_exact(d: int) -> dict:
+    """S = D, q_i = 2048 e_i, k_j = e_j, random bf16 v, no softcap: query i
+    scores 2048 / sqrt(D) on key i and 0 elsewhere, whose weights
+    exp(-2048 / sqrt(D)) are 0 in float32, so the output must equal v bit
+    for bit.  A fragment, swizzle or repack fault cannot pass."""
+    b, s, h, kv = 2, d, 4, 2
+    pos = torch.arange(s, device="cuda")
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((b, s, kv, d), dtype=torch.bfloat16, device="cuda")
+    q[:, pos, :, pos] = 2048.0
+    k[:, pos, :, pos] = 1.0
+    v = _normal(np.random.RandomState(800 + d), (b, s, kv, d), torch.bfloat16)
+    variant, got = flash_launch(q, k, v, None, None)
+    want = v.repeat_interleave(h // kv, dim=2)
+    if not torch.equal(got, want):
+        raise AssertionError(f"flash_attention {variant} exact case D={d}: "
+                             f"{int((got != want).sum())} elements differ from v")
+    return {"kernel": "flash_attention", "variant": variant,
+            "label": f"flash exact case D={d} [{variant}]", "dtype": "bfloat16",
+            "max_abs_err": 0.0, "max_abs_want": float(want.float().abs().max())}
+
+
 def phase_kernels_vs_plain() -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -658,10 +741,12 @@ def phase_kernels_vs_plain() -> list[dict]:
             q = _normal(rng, (b, s, h, d), dtype)
             k = _normal(rng, (b, s, kv, d), dtype)
             v = _normal(rng, (b, s, kv, d), dtype)
-            got = flash.flash_attention(q, k, v, window=window, logit_softcap=cap)
+            variant, got = flash_launch(q, k, v, window, cap)
             want = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=cap)
-            rows.append({"kernel": "flash_attention",
-                         **_compare(f"flash {label}", dtype, got, want)})
+            rows.append({"kernel": "flash_attention", "variant": variant,
+                         **_compare(f"flash {label} [{variant}]", dtype, got, want)})
+        if dtype == torch.bfloat16:
+            rows += [compare_flash_exact(d) for d in FLASH_EXACT_DIMS]
         for i, (label, b, kv, r, d, cache_len, cur, window, cap, ring) in enumerate(
                 DECODE_CASES):
             rng = np.random.RandomState(200 + i)
@@ -704,8 +789,18 @@ def phase_kernels_vs_plain() -> list[dict]:
             got = gg.grouped_gemm(xs, w, bmap, block_t=block_t)
             counts = torch.bincount(bmap.long(), minlength=e) * block_t
             offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+            want = gg.grouped_gemm_plain(xs, w, offsets)
             rows.append({"kernel": "grouped_gemm", **_compare(
-                f"grouped_gemm {label}", dtype, got, gg.grouped_gemm_plain(xs, w, offsets))})
+                f"grouped_gemm {label}", dtype, got, want)})
+            # The same blocks in shuffled order: each block's product moves
+            # with it.
+            n_blocks = bmap.numel()
+            perm = torch.from_numpy(rng.permutation(n_blocks)).to("cuda")
+            got = gg.grouped_gemm(xs.view(n_blocks, block_t, k)[perm].reshape(-1, k), w,
+                                  bmap[perm], block_t=block_t)
+            rows.append({"kernel": "grouped_gemm", **_compare(
+                f"grouped_gemm {label}, blocks shuffled", dtype, got,
+                want.view(n_blocks, block_t, f)[perm].reshape(-1, f))})
     for i, (label, b, s, w, with_h0) in enumerate(RGLRU_CASES):
         rng = np.random.RandomState(400 + i)
         a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32))
@@ -785,6 +880,14 @@ def expected_gg_variants(cfg, waves: int, steps: int) -> dict:
     return {"prefill": {"wgmma": products * waves}, "decode": {"wgmma": products * steps}}
 
 
+def expected_flash_variants(cfg, waves: int) -> dict:
+    """Flash attention's launches by phase and variant for a bf16 model:
+    every prefill launch on ``wgmma`` (gemma2-2b 26 a wave,
+    recurrentgemma-9b 12, qwen3-moe-30b-a3b 48), none in decode."""
+    launches = expected_launches(cfg, waves, 0)["flash_attention"]
+    return {"prefill": {"wgmma": launches} if launches else {}, "decode": {}}
+
+
 def _reset_serve_counts() -> None:
     for mod, _ in SERVE_KERNELS.values():
         mod.LAUNCHES = 0
@@ -809,6 +912,7 @@ class ServeRecorder:
         self.args["grouped_gemm"] = {}
         self.gg_seen = {"prefill": 0, "decode": 0}
         self.gg_variants = {"prefill": {}, "decode": {}}
+        self.flash_variants = {"prefill": {}, "decode": {}}
         self.prefill_logits = []
         self._saved = {name: (mod._kernel_fn, mod._dispatch)
                        for name, (mod, _) in SERVE_KERNELS.items()}
@@ -830,9 +934,12 @@ class ServeRecorder:
         kernel_fn = self._saved[name][0]
 
         def fn(*a):
-            if name == "grouped_gemm":  # a = (variant, dtype)
-                counts = self.gg_variants[self._phase]
-                counts[a[0]] = counts.get(a[0], 0) + 1
+            # grouped_gemm's a = (variant, dtype), flash_attention's a = (dtype,)
+            if name in ("grouped_gemm", "flash_attention"):
+                by_variant, variant = ((self.gg_variants, a[0]) if name == "grouped_gemm"
+                                       else (self.flash_variants, flash._variant(a[0])))
+                counts = by_variant[self._phase]
+                counts[variant] = counts.get(variant, 0) + 1
             return self._timed(self.launches[name][self._phase], kernel_fn(*a))
         return fn
 
@@ -955,6 +1062,9 @@ def phase_frame_analysis(arch: str, params) -> dict:
     if rec.gg_variants != expected_gg_variants(cfg, waves, steps):
         raise AssertionError(f"frame analysis {arch}: grouped GEMM variants {rec.gg_variants}, "
                              f"expected {expected_gg_variants(cfg, waves, steps)}")
+    if rec.flash_variants != expected_flash_variants(cfg, waves):
+        raise AssertionError(f"frame analysis {arch}: flash variants {rec.flash_variants}, "
+                             f"expected {expected_flash_variants(cfg, waves)}")
     if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
         raise AssertionError(f"frame analysis {arch}: missing results")
     for r in results:
@@ -974,6 +1084,7 @@ def phase_frame_analysis(arch: str, params) -> dict:
         "arch": arch, "requests": N_REQUESTS, "prompt_tokens": prompt_tokens,
         "new_tokens": NEW_TOKENS, "slots": SLOTS, "waves": waves, "decode_steps": steps,
         "launches": counts, "grouped_gemm_variants": rec.gg_variants,
+        "flash_variants": rec.flash_variants,
         "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(decode_ms)),
         "kernel_ms": kernel_ms,
@@ -987,6 +1098,7 @@ def phase_frame_analysis(arch: str, params) -> dict:
     log(f"  {arch}: {N_REQUESTS} requests x {prompt_tokens}-token prompts, {SLOTS} slots: "
         f"{waves} waves, {steps} decode steps; launches "
         f"{ {k: v for k, v in counts.items() if v} }"
+        + (f"; flash variants {rec.flash_variants}" if counts["flash_attention"] else "")
         + (f"; grouped GEMM variants {rec.gg_variants}" if counts["grouped_gemm"] else ""))
     log(f"  wall {wall_s:.3f} s, {out['tokens_per_s']:.1f} generated tokens/s; prefill "
         f"{', '.join(f'{ms:.1f}' for ms in prefill_ms)} ms; decode "
@@ -1116,6 +1228,7 @@ def _sdpa_decode(q, k, v, mask):
 
 def phase_attention_timing(flash_args, decode_args) -> dict:
     before = (flash.LAUNCHES, decode.LAUNCHES)
+    flash_variants = dict(flash.LAUNCHES_BY_VARIANT)
     q, k, v, window, cap = flash_args
     dq, dk, dv, pos, cur, dwin, dcap = decode_args
     served = [
@@ -1137,6 +1250,17 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
         q, k, v, window=window, logit_softcap=cap), reps=5)
     f.update(flash_bound(q, k, window))
     f["library_ms"] = None  # the softcap: no single library call computes it
+    # The same call in float32, on the `simt` variant that phase 8's
+    # float32 models run: held against its plain version, then timed.
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    variant32, got32 = flash_launch(q32, k32, v32, window, cap)
+    served.append({"kernel": "flash_attention", "variant": variant32, **_compare(
+        f"flash served prefill in float32 [{variant32}]", torch.float32, got32,
+        flash.flash_attention_plain(q32, k32, v32, window=window, logit_softcap=cap))})
+    del got32
+    f["float32"] = {"variant": variant32, **flash_bound(q32, k32, window),
+                    "ms": time_cold_ms(lambda: flash._dispatch(q32, k32, v32, window, cap),
+                                       reps=5)}
 
     dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "window": dwin,
           "softcap": dcap, "dtype": str(dq.dtype).replace("torch.", "")}
@@ -1179,6 +1303,10 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
         "library_max_abs_err": lib_err, **decode_bound(dq_i, dk_i, pos_i, cur_i, None),
     }
     flash.LAUNCHES, decode.LAUNCHES = before  # timing launches are not the path's
+    flash.LAUNCHES_BY_VARIANT.update(flash_variants)
+    log(f"  flash_attention at {f['shape']} float32 [{f['float32']['variant']}]: kernel "
+        f"{f['float32']['ms']:.4f} ms, bound {f['float32']['bound_ms']:.4f} ms "
+        f"({f['float32']['bound_by']})")
     for name, t in (("flash_attention", f), ("decode_attention", dd)):
         i = t["internlm2"]
         log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
@@ -1195,6 +1323,7 @@ def phase_attention_timing_rep16(flash_args, decode_args) -> dict:
     which computes the same functions there as long as the window does
     not bind (S and the cache's positions within it)."""
     before = (flash.LAUNCHES, decode.LAUNCHES)
+    flash_variants = dict(flash.LAUNCHES_BY_VARIANT)
     q, k, v, window, cap = flash_args
     dq, dk, dv, pos, cur, dwin, dcap = decode_args
     served = [
@@ -1228,6 +1357,7 @@ def phase_attention_timing_rep16(flash_args, decode_args) -> dict:
           "library_ms": time_cold_ms(lambda: _sdpa_decode(dq, dk, dv, mask), reps=50),
           **decode_bound(dq, dk, pos, cur, dwin)}
     flash.LAUNCHES, decode.LAUNCHES = before
+    flash.LAUNCHES_BY_VARIANT.update(flash_variants)
     for name, t in (("flash_attention", f), ("decode_attention", dd)):
         log(f"  {name} at recurrentgemma-9b's {t['shape']}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
@@ -1235,6 +1365,34 @@ def phase_attention_timing_rep16(flash_args, decode_args) -> dict:
     return {"flash_attention": f, "decode_attention": dd, "served_checks": served}
 
 
+def phase_flash_timing_qwen3(flash_args) -> dict:
+    """Flash attention on qwen3-moe-30b-a3b's served prefill (32 query heads
+    over 4 KV heads of 128, no window, no softcap, so SDPA computes the same
+    function): held against its plain version, then timed beside it, its
+    bound and SDPA."""
+    before = flash.LAUNCHES, dict(flash.LAUNCHES_BY_VARIANT)
+    q, k, v, window, cap = flash_args
+    if cap is not None or (window and q.shape[1] > window):
+        raise AssertionError("qwen3-moe-30b-a3b's served attention is not SDPA's function")
+    variant, got = flash_launch(q, k, v, window, cap)
+    want = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=cap)
+    served = [{"kernel": "flash_attention", "variant": variant, **_compare(
+        f"flash served prefill, qwen3-moe-30b-a3b [{variant}]", q.dtype, got, want)}]
+    lib_err = float((_sdpa_causal(q, k, v).float() - want.float()).abs().max())
+    f = {"shape": list(q.shape), "kv_heads": k.shape[2], "window": window, "variant": variant,
+         "ms": time_cold_ms(lambda: flash._dispatch(q, k, v, window, cap), reps=20),
+         "plain_ms": time_cold_ms(lambda: flash.flash_attention_plain(
+             q, k, v, window=window), reps=5),
+         "library_ms": time_cold_ms(lambda: _sdpa_causal(q, k, v), reps=20),
+         "library_max_abs_err": lib_err, **flash_bound(q, k, window)}
+    flash.LAUNCHES = before[0]
+    flash.LAUNCHES_BY_VARIANT.update(before[1])
+    log(f"  {served[0]['label']} {served[0]['dtype']}: max abs err "
+        f"{served[0]['max_abs_err']:.3g}")
+    log(f"  flash_attention at qwen3-moe-30b-a3b's {f['shape']} [{variant}]: kernel "
+        f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, sdpa {f['library_ms']:.4f} ms, bound "
+        f"{f['bound_ms']:.4f} ms ({f['bound_by']})")
+    return {"flash_attention": f, "served_checks": served}
 
 
 def ssd_bound(x, Bm, h0, chunk) -> dict:
@@ -1456,6 +1614,7 @@ def phase_model_vs_plain(arch: str) -> dict:
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, prompt_tokens))).cuda()
     steps = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 8))).cuda()
     before = _serve_counts()
+    flash_variants = dict(flash.LAUNCHES_BY_VARIANT)
     with ForcedRouting().recording() as routing:
         t0 = time.perf_counter()
         kern = _model_logits(params, cfg, prompt, steps)
@@ -1464,6 +1623,10 @@ def phase_model_vs_plain(arch: str) -> dict:
         launched = {k: n - before[k] for k, n in _serve_counts().items()}
         if launched != expected_launches(cfg, waves=1, steps=8):
             raise AssertionError(f"float32 {arch}: launches {launched}")
+        flash_rose = {n: flash.LAUNCHES_BY_VARIANT[n] - flash_variants[n]
+                      for n in flash_variants}
+        if flash_rose != {"wgmma": 0, "simt": launched["flash_attention"]}:
+            raise AssertionError(f"float32 {arch}: flash variants {flash_rose}")
         saved = {name: mod._dispatch for name, (mod, _) in SERVE_KERNELS.items()}
         for name, (mod, _) in SERVE_KERNELS.items():
             mod._dispatch = PLAIN_DISPATCH[name]
@@ -1477,6 +1640,7 @@ def phase_model_vs_plain(arch: str) -> dict:
             for name, (mod, _) in SERVE_KERNELS.items():
                 mod._dispatch = saved[name]
                 mod.LAUNCHES = before[name]
+            flash.LAUNCHES_BY_VARIANT.update(flash_variants)
     moe_layers = cfg.layer_pattern.count("moe") * cfg.num_groups
     if len(routing.choices) != moe_layers * 9 or routing.forced_calls != moe_layers * 9:
         raise AssertionError(f"float32 {arch}: {len(routing.choices)} routings recorded, "
@@ -1495,7 +1659,8 @@ def phase_model_vs_plain(arch: str) -> dict:
         f"{plain_s:.2f} s" + (f"; {routing.flips} rows of {len(routing.choices)} routings "
                               f"would have chosen other experts on the plain path"
                               if moe_layers else ""))
-    return {"layers": cfg.num_layers, "prefill_max_abs_err": errs[0],
+    return {"layers": cfg.num_layers, "flash_variants": flash_rose,
+            "prefill_max_abs_err": errs[0],
             "decode_max_abs_err": max(errs[1:]), "atol": atol, "kernel_path_s": kern_s,
             "plain_path_s": plain_s, "routing_flips": routing.flips}
 
@@ -1552,6 +1717,7 @@ def main(argv=None) -> int:
             if "ptxas" in line or "spill" in line:
                 log(f"    {line.strip()}")
     log(f"  all sources built in {build_wall:.2f} s (in parallel)")
+    flash_wgmma_ptxas = check_flash_wgmma_spills()
 
     timer.begin("phase 3", "knapsack kernel vs plain on the card")
     fleet_problem = ResourceManager(
@@ -1561,6 +1727,7 @@ def main(argv=None) -> int:
     log(f"  {len(checks)} comparisons exact")
     result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
               "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
+              "flash_wgmma_ptxas": flash_wgmma_ptxas,
               "checks": checks}
 
     if not args.kernel_only:
@@ -1591,13 +1758,17 @@ def main(argv=None) -> int:
         gemma, mamba, rg, qwen = (served[arch] for arch in SERVE_ARCHS)
         attn_timing = phase_attention_timing(gemma["flash_attention"], gemma["decode_attention"])
         rep16 = phase_attention_timing_rep16(rg["flash_attention"], rg["decode_attention"])
+        qwen_flash = phase_flash_timing_qwen3(qwen["flash_attention"])
         scan_timing = phase_scan_timing(mamba["ssd_scan"], rg["rglru_scan"])
         gg_timing = phase_gg_timing(qwen["grouped_gemm"])
         del served, gemma, mamba, rg, qwen
         kernel_checks += (attn_timing.pop("served_checks") + rep16.pop("served_checks")
-                          + scan_timing.pop("served_checks") + gg_timing.pop("served_checks"))
+                          + qwen_flash.pop("served_checks") + scan_timing.pop("served_checks")
+                          + gg_timing.pop("served_checks"))
         for kname in ("flash_attention", "decode_attention"):
             attn_timing[kname]["recurrentgemma"] = rep16[kname]
+        attn_timing["flash_attention"]["variant"] = flash._variant(torch.bfloat16)
+        attn_timing["flash_attention"]["qwen3"] = qwen_flash["flash_attention"]
         result["attention_timing"] = attn_timing
         result["scan_timing"] = scan_timing
         result["grouped_gemm_timing"] = gg_timing
@@ -1647,10 +1818,17 @@ def main(argv=None) -> int:
             }
             if "library" in t:
                 entry["library"] = t["library"]
-            for shapes in ("internlm2", "recurrentgemma"):
+            for shapes in ("internlm2", "recurrentgemma", "qwen3"):
                 if shapes in t:
                     entry[shapes] = {k: t[shapes][k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms")}
+            if kname == "flash_attention":
+                entry["variant"] = t["variant"]
+                entry["float32"] = {k: t["float32"][k] for k in (
+                    "variant", "ms", "bound_ms", "bound_by")}
+                entry["launches_by_variant"] = {
+                    arch: f["flash_variants"] for arch, f in frames.items()
+                    if f["launches"][kname]}
             if kname == "grouped_gemm":
                 # The prefill row above is the gate product's; beside it the
                 # served down product's and a decode step's gate product's.

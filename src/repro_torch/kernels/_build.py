@@ -40,7 +40,7 @@ FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 #: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
 SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "knapsack": (NVCC_FLAGS, ()),
-    "flash_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
+    "flash_attention": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh",)),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh",)),
     "rglru": (FMAD_FLAGS, ()),

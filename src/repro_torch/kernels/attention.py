@@ -12,17 +12,24 @@ with the softmax and both products in float32 whatever the input type, and
 the output in q's type.  The mask constant is -2e38, not -inf, and the
 normaliser is ``max(l, 1e-37)``, both as in the TPU kernel.
 
-Two implementations:
+Implementations:
 
 * `flash_attention_plain` — plain torch: full score matrix, masks,
   softmax (the function of `repro/kernels/ref.py:attention_ref`, in
   float32 inside);
-* the CUDA kernel in ``csrc/flash_attention.cu`` (one CTA per (batch,
-  head, 32-query block), an online softmax over K/V tiles in shared
-  memory).
+* two CUDA kernels in ``csrc/flash_attention.cu``, picked by dtype alone
+  (`_variant`):
+
+  - ``"wgmma"`` (bf16, every served prefill): one CTA per (batch, head,
+    128-query block), two warpgroups on the tensor cores (wgmma) fed by
+    TMA, P V with p split into two bf16 halves so that the product keeps
+    a float32 p's accuracy;
+  - ``"simt"`` (float32): one CTA per (batch, head, 32-query block),
+    float32 FMAs (TF32 would break the float32 limit).
 
 `flash_attention` dispatches by device: CPU tensors go to the plain
-version, CUDA tensors launch the kernel (or raise).
+version, CUDA tensors launch the kernel (or raise; nothing falls back to
+another kernel).
 """
 from __future__ import annotations
 
@@ -30,14 +37,23 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "flash_attention", "flash_attention_plain"]
 
 #: Number of CUDA kernel launches made by `flash_attention` in this process.
 LAUNCHES = 0
+#: The same launches by variant (`_variant`).
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (64, 128, 256)  # the head_dims the CUDA kernel is built for
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _variant(dtype: torch.dtype) -> str:
+    """The kernel for inputs of ``dtype``: ``"wgmma"`` for bf16 (TMA takes
+    every head_dim the kernels are built for, since a row of H * D bf16 is
+    a multiple of 16 bytes), ``"simt"`` for float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def flash_attention_plain(q, k, v, *, window=None, logit_softcap=None):
@@ -90,6 +106,7 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
 
 
 def _kernel_fn(dtype: torch.dtype):
+    """The C function that launches ``_variant(dtype)``'s kernel."""
     from ._build import load_library
 
     lib = load_library("flash_attention")
@@ -103,17 +120,18 @@ def flash_attention(q, k, v, *, window=None, logit_softcap=None):
     """Causal attention ``(B, S, H, D)`` from q ``(B, S, H, D)`` and k/v
     ``(B, S, KV, D)``, dispatched by device.
 
-    CPU tensors run `flash_attention_plain`; CUDA tensors launch the CUDA
-    kernel on the current stream, and anything it does not take raises:
-    another dtype or device, mismatched shapes, a non-contiguous tensor, a
-    head_dim other than 64, 128 or 256.
+    CPU tensors run `flash_attention_plain`; CUDA tensors launch the kernel
+    `_variant` picks on the current stream, and anything it does not take
+    raises: another dtype or device, mismatched shapes, a non-contiguous or
+    unaligned tensor, a head_dim other than 64, 128 or 256.
     """
     _check_inputs(q, k, v, window, logit_softcap)
     return _dispatch(q, k, v, window, logit_softcap)
 
 
 def _dispatch(q, k, v, window, logit_softcap):
-    """`flash_attention` after its checks: the plain version or the kernel."""
+    """`flash_attention` after its checks: the plain version or the kernel
+    of q's dtype."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window, logit_softcap=logit_softcap)
@@ -123,6 +141,7 @@ def _dispatch(q, k, v, window, logit_softcap):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
+    variant = _variant(q.dtype)
     fn = _kernel_fn(q.dtype)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
@@ -134,6 +153,7 @@ def _dispatch(q, k, v, window, logit_softcap):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return out

@@ -31,8 +31,10 @@ Functions:
   version, CUDA tensors launch a kernel (or raise).  The MoE block calls
   this;
 * `grouped_gemm` — the reference's contract ``(x, w, block_expert, *,
-  block_t, block_f)``, a thin adapter that turns the padded segments of a
-  nondecreasing ``block_expert`` into offsets: every row is computed;
+  block_t, block_f)``, a thin adapter that turns the blocks of each expert
+  into one segment of offsets (gathering the blocks into expert order
+  first, and scattering the output back, when ``block_expert`` is not
+  nondecreasing): every row is computed;
 * `pad_and_sort_tokens` — the reference's helper, plain torch, with the
   same outputs ``(xs, block_expert, inv)``.
 """
@@ -164,27 +166,38 @@ def grouped_gemm(x, w, block_expert, *, block_t: int = 128, block_f: int = 128):
     """The reference's contract: x ``(T, D)`` in ``block_t``-row blocks,
     block ``i`` multiplied by ``w[block_expert[i]]``; ``(T, F)`` in x's type.
 
-    The reference's shape assertions raise `ValueError` here.
-    ``block_expert`` must be nondecreasing, as `pad_and_sort_tokens` makes
-    it, so that each expert's blocks form one segment; ``block_f`` is
-    checked and otherwise unused (the kernel picks its own tiles).
+    The reference's shape assertions raise `ValueError` here, and so does
+    an expert outside ``[0, E)``.  ``block_expert`` may come in any order:
+    the blocks are ordered stably by expert, gathered into that order, run
+    as one ragged product and scattered back to their places.  A
+    nondecreasing map, as `pad_and_sort_tokens` makes it, skips the gather
+    and the scatter.  ``block_f`` is checked and otherwise unused (the
+    kernel picks its own tiles).
     """
-    t, _ = x.shape
+    t, d = x.shape
     e, _, f = w.shape
     block_t, block_f = min(block_t, t), min(block_f, f)
     if t % block_t or f % block_f:
         raise ValueError(f"grouped_gemm: T={t}, F={f} not multiples of blocks "
                          f"{block_t}, {block_f}")
-    if tuple(block_expert.shape) != (t // block_t,):
-        raise ValueError(f"grouped_gemm: block_expert must be ({t // block_t},), "
+    n_blocks = t // block_t
+    if tuple(block_expert.shape) != (n_blocks,):
+        raise ValueError(f"grouped_gemm: block_expert must be ({n_blocks},), "
                          f"got {tuple(block_expert.shape)}")
     be = block_expert.to(device=x.device, dtype=torch.int64)
-    if bool((be[1:] < be[:-1]).any()) or int(be.min()) < 0 or int(be.max()) >= e:
-        raise ValueError(f"grouped_gemm: block_expert must be nondecreasing in [0, {e})")
+    if int(be.min()) < 0 or int(be.max()) >= e:
+        raise ValueError(f"grouped_gemm: block_expert must be in [0, {e})")
     counts = torch.zeros(e, dtype=torch.int64, device=x.device).index_add_(
         0, be, torch.full_like(be, block_t))
     offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
-    return grouped_gemm_ragged(x, w, offsets)
+    if not bool((be[1:] < be[:-1]).any()):
+        return grouped_gemm_ragged(x, w, offsets)
+    order = torch.argsort(be, stable=True)
+    xs = x.reshape(n_blocks, block_t, d)[order].reshape(t, d)
+    out_sorted = grouped_gemm_ragged(xs, w, offsets)
+    out = torch.empty_like(out_sorted)
+    out.view(n_blocks, block_t, f)[order] = out_sorted.view(n_blocks, block_t, f)
+    return out
 
 
 def pad_and_sort_tokens(x, expert_ids, num_experts: int, *, block_t: int = 128):

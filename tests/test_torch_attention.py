@@ -165,3 +165,34 @@ def test_decode_splits_cover_the_cache(b, kv, L):
     assert chunk % 64 == 0 and n >= 1
     assert (n - 1) * chunk < L <= n * chunk  # every split holds at least one slot
     assert n == 1 or b * kv * n <= 2 * target
+
+
+# ---- the flash kernel variant, chosen from dtype alone ------------------------
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+def test_flash_variant_follows_dtype_alone(dtype, want):
+    """Every bf16 call takes ``wgmma`` and every float32 call ``simt``."""
+    assert flash._variant(dtype) == want
+
+
+def test_flash_cpu_tensors_run_the_plain_version_and_never_build(monkeypatch):
+    """On the CPU the wrapper neither builds nor loads a kernel, launches
+    nothing, and returns `flash_attention_plain`'s result."""
+    from repro_torch.kernels import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(flash, "_kernel_fn", refuse)
+    rng = np.random.RandomState(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, n, 64)).astype(np.float32))
+                   .to(dtype) for n in (4, 2, 2))
+        before = flash.LAUNCHES, dict(flash.LAUNCHES_BY_VARIANT)
+        got = flash.flash_attention(q, k, v, window=16, logit_softcap=30.0)
+        assert (flash.LAUNCHES, flash.LAUNCHES_BY_VARIANT) == before
+        assert torch.equal(got, flash.flash_attention_plain(q, k, v, window=16,
+                                                            logit_softcap=30.0))

@@ -166,13 +166,44 @@ def _ring_positions(cache_len, cur):
     (1, 1, 2, 1, 64, None, None),
 ])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kv, d, window, softcap, dtype):
+    """The kernel of the dtype's variant, its launch counted under that
+    variant, against the plain version."""
     q, k, v = (_normal(i, (b, s, n, d), dtype, cuda) for i, n in enumerate((h, kv, kv)))
-    before = flash.LAUNCHES
+    before, by_variant = flash.LAUNCHES, dict(flash.LAUNCHES_BY_VARIANT)
     got = flash.flash_attention(q, k, v, window=window, logit_softcap=softcap)
     torch.cuda.synchronize()
     assert flash.LAUNCHES == before + 1
+    variant = flash._variant(dtype)
+    assert {n: c - by_variant[n] for n, c in flash.LAUNCHES_BY_VARIANT.items()} == {
+        n: int(n == variant) for n in by_variant}
     want = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=softcap)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def flash_exact_inputs(b, s, h, kv, d, device):
+    """q_i = 2048 e_i, k_j = e_j (S <= D), random bf16 v: query i's score is
+    2048 / sqrt(D) on key i and 0 on every other key, whose weight
+    exp(-2048 / sqrt(D)) is 0 in float32, so the output must equal v."""
+    pos = torch.arange(s, device=device)
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device=device)
+    k = torch.zeros((b, s, kv, d), dtype=torch.bfloat16, device=device)
+    q[:, pos, :, pos] = 2048.0
+    k[:, pos, :, pos] = 1.0
+    v = _normal(5, (b, s, kv, d), torch.bfloat16, device)
+    want = v.repeat_interleave(h // kv, dim=2)
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_wgmma_exact_case_returns_v(cuda, d):
+    """The attention counterpart of identity weights: a fragment, swizzle or
+    repack fault in the wgmma kernel cannot reproduce v bit for bit."""
+    q, k, v, want = flash_exact_inputs(2, d, 4, 2, d, cuda)
+    before = flash.LAUNCHES_BY_VARIANT["wgmma"]
+    got = flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES_BY_VARIANT["wgmma"] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -471,6 +502,24 @@ def test_grouped_gemm_reference_contract_matches_plain(cuda, block_t):
     assert gg.LAUNCHES == before + 1
     want = (x.float()[:, None, :] @ w.float()[eids]).squeeze(1).bfloat16()
     torch.testing.assert_close(got[inv.long()].float(), want.float(), **TOL[torch.bfloat16])
+
+
+def test_grouped_gemm_reference_contract_takes_blocks_in_any_order(cuda):
+    """A ``block_expert`` that is not nondecreasing: the adapter gathers the
+    blocks into expert order, runs one ragged product and scatters the
+    output back, block for block the product with its own expert."""
+    block_t, d, e, f = 64, 256, 4, 128
+    bmap = torch.tensor([2, 0, 2, 1, 3, 0], dtype=torch.int32, device=cuda)
+    x = _normal(0, (block_t * len(bmap), d), torch.bfloat16, cuda)
+    w = (_normal(1, (e, d, f), torch.float32, cuda) / np.sqrt(d)).bfloat16()
+    before = gg.LAUNCHES
+    got = gg.grouped_gemm(x, w, bmap, block_t=block_t)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == before + 1
+    for i, ex in enumerate(bmap.tolist()):
+        rows = slice(i * block_t, (i + 1) * block_t)
+        want = (x[rows].float() @ w[ex].float()).bfloat16()
+        torch.testing.assert_close(got[rows].float(), want.float(), **TOL[torch.bfloat16])
 
 
 def test_grouped_gemm_wrapper_raises_instead_of_falling_back(cuda):

@@ -139,11 +139,52 @@ def test_reference_contract_checks_blocks():
     with pytest.raises(ValueError):
         gg.grouped_gemm(x, w, torch.zeros(3, dtype=torch.int32), block_t=64)
     with pytest.raises(ValueError):
-        gg.grouped_gemm(x, w, torch.tensor([2, 1], dtype=torch.int32), block_t=64)
-    with pytest.raises(ValueError):
         gg.grouped_gemm(x, w, torch.tensor([0, 4], dtype=torch.int32), block_t=64)
     with pytest.raises(ValueError):
+        gg.grouped_gemm(x, w, torch.tensor([-1, 0], dtype=torch.int32), block_t=64)
+    with pytest.raises(ValueError):
         gg.grouped_gemm(x, w, torch.zeros(2, dtype=torch.int32), block_t=64, block_f=48)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bmap", [[2, 0, 2, 1], [3, 3, 0, 1, 0, 2]])
+def test_reference_contract_takes_blocks_in_any_order(bmap, name):
+    """The reference streams ``w[block_expert[i]]`` for block ``i`` in any
+    order; so does the adapter, against the Pallas kernel (interpret mode)
+    and `ref.py`."""
+    bt, d, e, f = 64, 32, 4, 128
+    rng = np.random.RandomState(len(bmap))
+    jx, tx = _pair(rng, (bt * len(bmap), d), name)
+    jw, tw = _pair(rng, (e, d, f), name, scale=0.1)
+    jmap = jnp.asarray(bmap, jnp.int32)
+    got = gg.grouped_gemm(tx, tw, torch.tensor(bmap, dtype=torch.int32), block_t=bt,
+                          block_f=64)
+    assert got.shape == (bt * len(bmap), f) and got.dtype == tx.dtype
+    pallas = ops.grouped_gemm(jx, jw, jmap, block_t=bt, block_f=64)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(name))
+    np.testing.assert_allclose(_np(got), _np(ref.grouped_gemm_ref(jx, jw, jmap, bt)),
+                               **_tol(name))
+
+
+def test_sorted_block_map_is_neither_gathered_nor_scattered(monkeypatch):
+    """A nondecreasing map goes to the ragged product as it is (x itself, its
+    output returned); an unsorted one is gathered into expert order and
+    scattered back."""
+    seen = []
+
+    def ragged(x, w, offsets):
+        seen.append(x)
+        return gg.grouped_gemm_plain(x, w, offsets)
+
+    monkeypatch.setattr(gg, "grouped_gemm_ragged", ragged)
+    x = torch.arange(4 * 8 * 3, dtype=torch.float32).reshape(32, 3)
+    w = torch.eye(3).expand(3, 3, 3).contiguous()  # every expert the identity
+    got = gg.grouped_gemm(x, w, torch.tensor([0, 1, 1, 2], dtype=torch.int32), block_t=8)
+    assert seen[-1] is x and torch.equal(got, x)
+    got = gg.grouped_gemm(x, w, torch.tensor([2, 0, 1, 0], dtype=torch.int32), block_t=8)
+    blocks = x.view(4, 8, 3)
+    assert torch.equal(seen[-1], blocks[[1, 3, 2, 0]].reshape(32, 3))
+    assert torch.equal(got, x)
 
 
 # ---- the kernel variant, chosen from dtype and alignment alone ---------------
