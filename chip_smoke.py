@@ -10,8 +10,9 @@ its plain torch version.  Phases, each raising on failure:
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
    process per source, all at once; ptxas's report of each kernel's
-   registers and spills is logged, and a spill store in a ``flash_wgmma``
-   instantiation fails the phase;
+   registers and spills is logged, and a spill store in a tensor-core
+   instantiation (``flash_wgmma``, ``decode_mma``, ``ssd_mma``,
+   ``ssd_cb``) fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    take bits and the backtracked counts: a seeded sweep of small pricings
    (float64 and float32), the 500-camera fleet's pricing grid with 18
@@ -32,11 +33,17 @@ its plain torch version.  Phases, each raising on failure:
    bf16, ``simt`` for float32), and, on ``wgmma``, the exact case for D =
    64, 128 and 256 (q_i = 2048 e_i, k_j = e_j: the output must be v bit
    for bit); flash-decode at gemma2-2b's served cache, a wrapped 4096-slot
-   ring, internlm2-1.8b's and recurrentgemma-9b's caches (R=16, L=1040)
-   and a ragged cache.  The SSD scan in float32 (atol 2e-4, rtol 1e-3) and
-   bfloat16 (one bf16 ulp more) at mamba2-1.3b's served prefill (B=4,
+   ring, internlm2-1.8b's, recurrentgemma-9b's (R=16, L=1040) and
+   qwen3-moe-30b-a3b's (R=8) caches, a ragged cache, R=20 (two row
+   groups) and a cache with no valid slot (the mean of v), each launch
+   checked for the variant `_variant` picks (``mma`` for bf16, ``simt``
+   for float32), and, on ``mma``, its exact case (L = D, k_j = e_j, q =
+   2048 e_j*: the output must be v[j*] bit for bit) at D = 64, 128, 256
+   and R = 2, 8, 16, 20.  The SSD scan in float32 (atol 2e-4, rtol 1e-3)
+   and bfloat16 (one bf16 ulp more) at mamba2-1.3b's served prefill (B=4,
    S=1024, H=64, P=64, N=128) with and without h0, at ragged S=1000 and
-   S=7, and at the other head, state and chunk sizes it is built for.  The
+   S=7, and at other head, state and chunk sizes it is built for, each
+   launch checked for its variant (``mma`` or ``simt``).  The
    RG-LRU scan in float32 (2e-5) at recurrentgemma-9b's served prefill
    (B=4, S=1024, W=4096) with h0 and at ragged lengths.  The grouped GEMM
    in float32 and bfloat16 (the attention limits), each launch checked for
@@ -63,28 +70,33 @@ its plain torch version.  Phases, each raising on failure:
    recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
    flash-decode a step; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
    a wave, 48 flash-decode and 144 grouped GEMMs a step; every flash and
-   grouped GEMM launch on its ``wgmma`` variant) and CUDA events around
+   grouped GEMM launch on its ``wgmma`` variant, every flash-decode and
+   SSD launch on ``mma``) and CUDA events around
    every launch and every forward call.  Each model is freed before the
    next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
 8. kernel timing and the models against their plain paths: each kernel
    held against its plain version on phase 7(b)'s own served inputs
-   (attention gemma2-2b's and recurrentgemma-9b's, flash attention also
-   qwen3-moe-30b-a3b's, the SSD scan mamba2-1.3b's, the RG-LRU scan
+   (attention gemma2-2b's, recurrentgemma-9b's and qwen3-moe-30b-a3b's,
+   the SSD scan mamba2-1.3b's, the RG-LRU scan
    recurrentgemma-9b's, the grouped GEMM
    qwen3-moe-30b-a3b's first gate and down products and first decode
    step's gate product), then timed there beside its plain version, its
    bound (gemma2-2b's flash call also in float32, on ``simt``) and a
    library yardstick where one PyTorch call computes the same
    function (``scaled_dot_product_attention`` at recurrentgemma-9b's
-   attention, whose window does not bind, at qwen3-moe-30b-a3b's flash
+   attention, whose window does not bind, at qwen3-moe-30b-a3b's
    attention and at internlm2-1.8b's shapes; ``torch._grouped_mm`` where
    the card's PyTorch runs it, else, at
    prefill, one ``torch.bmm`` over the reference's capacity buffer), the
    decode product also with L2 flushed by reads only and not flushed;
-   then each model at full width in float32, one 2 x prompt
-   prefill and 8 decode steps, on the kernels and again with every
-   kernel's dispatch patched to its plain version (flash attention on its
-   ``simt`` variant, checked), logits compared:
+   gemma2-2b's attention calls also in float32, on ``simt``; the SSD's
+   C·Bᵀ and per-head passes and flash-decode's ``simt`` split and combine
+   passes also apart (`time_cold_parts_ms`; flash-decode's ``mma`` kernel
+   merges its splits in its one launch); then each model at full width in
+   float32, one 2 x prompt prefill and 8 decode steps, on the kernels and
+   again with every kernel's dispatch patched to its plain version (flash
+   attention, flash-decode and the SSD scan on their ``simt`` variants,
+   checked), logits compared:
    gemma2-2b, mamba2-1.3b and recurrentgemma-9b at full depth,
    qwen3-moe-30b-a3b at 8 of its 48 layers (full depth in float32 would
    take 122 GB).  Routing is a discontinuous function of float32 sums, so
@@ -232,24 +244,47 @@ def ptxas_report(build_log: str) -> dict:
             for m in PTXAS_FUNCTION.finditer(build_log)}
 
 
-def check_flash_wgmma_spills() -> dict:
-    """Phase 2's spill check: every ``flash_wgmma`` instantiation (one per
-    head_dim) must build without spill stores.  A library reused from an
-    earlier build in this checkout has no log, and is reported as such."""
-    info = _build.BUILD_INFO["flash_attention"]
+def check_spills(source: str, kernel: str, expected: int) -> dict:
+    """Phase 2's spill check: every instantiation of ``kernel`` (a piece of
+    its mangled name) in ``source``'s build must come without spill
+    stores, and there must be ``expected`` of them.  A library reused from
+    an earlier build in this checkout has no log, and is reported as such."""
+    info = _build.BUILD_INFO[source]
     if not info["log"]:
-        log("  flash_attention reused from an earlier build: no ptxas report to check")
+        log(f"  {source} reused from an earlier build: no ptxas report to check")
         return {}
-    report = {f: r for f, r in ptxas_report(info["log"]).items() if "flash_wgmma" in f}
-    if len(report) != len(flash.HEAD_DIMS):
-        raise AssertionError(f"ptxas report: {len(report)} flash_wgmma instantiations, "
-                             f"expected {len(flash.HEAD_DIMS)}")
+    report = {f: r for f, r in ptxas_report(info["log"]).items() if kernel in f}
+    if len(report) != expected:
+        raise AssertionError(f"ptxas report: {len(report)} {kernel} instantiations, "
+                             f"expected {expected}")
     spilled = {f: r for f, r in report.items() if r["spill_stores"]}
     if spilled:
-        raise AssertionError(f"flash_wgmma spills: {spilled}")
-    log(f"  flash_wgmma registers {sorted(r['registers'] for r in report.values())}, "
+        raise AssertionError(f"{kernel} spills: {spilled}")
+    log(f"  {kernel} registers {sorted(r['registers'] for r in report.values())}, "
         "no spill stores")
     return report
+
+
+def check_flash_wgmma_spills() -> dict:
+    """`check_spills` of the ``flash_wgmma`` instantiations, one per head_dim."""
+    return check_spills("flash_attention", "flash_wgmma", len(flash.HEAD_DIMS))
+
+
+#: The tensor-core instantiations phase 2 holds to no spill stores, by
+#: (source, kernel): flash-decode's ``decode_mma`` per head_dim and row
+#: groups (1, 2, ... up to 512 / D), the SSD's ``ssd_mma`` per (P, N, chunk)
+#: and ``ssd_cb`` per (N, chunk).
+MMA_INSTANTIATIONS = {
+    ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
+                                            for d in decode.HEAD_DIMS),
+    ("ssd", "ssd_mma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("ssd", "ssd_cb"): len(ssd.STATES) * len(ssd.CHUNKS),
+}
+
+
+def check_mma_spills() -> dict:
+    return {kernel: check_spills(source, kernel, n)
+            for (source, kernel), n in MMA_INSTANTIATIONS.items()}
 
 
 # --------------------------------------------------------------- phase 3
@@ -546,8 +581,13 @@ DECODE_CASES = [
     ("wrapped ring", 4, 4, 2, 256, 4096, 6000, 4096, 50.0, True),
     ("internlm2-1.8b cache", 4, 8, 2, 128, 528, 520, None, None, False),
     ("recurrentgemma-9b cache", 4, 1, 16, 256, 1040, 1030, 2048, None, False),
+    ("qwen3-moe-30b-a3b cache", 4, 4, 8, 128, 1040, 1030, None, None, False),
     ("ragged L=77", 3, 2, 4, 64, 77, 70, 32, None, False),
+    ("R=20, two row groups, window binds", 2, 2, 20, 128, 300, 290, 100, 50.0, False),
+    ("no valid slot: the mean of v", 2, 2, 4, 256, 700, -1, None, None, False),
 ]
+#: The decode exact case's head_dims and query heads a KV group.
+DECODE_EXACT = ((64, 2), (128, 8), (256, 16), (128, 20))
 #: (label, B, S, H, P, N, chunk, with h0)
 SSD_CASES = [
     ("mamba2-1.3b prefill", 4, 1024, 64, 64, 128, 128, True),
@@ -556,6 +596,8 @@ SSD_CASES = [
     ("ragged S=7", 4, 7, 64, 64, 128, 128, True),
     ("P=32 N=32 chunk 32, ragged S=77", 2, 77, 8, 32, 32, 32, True),
     ("N=64 chunk 64", 2, 256, 4, 64, 64, 64, True),
+    ("P=32 N=128 chunk 64, ragged S=300", 2, 300, 8, 32, 128, 64, True),
+    ("P=64 N=32 chunk 128, ragged S=333, no h0", 2, 333, 8, 64, 32, 128, False),
 ]
 #: (label, B, S, W, with h0)
 RGLRU_CASES = [
@@ -616,14 +658,30 @@ def ssd_inputs(rng, b, s, h, p, n, dtype, with_h0):
     return x, dt, A, bc[..., :n], bc[..., n:], h0
 
 
+def counted_launch(mod, call, dtype):
+    """``call()`` through a wrapper with `_variant` and `LAUNCHES_BY_VARIANT`,
+    checked to have launched the variant of ``dtype`` once; ``(variant,
+    output)``."""
+    want = mod._variant(dtype)
+    before = dict(mod.LAUNCHES_BY_VARIANT)
+    got = call()
+    torch.cuda.synchronize()
+    rose = {n: mod.LAUNCHES_BY_VARIANT[n] - before[n] for n in before}
+    if rose != {n: int(n == want) for n in before}:
+        raise AssertionError(f"{mod.__name__}: expected one {want} launch, counted {rose}")
+    return want, got
+
+
 def compare_ssd(label, args, chunk) -> list[dict]:
-    """The SSD kernel against its plain version: y in its type, the final state."""
-    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    """The SSD kernel of x's dtype against its plain version: y in its
+    type, the final state."""
+    variant, (y, h) = counted_launch(ssd, lambda: ssd.ssd_scan(*args, chunk=chunk),
+                                     args[0].dtype)
     y_p, h_p = ssd.ssd_scan_plain(*args, chunk=chunk)
-    return [{"kernel": "ssd_scan", **_compare(f"ssd {label}", y.dtype, y, y_p,
-                                              SSD_TOLERANCE[y.dtype])},
-            {"kernel": "ssd_scan", **_compare(f"ssd {label} state", h.dtype, h, h_p,
-                                              SSD_TOLERANCE[h.dtype])}]
+    return [{"kernel": "ssd_scan", "variant": variant, **_compare(
+                f"ssd {label} [{variant}]", y.dtype, y, y_p, SSD_TOLERANCE[y.dtype])},
+            {"kernel": "ssd_scan", "variant": variant, **_compare(
+                f"ssd {label} state [{variant}]", h.dtype, h, h_p, SSD_TOLERANCE[h.dtype])}]
 
 
 def gg_inputs(rng, pairs, e, k, f, tail, empty, dtype):
@@ -711,6 +769,36 @@ def flash_launch(q, k, v, window, cap) -> tuple[str, torch.Tensor]:
     return want, got
 
 
+def compare_decode_exact(d: int, r: int) -> dict:
+    """L = D slots, k_j = e_j, and query head r of (b, g) q = 2048 e_j* at
+    j* = (7 r + 3 g + 5 b) % D: the score is 2048 / sqrt(D) on slot j* and 0
+    elsewhere, whose weights are 0 in float32, so the output must equal
+    v[j*] bit for bit through the splits and their merge.  A fragment,
+    swizzle or lane-map fault of the ``mma`` split pass cannot pass."""
+    b, kv = 2, 2
+    q = torch.zeros((b, kv, r, d), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((b, d, kv, d), dtype=torch.bfloat16, device="cuda")
+    slots = torch.arange(d, device="cuda")
+    k[:, slots, :, slots] = 1.0
+    v = _normal(np.random.RandomState(900 + d + r), (b, d, kv, d), torch.bfloat16)
+    want = torch.empty_like(q)
+    for bi in range(b):
+        for g in range(kv):
+            for ri in range(r):
+                j = (7 * ri + 3 * g + 5 * bi) % d
+                q[bi, g, ri, j] = 2048.0
+                want[bi, g, ri] = v[bi, j, g]
+    pos = torch.arange(d, dtype=torch.int32, device="cuda")
+    variant, got = counted_launch(decode, lambda: decode.decode_attention(q, k, v, pos, d - 1),
+                                  torch.bfloat16)
+    if not torch.equal(got, want):
+        raise AssertionError(f"decode_attention {variant} exact case D={d} R={r}: "
+                             f"{int((got != want).sum())} elements differ from v")
+    return {"kernel": "decode_attention", "variant": variant,
+            "label": f"decode exact case D={d} R={r} [{variant}]", "dtype": "bfloat16",
+            "max_abs_err": 0.0, "max_abs_want": float(want.float().abs().max())}
+
+
 def compare_flash_exact(d: int) -> dict:
     """S = D, q_i = 2048 e_i, k_j = e_j, random bf16 v, no softcap: query i
     scores 2048 / sqrt(D) on key i and 0 elsewhere, whose weights
@@ -758,11 +846,14 @@ def phase_kernels_vs_plain() -> list[dict]:
             else:
                 pos_np = np.where(np.arange(cache_len) <= cur, np.arange(cache_len), -1)
             pos = torch.from_numpy(pos_np.astype(np.int32)).to("cuda")
-            got = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=cap)
+            variant, got = counted_launch(decode, lambda: decode.decode_attention(
+                q, k, v, pos, cur, window=window, logit_softcap=cap), dtype)
             want = decode.decode_attention_plain(q, k, v, pos, cur, window=window,
                                                  logit_softcap=cap)
-            rows.append({"kernel": "decode_attention",
-                         **_compare(f"decode {label}", dtype, got, want)})
+            rows.append({"kernel": "decode_attention", "variant": variant,
+                         **_compare(f"decode {label} [{variant}]", dtype, got, want)})
+        if dtype == torch.bfloat16:
+            rows += [compare_decode_exact(d, r) for d, r in DECODE_EXACT]
         for i, (label, b, s, h, p, n, chunk, with_h0) in enumerate(SSD_CASES):
             args = ssd_inputs(np.random.RandomState(300 + i), b, s, h, p, n, dtype, with_h0)
             rows += compare_ssd(label, args, chunk)
@@ -829,6 +920,10 @@ def phase_kernels_vs_plain() -> list[dict]:
 SERVE_KERNELS = {"flash_attention": (flash, "largest"), "decode_attention": (decode, "last"),
                  "ssd_scan": (ssd, "last"), "rglru_scan": (rglru, "last"),
                  "grouped_gemm": (gg, "products")}
+#: The serving kernels with variants, whose launches `ServeRecorder` counts
+#: by variant.
+VARIANT_KERNELS = {"flash_attention": flash, "decode_attention": decode, "ssd_scan": ssd,
+                   "grouped_gemm": gg}
 #: The grouped GEMM launches kept, by (phase, index of the launch in that
 #: phase): layer 0's gate and down products of the first wave, and layer
 #: 0's gate product of the first decode step.
@@ -888,6 +983,21 @@ def expected_flash_variants(cfg, waves: int) -> dict:
     return {"prefill": {"wgmma": launches} if launches else {}, "decode": {}}
 
 
+def expected_decode_variants(cfg, steps: int) -> dict:
+    """Flash-decode's launches by phase and variant for a bf16 model: every
+    decode launch on ``mma`` (gemma2-2b 26 a step, recurrentgemma-9b 12,
+    qwen3-moe-30b-a3b 48), none in prefill."""
+    launches = expected_launches(cfg, 0, steps)["decode_attention"]
+    return {"prefill": {}, "decode": {"mma": launches} if launches else {}}
+
+
+def expected_ssd_variants(cfg, waves: int) -> dict:
+    """The SSD scan's launches by phase and variant for a bf16 model: every
+    prefill launch on ``mma`` (mamba2-1.3b 48 a wave), none in decode."""
+    launches = expected_launches(cfg, waves, 0)["ssd_scan"]
+    return {"prefill": {"mma": launches} if launches else {}, "decode": {}}
+
+
 def _reset_serve_counts() -> None:
     for mod, _ in SERVE_KERNELS.values():
         mod.LAUNCHES = 0
@@ -911,8 +1021,7 @@ class ServeRecorder:
         self.args = {name: None for name in SERVE_KERNELS}
         self.args["grouped_gemm"] = {}
         self.gg_seen = {"prefill": 0, "decode": 0}
-        self.gg_variants = {"prefill": {}, "decode": {}}
-        self.flash_variants = {"prefill": {}, "decode": {}}
+        self.variants = {name: {"prefill": {}, "decode": {}} for name in VARIANT_KERNELS}
         self.prefill_logits = []
         self._saved = {name: (mod._kernel_fn, mod._dispatch)
                        for name, (mod, _) in SERVE_KERNELS.items()}
@@ -934,11 +1043,10 @@ class ServeRecorder:
         kernel_fn = self._saved[name][0]
 
         def fn(*a):
-            # grouped_gemm's a = (variant, dtype), flash_attention's a = (dtype,)
-            if name in ("grouped_gemm", "flash_attention"):
-                by_variant, variant = ((self.gg_variants, a[0]) if name == "grouped_gemm"
-                                       else (self.flash_variants, flash._variant(a[0])))
-                counts = by_variant[self._phase]
+            # grouped_gemm's a = (variant, dtype), the others' a = (dtype,)
+            if name in VARIANT_KERNELS:
+                variant = a[0] if name == "grouped_gemm" else VARIANT_KERNELS[name]._variant(a[0])
+                counts = self.variants[name][self._phase]
                 counts[variant] = counts.get(variant, 0) + 1
             return self._timed(self.launches[name][self._phase], kernel_fn(*a))
         return fn
@@ -1059,12 +1167,13 @@ def phase_frame_analysis(arch: str, params) -> dict:
             raise AssertionError(f"frame analysis {arch}: {phase} launches "
                                  f"{rec.phase_counts(phase)}, expected "
                                  f"{expected_launches(cfg, w, n)}")
-    if rec.gg_variants != expected_gg_variants(cfg, waves, steps):
-        raise AssertionError(f"frame analysis {arch}: grouped GEMM variants {rec.gg_variants}, "
-                             f"expected {expected_gg_variants(cfg, waves, steps)}")
-    if rec.flash_variants != expected_flash_variants(cfg, waves):
-        raise AssertionError(f"frame analysis {arch}: flash variants {rec.flash_variants}, "
-                             f"expected {expected_flash_variants(cfg, waves)}")
+    for name, want in (("grouped_gemm", expected_gg_variants(cfg, waves, steps)),
+                       ("flash_attention", expected_flash_variants(cfg, waves)),
+                       ("decode_attention", expected_decode_variants(cfg, steps)),
+                       ("ssd_scan", expected_ssd_variants(cfg, waves))):
+        if rec.variants[name] != want:
+            raise AssertionError(f"frame analysis {arch}: {name} variants "
+                                 f"{rec.variants[name]}, expected {want}")
     if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
         raise AssertionError(f"frame analysis {arch}: missing results")
     for r in results:
@@ -1083,8 +1192,7 @@ def phase_frame_analysis(arch: str, params) -> dict:
     out = {
         "arch": arch, "requests": N_REQUESTS, "prompt_tokens": prompt_tokens,
         "new_tokens": NEW_TOKENS, "slots": SLOTS, "waves": waves, "decode_steps": steps,
-        "launches": counts, "grouped_gemm_variants": rec.gg_variants,
-        "flash_variants": rec.flash_variants,
+        "launches": counts, "variants": rec.variants,
         "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(decode_ms)),
         "kernel_ms": kernel_ms,
@@ -1097,9 +1205,8 @@ def phase_frame_analysis(arch: str, params) -> dict:
     }
     log(f"  {arch}: {N_REQUESTS} requests x {prompt_tokens}-token prompts, {SLOTS} slots: "
         f"{waves} waves, {steps} decode steps; launches "
-        f"{ {k: v for k, v in counts.items() if v} }"
-        + (f"; flash variants {rec.flash_variants}" if counts["flash_attention"] else "")
-        + (f"; grouped GEMM variants {rec.gg_variants}" if counts["grouped_gemm"] else ""))
+        f"{ {k: v for k, v in counts.items() if v} }; by variant "
+        f"{ {n: v for n, v in rec.variants.items() if counts[n]} }")
     log(f"  wall {wall_s:.3f} s, {out['tokens_per_s']:.1f} generated tokens/s; prefill "
         f"{', '.join(f'{ms:.1f}' for ms in prefill_ms)} ms; decode "
         f"{out['decode_ms_per_step']:.3f} ms/step")
@@ -1113,7 +1220,8 @@ def phase_frame_analysis(arch: str, params) -> dict:
 # --------------------------------------------------------------- phase 8
 
 
-#: Every `time_cold_ms` call's host dispatch time and spin, in ms.
+#: Every `time_cold_ms` call's host dispatch time, spin, and the mean,
+#: median and largest of its timed calls, in ms.
 COLD_TIMINGS: list[dict] = []
 _SPIN_CYCLES_PER_MS: list[float] = []
 
@@ -1148,14 +1256,23 @@ def time_cold_ms(fn, reps: int, warmup: int = 2, flush: str = "write") -> float:
     on an idle card), so the host has queued the call before the card
     reaches the start event and the host's dispatch time stays outside the
     events.  Logs both times."""
+    return time_cold_parts_ms(lambda mid: fn(), reps, warmup, flush, parts=False)[0]
+
+
+def time_cold_parts_ms(fn, reps: int, warmup: int = 2, flush: str = "write",
+                       parts: bool = True) -> tuple:
+    """`time_cold_ms` of ``fn(mid)``, a call of two kernel passes that
+    records the timing event ``mid`` between them: the means of the whole
+    call, of the first pass and of the second (the parts are None without
+    ``parts``, where ``fn`` gets None)."""
     buf = torch.zeros(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     for _ in range(warmup):
-        fn()
+        fn(None)
     host_ms = 0.0
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        fn(None)
         host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     spin_ms = max(1.0, 2.0 * host_ms)
@@ -1165,16 +1282,45 @@ def time_cold_ms(fn, reps: int, warmup: int = 2, flush: str = "write") -> float:
         f"spin {spin_ms:.4f} ms")
     events = []
     for _ in range(reps):
+        mid = None
+        if parts:
+            mid = torch.cuda.Event(enable_timing=True)
+            mid.record()  # created here, recorded again between the passes
         torch.cuda._sleep(cycles)
         FLUSHES[flush](buf)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(mid)
         end.record()
-        events.append((start, end))
+        events.append((start, mid, end))
     torch.cuda.synchronize()
-    return float(np.mean([s.elapsed_time(e) for s, e in events]))
+    times = [s.elapsed_time(e) for s, _, e in events]
+    total = float(np.mean(times))
+    COLD_TIMINGS[-1].update(mean_ms=total, median_ms=float(np.median(times)),
+                            max_ms=float(np.max(times)))
+    if not parts:
+        return total, None, None
+    return (total, float(np.mean([s.elapsed_time(m) for s, m, _ in events])),
+            float(np.mean([m.elapsed_time(e) for _, m, e in events])))
+
+
+def time_decode_parts(args, reps: int) -> dict:
+    """Flash-decode on ``args`` (`_dispatch`'s) timed cold: the call and,
+    where it is two launches (``simt``), its split and combine passes
+    apart; the ``mma`` kernel merges its splits in its one launch."""
+    if decode._variant(args[0].dtype) == "mma":
+        return {"ms": time_cold_ms(lambda: decode._dispatch(*args), reps), "passes": 1}
+    ms, split_ms, combine_ms = time_cold_parts_ms(
+        lambda mid: decode._dispatch(*args, mid_event=mid), reps)
+    return {"ms": ms, "split_ms": split_ms, "combine_ms": combine_ms, "passes": 2}
+
+
+def _passes(t: dict) -> str:
+    """A timing's passes, for the log."""
+    if "split_ms" in t:
+        return f" (split {t['split_ms']:.4f} + combine {t['combine_ms']:.4f})"
+    return " (one launch)" if t.get("passes") == 1 else ""
 
 
 def flash_bound(q, k, window) -> dict:
@@ -1263,12 +1409,25 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
                                        reps=5)}
 
     dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "window": dwin,
-          "softcap": dcap, "dtype": str(dq.dtype).replace("torch.", "")}
-    dd["ms"] = time_cold_ms(lambda: decode._dispatch(dq, dk, dv, pos, cur, dwin, dcap), reps=50)
+          "softcap": dcap, "dtype": str(dq.dtype).replace("torch.", ""),
+          "variant": decode._variant(dq.dtype)}
+    dd.update(time_decode_parts((dq, dk, dv, pos, cur, dwin, dcap), reps=50))
     dd["plain_ms"] = time_cold_ms(lambda: decode.decode_attention_plain(
         dq, dk, dv, pos, cur, window=dwin, logit_softcap=dcap), reps=20)
     dd.update(decode_bound(dq, dk, pos, cur, dwin))
     dd["library_ms"] = None
+    # The same step in float32, on the `simt` variant (split and combine
+    # passes) that phase 8's float32 models run.
+    dq32, dk32, dv32 = dq.float(), dk.float(), dv.float()
+    variant32, got32 = counted_launch(decode, lambda: decode.decode_attention(
+        dq32, dk32, dv32, pos, cur, window=dwin, logit_softcap=dcap), torch.float32)
+    served.append({"kernel": "decode_attention", "variant": variant32, **_compare(
+        f"decode served step in float32 [{variant32}]", torch.float32, got32,
+        decode.decode_attention_plain(dq32, dk32, dv32, pos, cur, window=dwin,
+                                      logit_softcap=dcap))})
+    dd["float32"] = {"variant": variant32, **decode_bound(dq32, dk32, pos, cur, dwin),
+                     **time_decode_parts((dq32, dk32, dv32, pos, cur, dwin, dcap), reps=20)}
+    del dq32, dk32, dv32, got32
 
     # internlm2-1.8b's shapes: no window, no softcap, so SDPA computes the
     # same functions; it is timed here and used nowhere in the port.
@@ -1295,8 +1454,7 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     lib_err = float((_sdpa_decode(dq_i, dk_i, dv_i, mask).float() - ref.float()).abs().max())
     dd["internlm2"] = {
         "shape": [4, 8, 2, 128], "cache_len": cache_len,
-        "ms": time_cold_ms(lambda: decode._dispatch(dq_i, dk_i, dv_i, pos_i, cur_i, None, None),
-                           reps=50),
+        **time_decode_parts((dq_i, dk_i, dv_i, pos_i, cur_i, None, None), reps=50),
         "plain_ms": time_cold_ms(lambda: decode.decode_attention_plain(
             dq_i, dk_i, dv_i, pos_i, cur_i), reps=20),
         "library_ms": time_cold_ms(lambda: _sdpa_decode(dq_i, dk_i, dv_i, mask), reps=50),
@@ -1307,6 +1465,9 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     log(f"  flash_attention at {f['shape']} float32 [{f['float32']['variant']}]: kernel "
         f"{f['float32']['ms']:.4f} ms, bound {f['float32']['bound_ms']:.4f} ms "
         f"({f['float32']['bound_by']})")
+    log(f"  decode_attention at {dd['shape']} float32 [{dd['float32']['variant']}]: kernel "
+        f"{dd['float32']['ms']:.4f} ms{_passes(dd['float32'])}, bound "
+        f"{dd['float32']['bound_ms']:.4f} ms; bf16{_passes(dd)}")
     for name, t in (("flash_attention", f), ("decode_attention", dd)):
         i = t["internlm2"]
         log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
@@ -1350,8 +1511,7 @@ def phase_attention_timing_rep16(flash_args, decode_args) -> dict:
          "library_ms": time_cold_ms(lambda: _sdpa_causal(q, k, v), reps=10),
          **flash_bound(q, k, window)}
     dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "window": dwin,
-          "ms": time_cold_ms(lambda: decode._dispatch(dq, dk, dv, pos, cur, dwin, dcap),
-                             reps=50),
+          **time_decode_parts((dq, dk, dv, pos, cur, dwin, dcap), reps=50),
           "plain_ms": time_cold_ms(lambda: decode.decode_attention_plain(
               dq, dk, dv, pos, cur, window=dwin), reps=20),
           "library_ms": time_cold_ms(lambda: _sdpa_decode(dq, dk, dv, mask), reps=50),
@@ -1395,6 +1555,36 @@ def phase_flash_timing_qwen3(flash_args) -> dict:
     return {"flash_attention": f, "served_checks": served}
 
 
+def phase_decode_timing_qwen3(decode_args) -> dict:
+    """Flash-decode on qwen3-moe-30b-a3b's served step (32 query heads over
+    4 KV heads of 128, no window, no softcap, so SDPA computes the same
+    function): held against its plain version, then timed beside it, its
+    bound and SDPA."""
+    dq, dk, dv, pos, cur, dwin, dcap = decode_args
+    if dcap is not None or dwin is not None:
+        raise AssertionError("qwen3-moe-30b-a3b's served decode is not SDPA's function")
+    variant, got = counted_launch(decode, lambda: decode.decode_attention(dq, dk, dv, pos, cur),
+                                  dq.dtype)
+    want = decode.decode_attention_plain(dq, dk, dv, pos, cur)
+    served = [{"kernel": "decode_attention", "variant": variant, **_compare(
+        f"decode served step, qwen3-moe-30b-a3b [{variant}]", dq.dtype, got, want)}]
+    mask = (pos >= 0) & (pos <= cur)
+    lib_err = float((_sdpa_decode(dq, dk, dv, mask).float() - want.float()).abs().max())
+    dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "variant": variant,
+          **time_decode_parts((dq, dk, dv, pos, cur, None, None), reps=50),
+          "plain_ms": time_cold_ms(lambda: decode.decode_attention_plain(dq, dk, dv, pos, cur),
+                                   reps=20),
+          "library_ms": time_cold_ms(lambda: _sdpa_decode(dq, dk, dv, mask), reps=50),
+          "library_max_abs_err": lib_err, **decode_bound(dq, dk, pos, cur, None)}
+    log(f"  {served[0]['label']} {served[0]['dtype']}: max abs err "
+        f"{served[0]['max_abs_err']:.3g}")
+    log(f"  decode_attention at qwen3-moe-30b-a3b's {dd['shape']} [{variant}]: kernel "
+        f"{dd['ms']:.4f} ms{_passes(dd)}, "
+        f"plain {dd['plain_ms']:.4f} ms, sdpa {dd['library_ms']:.4f} ms, bound "
+        f"{dd['bound_ms']:.4f} ms ({dd['bound_by']})")
+    return {"decode_attention": dd, "served_checks": served}
+
+
 def ssd_bound(x, Bm, h0, chunk) -> dict:
     """Bytes: x and y, dt, A, B and C (one (B, S, 2N) tensor), h0 if given
     and the final state, each once.  Operations: per (b, h) and chunk of q
@@ -1432,8 +1622,10 @@ def phase_scan_timing(ssd_args, rglru_args) -> dict:
     for r in served:
         log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g}")
     s_ = {"shape": list(x.shape), "state": Bm.shape[-1], "chunk": chunk, "h0": h0 is not None,
-          "dtype": str(x.dtype).replace("torch.", "")}
-    s_["ms"] = time_cold_ms(lambda: ssd._dispatch(*ssd_args), reps=10)
+          "dtype": str(x.dtype).replace("torch.", ""), "variant": ssd._variant(x.dtype)}
+    # The mma variant's two passes apart: C·Bᵀ, then the per-head pass.
+    s_["ms"], s_["cb_ms"], s_["per_head_ms"] = time_cold_parts_ms(
+        lambda mid: ssd._dispatch(*ssd_args, mid_event=mid), reps=10)
     s_["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_plain(*sargs, chunk=chunk), reps=5)
     s_.update(ssd_bound(x, Bm, h0, chunk))
     s_["library_ms"] = None
@@ -1446,6 +1638,8 @@ def phase_scan_timing(ssd_args, rglru_args) -> dict:
     for name, t in (("ssd_scan", s_), ("rglru_scan", r_)):
         log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"  ssd_scan [{s_['variant']}] parts: C·Bᵀ {s_['cb_ms']:.4f} ms + per-head "
+        f"{s_['per_head_ms']:.4f} ms")
     return {"ssd_scan": s_, "rglru_scan": r_, "served_checks": served}
 
 
@@ -1588,6 +1782,10 @@ class ForcedRouting:
         moe_lib._route = self._route
 
 
+#: The kernels whose float32 calls all take their ``simt`` variant.
+SIMT_FLOAT32 = ("flash_attention", "decode_attention", "ssd_scan")
+
+
 def _model_logits(params, cfg, prompt, steps) -> list[torch.Tensor]:
     b, s = prompt.shape
     caches = tfm.init_serve_cache(cfg, b, s + steps.shape[1])
@@ -1614,7 +1812,7 @@ def phase_model_vs_plain(arch: str) -> dict:
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, prompt_tokens))).cuda()
     steps = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 8))).cuda()
     before = _serve_counts()
-    flash_variants = dict(flash.LAUNCHES_BY_VARIANT)
+    by_variant = {name: dict(VARIANT_KERNELS[name].LAUNCHES_BY_VARIANT) for name in SIMT_FLOAT32}
     with ForcedRouting().recording() as routing:
         t0 = time.perf_counter()
         kern = _model_logits(params, cfg, prompt, steps)
@@ -1623,10 +1821,11 @@ def phase_model_vs_plain(arch: str) -> dict:
         launched = {k: n - before[k] for k, n in _serve_counts().items()}
         if launched != expected_launches(cfg, waves=1, steps=8):
             raise AssertionError(f"float32 {arch}: launches {launched}")
-        flash_rose = {n: flash.LAUNCHES_BY_VARIANT[n] - flash_variants[n]
-                      for n in flash_variants}
-        if flash_rose != {"wgmma": 0, "simt": launched["flash_attention"]}:
-            raise AssertionError(f"float32 {arch}: flash variants {flash_rose}")
+        rose = {name: {n: VARIANT_KERNELS[name].LAUNCHES_BY_VARIANT[n] - c
+                       for n, c in counts.items()} for name, counts in by_variant.items()}
+        for name, r in rose.items():
+            if r != {n: launched[name] if n == "simt" else 0 for n in r}:
+                raise AssertionError(f"float32 {arch}: {name} variants {r}")
         saved = {name: mod._dispatch for name, (mod, _) in SERVE_KERNELS.items()}
         for name, (mod, _) in SERVE_KERNELS.items():
             mod._dispatch = PLAIN_DISPATCH[name]
@@ -1640,7 +1839,8 @@ def phase_model_vs_plain(arch: str) -> dict:
             for name, (mod, _) in SERVE_KERNELS.items():
                 mod._dispatch = saved[name]
                 mod.LAUNCHES = before[name]
-            flash.LAUNCHES_BY_VARIANT.update(flash_variants)
+            for name, counts in by_variant.items():
+                VARIANT_KERNELS[name].LAUNCHES_BY_VARIANT.update(counts)
     moe_layers = cfg.layer_pattern.count("moe") * cfg.num_groups
     if len(routing.choices) != moe_layers * 9 or routing.forced_calls != moe_layers * 9:
         raise AssertionError(f"float32 {arch}: {len(routing.choices)} routings recorded, "
@@ -1659,7 +1859,7 @@ def phase_model_vs_plain(arch: str) -> dict:
         f"{plain_s:.2f} s" + (f"; {routing.flips} rows of {len(routing.choices)} routings "
                               f"would have chosen other experts on the plain path"
                               if moe_layers else ""))
-    return {"layers": cfg.num_layers, "flash_variants": flash_rose,
+    return {"layers": cfg.num_layers, "variants": rose,
             "prefill_max_abs_err": errs[0],
             "decode_max_abs_err": max(errs[1:]), "atol": atol, "kernel_path_s": kern_s,
             "plain_path_s": plain_s, "routing_flips": routing.flips}
@@ -1718,6 +1918,7 @@ def main(argv=None) -> int:
                 log(f"    {line.strip()}")
     log(f"  all sources built in {build_wall:.2f} s (in parallel)")
     flash_wgmma_ptxas = check_flash_wgmma_spills()
+    mma_ptxas = check_mma_spills()
 
     timer.begin("phase 3", "knapsack kernel vs plain on the card")
     fleet_problem = ResourceManager(
@@ -1727,7 +1928,7 @@ def main(argv=None) -> int:
     log(f"  {len(checks)} comparisons exact")
     result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
               "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-              "flash_wgmma_ptxas": flash_wgmma_ptxas,
+              "flash_wgmma_ptxas": flash_wgmma_ptxas, "mma_ptxas": mma_ptxas,
               "checks": checks}
 
     if not args.kernel_only:
@@ -1759,16 +1960,19 @@ def main(argv=None) -> int:
         attn_timing = phase_attention_timing(gemma["flash_attention"], gemma["decode_attention"])
         rep16 = phase_attention_timing_rep16(rg["flash_attention"], rg["decode_attention"])
         qwen_flash = phase_flash_timing_qwen3(qwen["flash_attention"])
+        qwen_decode = phase_decode_timing_qwen3(qwen["decode_attention"])
         scan_timing = phase_scan_timing(mamba["ssd_scan"], rg["rglru_scan"])
         gg_timing = phase_gg_timing(qwen["grouped_gemm"])
         del served, gemma, mamba, rg, qwen
         kernel_checks += (attn_timing.pop("served_checks") + rep16.pop("served_checks")
-                          + qwen_flash.pop("served_checks") + scan_timing.pop("served_checks")
+                          + qwen_flash.pop("served_checks") + qwen_decode.pop("served_checks")
+                          + scan_timing.pop("served_checks")
                           + gg_timing.pop("served_checks"))
         for kname in ("flash_attention", "decode_attention"):
             attn_timing[kname]["recurrentgemma"] = rep16[kname]
         attn_timing["flash_attention"]["variant"] = flash._variant(torch.bfloat16)
         attn_timing["flash_attention"]["qwen3"] = qwen_flash["flash_attention"]
+        attn_timing["decode_attention"]["qwen3"] = qwen_decode["decode_attention"]
         result["attention_timing"] = attn_timing
         result["scan_timing"] = scan_timing
         result["grouped_gemm_timing"] = gg_timing
@@ -1818,27 +2022,27 @@ def main(argv=None) -> int:
             }
             if "library" in t:
                 entry["library"] = t["library"]
+            # The passes of a two-pass kernel, timed apart.
+            parts = ("split_ms", "combine_ms", "cb_ms", "per_head_ms", "passes")
+            entry.update({k: t[k] for k in parts if k in t})
             for shapes in ("internlm2", "recurrentgemma", "qwen3"):
                 if shapes in t:
                     entry[shapes] = {k: t[shapes][k] for k in (
-                        "ms", "plain_ms", "bound_ms", "library_ms")}
-            if kname == "flash_attention":
-                entry["variant"] = t["variant"]
+                        "ms", "plain_ms", "bound_ms", "library_ms") + parts if k in t[shapes]}
+            if "float32" in t:
                 entry["float32"] = {k: t["float32"][k] for k in (
-                    "variant", "ms", "bound_ms", "bound_by")}
+                    "variant", "ms", "bound_ms", "bound_by") + parts if k in t["float32"]}
+            if kname in VARIANT_KERNELS:
+                entry["variant"] = t["variant"]
                 entry["launches_by_variant"] = {
-                    arch: f["flash_variants"] for arch, f in frames.items()
+                    arch: f["variants"][kname] for arch, f in frames.items()
                     if f["launches"][kname]}
             if kname == "grouped_gemm":
                 # The prefill row above is the gate product's; beside it the
                 # served down product's and a decode step's gate product's.
-                entry["variant"] = t["variant"]
                 for row in ("down", "decode"):
                     entry[row] = {k: t[row][k] for k in (
                         "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                entry["launches_by_variant"] = {
-                    arch: f["grouped_gemm_variants"] for arch, f in frames.items()
-                    if f["launches"][kname]}
             result["kernels"].append(entry)
         result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()

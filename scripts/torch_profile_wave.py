@@ -1,27 +1,38 @@
-"""Split a served model's prefill wave between the host and the card.
+"""Split a served model's prefill wave, or one decode step, between the
+host and the card.
 
-Serves three waves of four random 1024-token prompts to
-qwen3-moe-30b-a3b through `repro_torch.serving.ServingEngine` at full
-width and depth in bf16 (random weights from seed 0, one new token a
-request, so one decode step a wave), as ``chip_smoke.py``'s frame
-analysis does.  Each wave's ``forward_prefill`` call is timed with CUDA
-events, as there, and on the host clock up to its return (the host's
-issue time).  The last wave is
-traced with `torch.profiler` (host and card), and the trace gives:
+Serves random prompts to one model (``--arch``, default
+qwen3-moe-30b-a3b) through `repro_torch.serving.ServingEngine` at full
+width and depth in bf16 (random weights from seed 0), with
+``chip_smoke.py``'s frame-analysis prompts (2048 tokens for gemma2-2b,
+1024 for the others) over four slots.
 
-* the wave on the host clock, from the call to the card going idle
+* Prefill (the default): three waves, one new token a request (so one
+  decode step a wave).  Each wave's ``forward_prefill`` call is timed.
+* ``--decode``: one wave, 8 new tokens a request.  Each of its decode
+  steps' ``forward_decode`` call is timed.
+
+A timed call starts on an idle card (a synchronize before it) and is
+timed with CUDA events, as in ``chip_smoke.py``, and on the host clock up
+to its return (the host's issue time).  The last wave, or decode step 5
+(after five warm steps), is traced with `torch.profiler` (host and
+card), and the trace gives:
+
+* the call on the host clock, from the call to the card going idle
   (the call ends with a synchronize);
 * the card's busy time in it: the union of its kernel, copy and memset
-  intervals, and the idle share ``1 - busy / wave``;
-* the card's time by kernel group (flash attention, grouped GEMM,
-  library GEMMs, the rest) and the kernels that take the most;
-* the host's time waiting on the card (synchronizing calls and
-  device-to-host copies) and its ops by self time.
+  intervals, and the idle share ``1 - busy / call``;
+* the card's time by kernel group (flash attention, flash-decode, the SSD
+  scan, grouped GEMM, library GEMMs, the rest) and the kernels that take
+  the most;
+* the host's kernel launches, its time waiting on the card (synchronizing
+  calls and device-to-host copies) and its ops by self time.
 
-The tracer slows the host down, so the untraced waves' times stand beside
+The tracer slows the host down, so the untraced calls' times stand beside
 the traced one's.  Needs one card.  Run from the repository root:
 
-    PYTHONPATH=src python scripts/torch_profile_wave.py [--label L] [--json FILE]
+    PYTHONPATH=src python scripts/torch_profile_wave.py [--arch A] [--decode]
+        [--label L] [--json FILE]
 
 With ``PYTHONPATH`` at another checkout's ``src`` it traces that commit's
 port.  It prints one JSON object on its last line; ``--json`` also writes
@@ -40,17 +51,24 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Request, ServingEngine
 
-ARCH, PROMPT_TOKENS, SLOTS, WAVES = "qwen3-moe-30b-a3b", 1024, 4, 3
+ARCH, SLOTS, WAVES = "qwen3-moe-30b-a3b", 4, 3
+#: ``chip_smoke.py``'s prompts: the frame-analysis deployment's, and 1024
+#: for qwen3-moe-30b-a3b, which has none.
+PROMPT_TOKENS = {**DEFAULT_TOKENS_PER_FRAME, "qwen3-moe-30b-a3b": 1024}
+#: ``--decode``: new tokens a request (decode steps), and the step traced.
+DECODE_STEPS, TRACED_STEP = 8, 5
 #: Where the Chrome trace goes (``build/`` is ignored by git).
 TRACE = pathlib.Path(__file__).resolve().parents[1] / "build" / "profile" / "wave-trace.json"
 #: Kernel groups by a piece of the kernel's name, first match wins
 #: (``flash_kernel`` is the SIMT flash kernel's name in earlier commits, so
 #: that a parent checkout can be traced beside this one).
 GROUPS = (("flash attention", ("flash_wgmma", "flash_simt", "flash_kernel")),
+          ("flash-decode", ("decode_mma", "decode_simt", "decode_combine")),
+          ("SSD scan", ("ssd_mma", "ssd_cb", "ssd_simt", "ssd_kernel")),
           ("grouped GEMM", ("grouped_gemm",)),
           ("library GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -76,7 +94,8 @@ def _union_us(intervals) -> float:
 
 
 def split_trace(trace: dict, wave_name: str) -> dict:
-    """The wave's host/card split from a Chrome trace of `torch.profiler`."""
+    """The host/card split of the call annotated ``wave_name`` (a prefill
+    wave or a decode step) from a Chrome trace of `torch.profiler`."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     wave = next(e for e in events if e.get("cat") == "user_annotation"
                 and e["name"] == wave_name)
@@ -109,6 +128,10 @@ def split_trace(trace: dict, wave_name: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=ARCH, choices=sorted(PROMPT_TOKENS),
+                    help="the served model (default %(default)s)")
+    ap.add_argument("--decode", action="store_true",
+                    help="trace one decode step instead of a prefill wave")
     ap.add_argument("--label", default="", help="a name for this run in the output")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args(argv)
@@ -118,52 +141,59 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
-    cfg = get_config(ARCH)
+    prompt_tokens = PROMPT_TOKENS[args.arch]
+    new_tokens = DECODE_STEPS if args.decode else 1
+    requests = SLOTS if args.decode else WAVES * SLOTS
+    cfg = get_config(args.arch)
     params = tfm.init_params(cfg, seed=0)
-    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_seq=PROMPT_TOKENS + 1)
+    engine = ServingEngine(cfg, params, batch_slots=SLOTS,
+                           max_seq=prompt_tokens + new_tokens)
     rng = np.random.RandomState(0)
-    for rid in range(WAVES * SLOTS):
-        engine.submit(Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, PROMPT_TOKENS),
-                              max_new_tokens=1))
+    for rid in range(requests):
+        engine.submit(Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, prompt_tokens),
+                              max_new_tokens=new_tokens))
 
-    prefill = tfm.forward_prefill
-    waves: list[dict] = []
+    name, traced_index = (("decode step", TRACED_STEP) if args.decode
+                          else ("prefill wave", WAVES - 1))
+    attr = "forward_decode" if args.decode else "forward_prefill"
+    forward = getattr(tfm, attr)
+    calls: list[dict] = []
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
 
-    def timed_prefill(*a, **kw):
-        traced = len(waves) == WAVES - 1
+    def timed(*a, **kw):
+        traced = len(calls) == traced_index
         torch.cuda.synchronize()
         if traced:
             prof.start()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with torch.profiler.record_function(f"prefill wave {len(waves)}"):
+        with torch.profiler.record_function(f"{name} {len(calls)}"):
             t0 = time.perf_counter()
             start.record()
-            out = prefill(*a, **kw)
+            out = forward(*a, **kw)
             end.record()
             issue_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         if traced:
             prof.stop()
-        waves.append({"traced": traced, "event_ms": start.elapsed_time(end),
+        calls.append({"traced": traced, "event_ms": start.elapsed_time(end),
                       "host_issue_ms": issue_ms, "host_wall_ms": wall_ms})
         return out
 
-    tfm.forward_prefill = timed_prefill
+    setattr(tfm, attr, timed)
     try:
         engine.run()
     finally:
-        tfm.forward_prefill = prefill
+        setattr(tfm, attr, forward)
     TRACE.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(TRACE))
-    split = split_trace(json.loads(TRACE.read_text()), f"prefill wave {WAVES - 1}")
+    split = split_trace(json.loads(TRACE.read_text()), f"{name} {traced_index}")
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
     result = {
-        "label": args.label, "arch": ARCH, "nvidia_smi": smi,
-        "torch": torch.__version__, "prompt_tokens": PROMPT_TOKENS,
-        "slots": SLOTS, "waves": waves, "traced_wave": split,
+        "label": args.label, "arch": args.arch, "mode": "decode" if args.decode else "prefill",
+        "nvidia_smi": smi, "torch": torch.__version__, "prompt_tokens": prompt_tokens,
+        "slots": SLOTS, "calls": calls, "traced_call": split,
         "host_ops_self_ms": {e.key: [e.count, e.self_cpu_time_total / 1e3]
                              for e in host_ops},
     }

@@ -24,12 +24,22 @@ Two implementations:
   ``e^{cum_i − cum_j}`` is taken from two long sums, so one chunk of 1000
   positions lands some 7x further from the float64 recurrence than chunks
   of 125 (`tests/test_torch_ssd.py`);
-* the CUDA kernel in ``csrc/ssd.cu`` (one CTA per (b, h), chunks of
-  ``chunk`` positions in order, the last one partial, the state in shared
-  memory).
+* the CUDA kernels in ``csrc/ssd.cu``, one CTA per (b, h) walking its
+  chunks of ``chunk`` positions in order, the last one partial, in two
+  variants picked by dtype alone (`_variant`):
+
+  - ``"mma"`` (bf16, mamba2-1.3b's served prefill): a first pass computes
+    C·Bᵀ once per (batch row, chunk) for all heads into a float32 scratch;
+    the per-head pass runs the three block products on the tensor cores
+    (mma.sync, bf16 operands, float32 accumulators) with the float32
+    operand of each (the weights, the entering state, the scaled x) split
+    into bf16 hi + lo, the chunk's tiles arriving by a two-stage cp.async
+    ring and the state kept in registers;
+  - ``"simt"`` (float32): float32 FMAs, the state in shared memory.
 
 `ssd_scan` dispatches by device: CPU tensors go to the plain version,
-CUDA tensors launch the kernel (or raise).
+CUDA tensors launch the kernels (or raise; nothing falls back to another
+kernel).
 """
 from __future__ import annotations
 
@@ -37,16 +47,25 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "ssd_scan", "ssd_scan_plain"]
 
-#: Number of CUDA kernel launches made by `ssd_scan` in this process.
+#: Number of CUDA kernel launches made by `ssd_scan` in this process (one
+#: per call: the ``mma`` variant's C·Bᵀ pass and per-head pass count as one).
 LAUNCHES = 0
+#: The same launches by variant (`_variant`).
+LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
 
 #: The (head_dim P, state N, chunk) values the CUDA kernel is built for.
 HEAD_DIMS = (32, 64)
 STATES = (32, 64, 128)
 CHUNKS = (32, 64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _variant(dtype: torch.dtype) -> str:
+    """The kernel for inputs of ``dtype``: ``"mma"`` (tensor cores) for
+    bf16, ``"simt"`` for float32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
@@ -120,17 +139,21 @@ def _check_inputs(x, dt, A, Bm, Cm, h0, chunk) -> None:
         raise ValueError(f"ssd_scan: chunk must be >= 1, got {chunk}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p,
-]
+_ARGTYPES = {
+    torch.float32: [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 2,
+    torch.bfloat16: [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 2,
+}
 
 
 def _kernel_fn(dtype: torch.dtype):
+    """The C function that launches ``_variant(dtype)``'s kernels."""
     from ._build import load_library
 
     lib = load_library("ssd")
     fn = lib.ssd_scan_bf16 if dtype == torch.bfloat16 else lib.ssd_scan_f32
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _ARGTYPES[dtype]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,10 +164,11 @@ def ssd_scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
     Cm ``(B, S, N)`` in x's type and an optional float32 h0 ``(B, H, P,
     N)``, dispatched by device.  Any S >= 1.
 
-    CPU tensors run `ssd_scan_plain`.  CUDA tensors launch the CUDA kernel
-    on the current stream, and anything it does not take raises: another
-    dtype or device, mismatched shapes, P not in `HEAD_DIMS`, N not in
-    `STATES`, chunk not in `CHUNKS`, a non-contiguous x, dt, A or h0.  Bm
+    CPU tensors run `ssd_scan_plain`.  CUDA tensors launch the kernels
+    `_variant` picks on the current stream, and anything they do not take
+    raises: another dtype or device, mismatched shapes, P not in
+    `HEAD_DIMS`, N not in `STATES`, chunk not in `CHUNKS`, a
+    non-contiguous x, dt, A or h0.  Bm
     and Cm may be views with any batch and position strides (the model
     passes column slices of one (B, S, 2N) tensor); their last dimension
     must have stride 1.
@@ -153,8 +177,11 @@ def ssd_scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
     return _dispatch(x, dt, A, Bm, Cm, h0, chunk)
 
 
-def _dispatch(x, dt, A, Bm, Cm, h0, chunk):
-    """`ssd_scan` after its checks: the plain version or the kernel."""
+def _dispatch(x, dt, A, Bm, Cm, h0, chunk, *, mid_event=None):
+    """`ssd_scan` after its checks: the plain version or the kernels.
+    ``mid_event`` (a `torch.cuda.Event`) is recorded right before the
+    per-head pass (after the ``mma`` variant's C·Bᵀ pass), for
+    measurements."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
@@ -169,18 +196,32 @@ def _dispatch(x, dt, A, Bm, Cm, h0, chunk):
     for name, t in (("Bm", Bm), ("Cm", Cm)):
         if t.stride(2) != 1:
             raise ValueError(f"ssd_scan: {name} must have stride 1 along N on CUDA")
+    variant = _variant(x.dtype)
     fn = _kernel_fn(x.dtype)
+    strides = (Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
     with torch.cuda.device(x.device):
+        if mid_event is not None and not mid_event.cuda_event:
+            mid_event.record()  # creates the event, which the launch records again
+        mid = None if mid_event is None else mid_event.cuda_event
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         y = torch.empty_like(x)
         h_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-        rc = fn(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            0 if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-            b, s, h, p, n, chunk,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        pointers = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                    0 if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr())
+        if variant == "mma":
+            # The causal 16 x 16 blocks of C·Bᵀ of every (batch row, chunk),
+            # float32: the per-head pass's scratch.
+            n_chunks, blocks = -(-s // chunk), (chunk // 16) * (chunk // 16 + 1) // 2
+            cb = torch.empty((b * n_chunks * blocks * 256,), dtype=torch.float32,
+                             device=x.device)
+            aligned = all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm)) and all(
+                st % 8 == 0 for st in strides)
+            rc = fn(*pointers, cb.data_ptr(), *strides, b, s, h, p, n, chunk, int(aligned),
+                    mid, stream)
+        else:
+            rc = fn(*pointers, *strides, b, s, h, p, n, chunk, mid, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return y, h_out

@@ -158,16 +158,66 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("b,kv,L", [(4, 4, 2064), (4, 8, 528), (1, 1, 1), (3, 2, 77),
-                                    (64, 8, 100_000), (1, 1, 8192)])
+                                    (64, 8, 100_000), (1, 1, 8192), (4, 1, 1040),
+                                    (4, 4, 1040), (2, 2, 31)])
 def test_decode_splits_cover_the_cache(b, kv, L):
     target = 264  # two CTAs per SM of an H100
     n, chunk = decode.splits(b, kv, L, target)
-    assert chunk % 64 == 0 and n >= 1
+    assert chunk % 32 == 0 and n >= 1  # the simt kernel's slot tile
     assert (n - 1) * chunk < L <= n * chunk  # every split holds at least one slot
     assert n == 1 or b * kv * n <= 2 * target
+    # The mma kernel's splits form one cluster a (b, g): a power of two up
+    # to 16, none empty, each of 32 slots or more unless there is one.
+    for max_splits in (16, 8):
+        n, chunk = decode.mma_splits(b, kv, L, target, max_splits)
+        assert n & (n - 1) == 0 and 1 <= n <= max_splits
+        assert (n - 1) * chunk < L <= n * chunk
+        assert n == 1 or (b * kv * n <= target and chunk >= 32)
 
 
-# ---- the flash kernel variant, chosen from dtype alone ------------------------
+def test_mma_splits_at_the_served_steps():
+    """One CTA an SM of an H100 (132): gemma2-2b's and qwen3-moe-30b-a3b's
+    caches (16 KV heads in all) get clusters of 8, recurrentgemma-9b's (4)
+    of 16 and internlm2-1.8b's (32) of 4, each CTA several slot tiles."""
+    assert decode.mma_splits(4, 4, 2064, 132) == (8, 258)
+    assert decode.mma_splits(4, 4, 1040, 132) == (8, 130)
+    assert decode.mma_splits(4, 1, 1040, 132) == (16, 65)
+    assert decode.mma_splits(4, 8, 528, 132) == (4, 132)
+
+
+# ---- the kernel variants, chosen from dtype alone ------------------------------
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_decode_variant_follows_dtype_alone(dtype, want):
+    """Every bf16 call takes the tensor-core split pass, every float32 call
+    ``simt``, whatever the shape."""
+    assert decode._variant(dtype) == want
+    assert set(decode.LAUNCHES_BY_VARIANT) == {"mma", "simt"}
+
+
+def test_decode_cpu_tensors_run_the_plain_version_and_never_build(monkeypatch):
+    """On the CPU the decode wrapper neither builds nor loads a kernel,
+    launches nothing, and returns `decode_attention_plain`'s result."""
+    from repro_torch.kernels import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(decode, "_kernel_fn", refuse)
+    rng = np.random.RandomState(6)
+    pos = torch.arange(40, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.from_numpy(rng.standard_normal((2, 2, 20, 64)).astype(np.float32)).to(dtype)
+        k, v = (torch.from_numpy(rng.standard_normal((2, 40, 2, 64)).astype(np.float32))
+                .to(dtype) for _ in range(2))
+        before = decode.LAUNCHES, dict(decode.LAUNCHES_BY_VARIANT)
+        got = decode.decode_attention(q, k, v, pos, 30, window=16, logit_softcap=30.0)
+        assert (decode.LAUNCHES, decode.LAUNCHES_BY_VARIANT) == before
+        assert torch.equal(got, decode.decode_attention_plain(q, k, v, pos, 30, window=16,
+                                                              logit_softcap=30.0))
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])

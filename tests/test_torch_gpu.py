@@ -230,6 +230,134 @@ def test_decode_kernel_matches_plain(cuda, b, kv, r, d, L, cur, window, softcap,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _decode_inputs(b, kv, r, d, cache_len, cur, ring, dtype, device, seed=0):
+    q = _normal(seed, (b, kv, r, d), dtype, device)
+    k, v = (_normal(seed + i, (b, cache_len, kv, d), dtype, device) for i in (1, 2))
+    if ring:
+        pos = _ring_positions(cache_len, cur).to(device)
+    else:
+        pos = torch.where(torch.arange(cache_len) <= cur, torch.arange(cache_len), -1).to(
+            device, torch.int32)
+    return q, k, v, pos
+
+
+#: (cache_len, cur, window, softcap, ring): a wrapped ring with a window, a
+#: softcapped cache that is not full, a window that binds.
+DECODE_KINDS = {"ring": (600, 1500, 512, None, True),
+                "softcap": (333, 300, None, 50.0, False),
+                "window": (1040, 1030, 200, None, False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", sorted(DECODE_KINDS))
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("r", [1, 2, 8, 16, 20])
+def test_decode_each_variant_matches_plain(cuda, r, d, kind, dtype):
+    """The split pass of the dtype's variant, its launch counted under that
+    variant, against the plain version: R pads to one row group of 16 (or
+    two at R = 20) on ``mma``."""
+    cache_len, cur, window, softcap, ring = DECODE_KINDS[kind]
+    q, k, v, pos = _decode_inputs(2, 2, r, d, cache_len, cur, ring, dtype, cuda, seed=r + d)
+    before = dict(decode.LAUNCHES_BY_VARIANT)
+    got = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=softcap)
+    torch.cuda.synchronize()
+    variant = decode._variant(dtype)
+    assert {n: c - before[n] for n, c in decode.LAUNCHES_BY_VARIANT.items()} == {
+        n: int(n == variant) for n in before}
+    want = decode.decode_attention_plain(q, k, v, pos, cur, window=window,
+                                         logit_softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("r,d", [(1, 64), (8, 128), (20, 256)])
+def test_decode_mma_matches_plain_over_seeds(cuda, r, d):
+    """The wrapped ring with a window over 32 input seeds, on ``mma``: a
+    result within tolerance at one seed and outside it at another points at
+    a fault that depends on the data, not on the shape."""
+    cache_len, cur, window, softcap, ring = DECODE_KINDS["ring"]
+    for seed in range(32):
+        q, k, v, pos = _decode_inputs(2, 2, r, d, cache_len, cur, ring, torch.bfloat16, cuda,
+                                      seed=1000 + seed)
+        got = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=softcap)
+        want = decode.decode_attention_plain(q, k, v, pos, cur, window=window,
+                                             logit_softcap=softcap)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16],
+                                   msg=lambda m, seed=seed: f"seed {seed}: {m}")
+
+
+@pytest.mark.parametrize("kind", sorted(DECODE_KINDS))
+@pytest.mark.parametrize("r,d", [(1, 64), (20, 256)])
+def test_decode_mma_repeats_bit_for_bit(cuda, r, d, kind):
+    """The cluster merges its splits in a fixed rank order, so the same
+    inputs give the same bits on every call: a race in the ring or in the
+    merge shows as a call that differs from the first."""
+    cache_len, cur, window, softcap, ring = DECODE_KINDS[kind]
+    q, k, v, pos = _decode_inputs(2, 2, r, d, cache_len, cur, ring, torch.bfloat16, cuda,
+                                  seed=r + d)
+    first = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=softcap)
+    for _ in range(100):
+        got = decode.decode_attention(q, k, v, pos, cur, window=window, logit_softcap=softcap)
+        assert torch.equal(got, first)
+
+
+def test_decode_mma_max_splits_follow_the_layout(cuda):
+    """The cluster limit comes from the kernel's layout: 16, and the
+    portable 8 where two row groups at D = 256 take more than half an SM."""
+    assert decode._max_mma_splits(256, 20) == 8
+    assert {decode._max_mma_splits(d, r) for d, r in [(64, 1), (64, 128), (128, 2), (128, 64),
+                                                      (256, 2), (256, 16)]} == {16}
+
+
+def decode_exact_inputs(b, kv, r, d, device):
+    """L = D slots, k_j = e_j, and query head r of (b, g) q = 2048 e_j* at
+    j* = (7 r + 3 g + 5 b) % D: its score is 2048 / sqrt(D) on slot j* and 0
+    elsewhere, whose weights exp(-2048 / sqrt(D)) are 0 in float32, so the
+    output must equal v[j*] bit for bit."""
+    q = torch.zeros((b, kv, r, d), dtype=torch.bfloat16, device=device)
+    k = torch.zeros((b, d, kv, d), dtype=torch.bfloat16, device=device)
+    slots = torch.arange(d, device=device)
+    k[:, slots, :, slots] = 1.0
+    v = _normal(6, (b, d, kv, d), torch.bfloat16, device)
+    want = torch.empty_like(q)
+    for bi in range(b):
+        for g in range(kv):
+            for ri in range(r):
+                j = (7 * ri + 3 * g + 5 * bi) % d
+                q[bi, g, ri, j] = 2048.0
+                want[bi, g, ri] = v[bi, j, g]
+    pos = torch.arange(d, dtype=torch.int32, device=device)
+    return q, k, v, pos, want
+
+
+@pytest.mark.parametrize("r", [2, 16, 20])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_mma_exact_case_returns_v(cuda, d, r):
+    """The decode counterpart of flash's exact case: a fragment, swizzle or
+    lane-map fault in the ``mma`` split pass, or a wrong merge of the
+    splits, cannot reproduce v bit for bit."""
+    q, k, v, pos, want = decode_exact_inputs(2, 2, r, d, cuda)
+    before = decode.LAUNCHES_BY_VARIANT["mma"]
+    got = decode.decode_attention(q, k, v, pos, d - 1)
+    torch.cuda.synchronize()
+    assert decode.LAUNCHES_BY_VARIANT["mma"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur,window", [(-1, None), (2000, 10)])
+def test_decode_fully_masked_cache_returns_the_mean_of_v(cuda, cur, window, dtype):
+    """No valid slot (every position past cur, or before the window): every
+    score is -2e38, so each split weighs its slots alike and the output is
+    the mean of v over the cache, as in the TPU kernel."""
+    q, k, v, _ = _decode_inputs(2, 2, 4, 128, 700, 699, False, dtype, cuda)
+    pos = torch.arange(700, dtype=torch.int32, device=cuda)
+    got = decode.decode_attention(q, k, v, pos, cur, window=window)
+    want = v.float().mean(dim=1)[:, :, None, :].expand(q.shape)
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+    torch.testing.assert_close(got, decode.decode_attention_plain(
+        q, k, v, pos, cur, window=window), **TOL[dtype])
+
+
 def test_attention_wrappers_raise_instead_of_falling_back(cuda):
     q = _normal(0, (1, 64, 4, 64), torch.float32, cuda)
     k = _normal(1, (1, 64, 2, 64), torch.float32, cuda)
@@ -312,6 +440,41 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, with_h0, dtype):
     assert ssd.LAUNCHES == before + 1
     y_p, h_p = ssd.ssd_scan_plain(*args, chunk=chunk)
     assert y.dtype == dtype and hf.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(hf, h_p, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("p", [32, 64])
+def test_ssd_each_variant_matches_plain_over_the_grid(cuda, p, n, chunk, dtype):
+    """Every built (P, N, chunk) on the dtype's variant, its launch counted
+    under that variant: three chunks, the last partial, with h0."""
+    args = _ssd_inputs(2, 2 * chunk + 5, 3, p, n, dtype, cuda)
+    before = dict(ssd.LAUNCHES_BY_VARIANT)
+    y, hf = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    variant = ssd._variant(dtype)
+    assert {v: c - before[v] for v, c in ssd.LAUNCHES_BY_VARIANT.items()} == {
+        v: int(v == variant) for v in before}
+    y_p, h_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(hf, h_p, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssd_unaligned_strided_b_and_c(cuda, with_h0, dtype):
+    """B and C as views one element into a (B, S, 2N + 3) tensor: rows that
+    are not 16-byte aligned, which the ``mma`` variant copies element by
+    element; the partial last chunk is 7 rows."""
+    b, s, h, p, n = 2, 263, 4, 64, 128
+    x, dt, A, _, _, h0 = _ssd_inputs(b, s, h, p, n, dtype, cuda, with_h0)
+    bc = (0.5 * _normal(7, (b, s, 2 * n + 3), torch.float32, cuda)).to(dtype)
+    Bm, Cm = bc[..., 1:n + 1], bc[..., n + 2:2 * n + 2]
+    y, hf = ssd.ssd_scan(x, dt, A, Bm, Cm, h0)
+    y_p, h_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, h0)
     torch.testing.assert_close(y.float(), y_p.float(), **SSD_TOL[dtype])
     torch.testing.assert_close(hf, h_p, **SSD_TOL[torch.float32])
 

@@ -54,3 +54,56 @@ def test_split_counts_the_card_busy_once_and_clips_to_the_wave(tpw):
 ])
 def test_kernel_groups(tpw, name, group):
     assert tpw._group(name) == group
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::tc::decode_mma<256, 1>(...)", "flash-decode"),
+    ("void (anonymous namespace)::decode_combine<__nv_bfloat16>(...)", "flash-decode"),
+    ("void (anonymous namespace)::simt::decode_simt<float, 128>(...)", "flash-decode"),
+    ("void (anonymous namespace)::tc::ssd_cb<128, 128>(...)", "SSD scan"),
+    ("void (anonymous namespace)::tc::ssd_mma<64, 128, 128>(...)", "SSD scan"),
+    ("void (anonymous namespace)::ssd_kernel<__nv_bfloat16, 64, 128, 128>(...)", "SSD scan"),
+])
+def test_decode_and_scan_kernel_groups(tpw, name, group):
+    """The redesigned kernels' names, and the SSD kernel's name in earlier
+    commits, so that a parent checkout's wave groups its scan alike."""
+    assert tpw._group(name) == group
+
+
+def test_split_of_a_decode_step(tpw):
+    """``--decode`` traces a step annotated ``decode step 5``; the split
+    reads it as it reads a wave, and other steps stay outside."""
+    trace = {"traceEvents": [
+        _x("user_annotation", "decode step 4", 0.0, 500.0),
+        _x("kernel", "void tc::decode_mma<256, 1>(...)", 100.0, 50.0),  # the step before
+        _x("user_annotation", "decode step 5", 1000.0, 400.0),
+        _x("kernel", "void tc::decode_mma<256, 1>(...)", 1100.0, 20.0),
+        _x("kernel", "void decode_combine<__nv_bfloat16>(...)", 1120.0, 5.0),
+        _x("kernel", "void at::native::elementwise_kernel", 1200.0, 25.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 1010.0, 5.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 1030.0, 5.0),
+        _x("cuda_runtime", "cudaStreamSynchronize", 1300.0, 90.0),
+    ]}
+    got = tpw.split_trace(trace, "decode step 5")
+    assert got["wave_ms"] == pytest.approx(0.4)
+    assert got["device_busy_ms"] == pytest.approx(0.05)
+    assert got["device_idle_share"] == pytest.approx(0.875)
+    assert got["device_ms_by_group"] == pytest.approx({"flash-decode": 0.025, "the rest": 0.025})
+    assert got["host_launch_calls"] == 2
+    assert got["host_wait_ms"] == pytest.approx(0.09)
+
+
+@pytest.mark.parametrize("argv", [[], ["--arch", "gemma2-2b", "--decode"],
+                                  ["--arch", "mamba2-1.3b", "--label", "parent"]])
+def test_options_parse_and_the_cpu_is_refused(tpw, argv, capsys):
+    """``--arch`` and ``--decode`` parse; without a card the script prints
+    no result and fails."""
+    if tpw.torch.cuda.is_available():
+        pytest.skip("has a card")
+    assert tpw.main(argv) == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_an_unknown_arch_is_refused(tpw):
+    with pytest.raises(SystemExit):
+        tpw.main(["--arch", "no-such-model"])

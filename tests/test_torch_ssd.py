@@ -10,7 +10,9 @@ oracle `repro.kernels.ref.ssd_ref` and the model's XLA path
 prefill and decode are held against the reference's with its parameters
 carried across, at 1e-4 in float32.  The CUDA kernel itself is checked
 against the same plain version on the card (`tests/test_torch_gpu.py`,
-`chip_smoke.py`).
+`chip_smoke.py`).  The card's ``mma`` variant splits each float32 operand
+of its tensor-core products into bf16 hi + lo; `ssd_mma_emulated` repeats
+that arithmetic here and shows why (`test_one_bf16_rounding_...`).
 """
 import jax
 import jax.numpy as jnp
@@ -143,6 +145,108 @@ def test_strided_b_and_c_views_give_the_contiguous_result():
     want = ssd.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=32)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+# ---- the tensor-core variant's arithmetic, emulated ----------------------------
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _operand(a, rounding):
+    """The bf16 parts a float32 operand enters a tensor-core product as:
+    ``"split"`` hi = bf16(a) and lo = bf16(a - hi), each multiplied in;
+    ``"once"`` bf16(a) alone."""
+    hi = _bf16(a)
+    return [hi, _bf16(a - hi)] if rounding == "split" else [hi]
+
+
+def ssd_mma_emulated(x, dt, A, Bm, Cm, h0, chunk, w="split", h_in="split", sx="split"):
+    """The ``mma`` variant's arithmetic in float32 on the CPU, chunk by
+    chunk: C·Bᵀ from bf16 inputs; the float32 operand of each product (the
+    weights w, the entering state h_in, the scaled x) fed as `_operand`
+    says, each part's product summed in float32; the state carried in
+    float32.  x, Bm and Cm hold bf16 values.  Returns float32 (y, state)."""
+    b, s, h, p = x.shape
+    state = h0.clone()
+    ys = []
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    for s0 in range(0, s, chunk):
+        xc, dtc, bc, cc = (t[:, s0:s0 + chunk] for t in (x, dt, Bm, Cm))
+        cum = torch.cumsum(dtc * A, dim=1)  # (B, Q, H)
+        total = cum[:, -1]  # (B, H)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)
+        seg = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B, Qi, Qj, H)
+        weights = torch.where(causal[None, :, :, None], cb[..., None] * seg * dtc[:, None],
+                              0.0)
+        y = sum(torch.einsum("bijh,bjhp->bihp", part, xc) for part in _operand(weights, w))
+        inter = sum(torch.einsum("bin,bhpn->bihp", cc, part) for part in _operand(state, h_in))
+        ys.append(y + inter * torch.exp(cum)[..., None])
+        scaled = xc * (dtc * torch.exp(total[:, None] - cum))[..., None]  # (B, Q, H, P)
+        state = state * torch.exp(total)[..., None, None] + sum(
+            torch.einsum("bjhp,bjn->bhpn", part, bc) for part in _operand(scaled, sx))
+    return torch.cat(ys, dim=1), state
+
+
+def _emulation_inputs():
+    """mamba2-1.3b's P, N and chunk over four chunks, x, B and C in bf16."""
+    x, dt, A, Bm, Cm, h0 = _t(_inputs(1, 512, 4, 64, 128, seed=3))
+    return _bf16(x), dt, A, _bf16(Bm), _bf16(Cm), h0
+
+
+def test_mma_emulation_with_split_operands_stays_within_the_card_tolerance():
+    """The ``mma`` variant's design: every float32 operand split into bf16
+    hi + lo keeps y and the state within the card's limits (atol 2e-4,
+    rtol 1e-3) of `ssd_scan_plain`, at chunk 128, P 64, N 128 over four
+    chunks."""
+    args = _emulation_inputs()
+    y, state = ssd_mma_emulated(*args, 128)
+    y_p, h_p = ssd.ssd_scan_plain(*args, chunk=128)
+    torch.testing.assert_close(y, y_p, **KERNEL_TOL)
+    torch.testing.assert_close(state, h_p, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("operand", ["w", "h_in", "sx"])
+def test_one_bf16_rounding_of_an_operand_leaves_the_card_tolerance(operand):
+    """Why the ``mma`` variant splits: the weights w, the entering state
+    h_in or the scaled x rounded once to bf16 put y outside the card's
+    limits (at these inputs 73,591, 927 and 753 of 131,072 outputs)."""
+    args = _emulation_inputs()
+    y, _ = ssd_mma_emulated(*args, 128, **{operand: "once"})
+    y_p, _ = ssd.ssd_scan_plain(*args, chunk=128)
+    tol = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * y_p.abs()
+    outside = int(((y - y_p).abs() > tol).sum())
+    assert outside > 0
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_variant_follows_dtype_alone(dtype, want):
+    """Every bf16 call takes the tensor-core kernels, every float32 call
+    ``simt``, whatever the shape."""
+    assert ssd._variant(dtype) == want
+    assert set(ssd.LAUNCHES_BY_VARIANT) == {"mma", "simt"}
+
+
+def test_cpu_tensors_run_the_plain_version_and_never_build(monkeypatch):
+    """On the CPU the wrapper neither builds nor loads a kernel, launches
+    nothing, and returns `ssd_scan_plain`'s result."""
+    from repro_torch.kernels import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(ssd, "_kernel_fn", refuse)
+    x, dt, A, Bm, Cm, h0 = _t(_inputs(1, 40, 2, 32, 32))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), h0)
+        before = ssd.LAUNCHES, dict(ssd.LAUNCHES_BY_VARIANT)
+        got = ssd.ssd_scan(*args, chunk=32)
+        assert (ssd.LAUNCHES, ssd.LAUNCHES_BY_VARIANT) == before
+        for g, w in zip(got, ssd.ssd_scan_plain(*args, chunk=32)):
+            assert torch.equal(g, w)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
