@@ -12,17 +12,29 @@ its plain torch version.  Phases, each raising on failure:
    process per source, all at once; ptxas's report of each kernel's
    registers and spills is logged, and a spill store in a tensor-core
    instantiation (``flash_wgmma``, ``decode_mma``, ``ssd_mma``,
-   ``ssd_cb``) fails the phase;
+   ``ssd_cb``), a knapsack instantiation (``knapsack_cluster``,
+   ``knapsack_global``) or an RG-LRU one (``rglru_tma``,
+   ``rglru_cp_async``) fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
-   take bits and the backtracked counts: a seeded sweep of small pricings
-   (float64 and float32), the 500-camera fleet's pricing grid with 18
-   knapsacks, and a grid larger than a block's shared memory;
+   packed take bits, the kernel's mask of steps taken (against the plain
+   walk over the same bits) and the counts from it (against the host
+   backtrack's): a seeded sweep of small pricings (float64 and float32),
+   the 500-camera fleet's pricing grid (30,940 states) with 18 knapsacks
+   and its large grid (120,384 states), each on both variants (``cluster``
+   as `_variant` picks it, ``global`` forced), and a grid past 16 slices
+   (217,800 states, ``global`` by shape);
 4. manager path: the quickstart's paper scenario 1 under ST1-ST3 (61%
    headline), then a 500-camera, 10-kind fleet allocated on the card
-   (routes to branch-and-price), with the kernel's launches counted and
-   the plan compared with the same fleet allocated with ``device="cpu"``;
-5. knapsack timing: kernel and plain version on the card at the manager
-   path's largest pricing call, with CUDA events;
+   (routes to branch-and-price), with the kernel's launches counted by
+   variant (all on ``cluster``), each pricing call's wall time split into
+   the host's binary split, the kernel, the wait for it, the copy of
+   ``best`` and the mask of steps taken, and the host's counts, and the
+   plan compared with the same fleet allocated with ``device="cpu"``;
+5. knapsack timing: each variant and the plain version on the card at the
+   manager path's largest pricing call, with CUDA events around calls
+   queued while the card spins (`time_cold_ms`), beside the bound with
+   take at one byte a state (as the first port of the kernel counted it)
+   and at one bit;
 6. serving kernels vs plain on the card.  Attention in float32 (atol =
    rtol = 2e-5) and bfloat16 (rtol one bf16 ulp, 2^-7, atol 1e-4): flash
    attention at gemma2-2b's served prefill (B=4, S=2048), at 8192 tokens
@@ -45,7 +57,9 @@ its plain torch version.  Phases, each raising on failure:
    S=7, and at other head, state and chunk sizes it is built for, each
    launch checked for its variant (``mma`` or ``simt``).  The
    RG-LRU scan in float32 (2e-5) at recurrentgemma-9b's served prefill
-   (B=4, S=1024, W=4096) with h0 and at ragged lengths.  The grouped GEMM
+   (B=4, S=1024, W=4096) with h0 and at ragged lengths, on the variant
+   `_variant` picks (``tma`` where W is a multiple of 4, else
+   ``cp_async``) and, where W allows both, on the other one forced.  The grouped GEMM
    in float32 and bfloat16 (the attention limits), each launch checked for
    the variant `_variant` picks (``wgmma`` or ``simt``) and
    for zero rows outside the segments: at qwen3-moe-30b-a3b's served
@@ -68,7 +82,7 @@ its plain torch version.  Phases, each raising on failure:
    prefill and in decode (gemma2-2b: 26 flash a wave, 26 flash-decode a
    step; mamba2-1.3b: 48 SSD scans a wave, none a step;
    recurrentgemma-9b: 26 RG-LRU scans and 12 flash a wave, 12
-   flash-decode a step; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
+   flash-decode a step, every RG-LRU launch on ``tma``; qwen3-moe-30b-a3b: 48 flash and 144 grouped GEMMs
    a wave, 48 flash-decode and 144 grouped GEMMs a step; every flash and
    grouped GEMM launch on its ``wgmma`` variant, every flash-decode and
    SSD launch on ``mma``) and CUDA events around
@@ -78,7 +92,8 @@ its plain torch version.  Phases, each raising on failure:
    held against its plain version on phase 7(b)'s own served inputs
    (attention gemma2-2b's, recurrentgemma-9b's and qwen3-moe-30b-a3b's,
    the SSD scan mamba2-1.3b's, the RG-LRU scan
-   recurrentgemma-9b's, the grouped GEMM
+   recurrentgemma-9b's (also on ``cp_async`` and at 128 lanes a CTA,
+   forced), the grouped GEMM
    qwen3-moe-30b-a3b's first gate and down products and first decode
    step's gate product), then timed there beside its plain version, its
    bound (gemma2-2b's flash call also in float32, on ``simt``) and a
@@ -270,45 +285,99 @@ def check_flash_wgmma_spills() -> dict:
     return check_spills("flash_attention", "flash_wgmma", len(flash.HEAD_DIMS))
 
 
-#: The tensor-core instantiations phase 2 holds to no spill stores, by
-#: (source, kernel): flash-decode's ``decode_mma`` per head_dim and row
-#: groups (1, 2, ... up to 512 / D), the SSD's ``ssd_mma`` per (P, N, chunk)
-#: and ``ssd_cb`` per (N, chunk).
-MMA_INSTANTIATIONS = {
+#: The instantiations phase 2 holds to no spill stores, by (source,
+#: kernel): flash-decode's ``decode_mma`` per head_dim and row groups (1, 2,
+#: ... up to 512 / D), the SSD's ``ssd_mma`` per (P, N, chunk) and
+#: ``ssd_cb`` per (N, chunk), the knapsack's ``knapsack_cluster`` per value
+#: type and states a thread (1, 2, 4, 8) and ``knapsack_global`` per value
+#: type, the RG-LRU scan's ``rglru_tma`` and ``rglru_cp_async`` per CTA
+#: width (64, 128 lanes).
+SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
     ("ssd", "ssd_mma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
     ("ssd", "ssd_cb"): len(ssd.STATES) * len(ssd.CHUNKS),
+    ("knapsack", "knapsack_cluster"): 2 * 4,
+    ("knapsack", "knapsack_global"): 2,
+    ("rglru", "rglru_tma"): 2,
+    ("rglru", "rglru_cp_async"): 2,
 }
 
 
-def check_mma_spills() -> dict:
+def check_instance_spills() -> dict:
     return {kernel: check_spills(source, kernel, n)
-            for (source, kernel), n in MMA_INSTANTIATIONS.items()}
+            for (source, kernel), n in SPILL_CHECKED.items()}
 
 
 # --------------------------------------------------------------- phase 3
 
 
-def compare_on_card(steps: knapsack.PricingSteps, e_n: int, label: str) -> dict:
-    """Kernel vs plain on the card on one pricing batch; exact equality."""
+class Patched:
+    """Within the block, the attributes ``attrs`` of ``mod`` (a None value
+    leaves that one as it is); restored after."""
+
+    def __init__(self, mod, **attrs):
+        self.mod = mod
+        self.attrs = {k: v for k, v in attrs.items() if v is not None}
+        self._saved = {k: getattr(mod, k) for k in self.attrs}
+
+    def __enter__(self):
+        for k, v in self.attrs.items():
+            setattr(self.mod, k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            setattr(self.mod, k, v)
+
+
+def forced_knapsack(variant):
+    """`knapsack._variant` answering ``variant`` (None: its own choice)."""
+    return Patched(knapsack, _variant=None if variant is None else
+                   (lambda s_n: variant))
+
+
+def forced_rglru(variant=None, lanes=None):
+    """`rglru._variant` answering ``variant`` and `rglru._lanes` ``lanes``
+    (None: the wrapper's own choice)."""
+    return Patched(rglru, _variant=None if variant is None else (lambda w, aligned=True: variant),
+                   _lanes=None if lanes is None else (lambda bsz, w, n_sms: lanes))
+
+
+def compare_on_card(steps: knapsack.PricingSteps, e_n: int, label: str,
+                    variant=None) -> dict:
+    """Kernel vs plain on the card on one pricing batch, exact equality:
+    best, the packed take bits, the kernel's mask of steps taken against
+    the plain walk over the plain bits, and the counts from that mask
+    against the host backtrack's.  ``variant`` forces one (None: the one
+    `_variant` picks); the launch is checked to have run on it."""
     args = steps.to("cuda")
-    best_k, take_k = knapsack.knapsack_dp(*args)
+    want = variant or knapsack._variant(steps.states)
+    before = dict(knapsack.LAUNCHES_BY_VARIANT)
+    with forced_knapsack(variant):
+        best_k, take_k, taken_k = knapsack._dispatch(*args)
     torch.cuda.synchronize()
+    rose = {n: knapsack.LAUNCHES_BY_VARIANT[n] - before[n] for n in before}
+    if rose != {n: int(n == want) for n in before}:
+        raise AssertionError(f"{label}: expected one {want} launch, counted {rose}")
     best_p, take_p = knapsack.knapsack_dp_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(take_k, take_p):
         bad = int((take_k != take_p).sum())
-        raise AssertionError(f"{label}: take bits differ in {bad} states")
+        raise AssertionError(f"{label} [{want}]: take words differ in {bad} places")
     if not torch.equal(best_k, best_p):
-        raise AssertionError(f"{label}: best differs: {best_k} vs {best_p}")
-    counts_k = steps.counts(take_k.cpu().numpy(), e_n)
-    counts_p = steps.counts(take_p.cpu().numpy(), e_n)
+        raise AssertionError(f"{label} [{want}]: best differs: {best_k} vs {best_p}")
+    taken_p = knapsack.taken_steps_plain(take_p, steps.shifts, steps.final_idx)
+    if not np.array_equal(taken_k.cpu().numpy(), taken_p):
+        raise AssertionError(f"{label} [{want}]: steps taken differ")
+    counts_k = steps.counts_from_taken(taken_k.cpu().numpy(), e_n)
+    counts_p = steps.counts(knapsack.unpack_take(take_p, steps.states).cpu().numpy(), e_n)
     if not np.array_equal(counts_k, counts_p):
-        raise AssertionError(f"{label}: counts differ")
+        raise AssertionError(f"{label} [{want}]: counts differ")
     err = float((best_k.double() - best_p.double()).abs().max())
     b_n, t_n = steps.step_values.shape
-    return {"label": label, "B": b_n, "T": t_n, "S": steps.states, "max_abs_err": err}
+    return {"label": label, "variant": want, "B": b_n, "T": t_n, "S": steps.states,
+            "max_abs_err": err}
 
 
 def random_pricing(rng, b_n, e_n, dim, dtype):
@@ -349,17 +418,25 @@ def phase_kernel_vs_plain(fleet_problem) -> list[dict]:
                 continue
             rows.append(compare_on_card(
                 steps, e_n, f"sweep seed={seed} {np.dtype(dtype).name}"))
-    for grid_states, label in ((32_768, "main-path grid"), (131_072, "large grid")):
+    grids = {}
+    for grid_states, label, variants in ((32_768, "main-path grid", (None, "global")),
+                                         (131_072, "large grid", (None, "global")),
+                                         (262_144, "grid past 16 slices", (None,))):
         v, w, b, c = fleet_pricing(fleet_problem, grid_states, n_nodes=6, seed=0)
         steps = knapsack.pricing_steps(v, w, b, c)
-        rows.append(compare_on_card(steps, v.shape[1], label))
-    for r in rows[-2:]:
-        log(f"  {r['label']}: B={r['B']} T={r['T']} S={r['S']} "
-            f"({r['S'] * 8} B of float64 per state row) exact")
-    if rows[-2]["S"] != 30_940:
-        raise AssertionError(f"main-path grid has {rows[-2]['S']} states, not 30940")
-    if rows[-1]["S"] < 32_768:
-        raise AssertionError(f"large grid has only {rows[-1]['S']} states")
+        grids[label] = steps.states
+        for variant in variants:
+            rows.append(compare_on_card(steps, v.shape[1], label, variant))
+            r = rows[-1]
+            log(f"  {r['label']} [{r['variant']}]: B={r['B']} T={r['T']} S={r['S']} "
+                f"({r['S'] * 8} B of float64 per state row) exact")
+    want = {"main-path grid": 30_940, "large grid": 120_384, "grid past 16 slices": 217_800}
+    if grids != want:
+        raise AssertionError(f"grid states {grids}, expected {want}")
+    by_label = {(r["label"], r["variant"]) for r in rows}
+    if not {("main-path grid", "cluster"), ("large grid", "cluster"),
+            ("grid past 16 slices", "global")} <= by_label:
+        raise AssertionError(f"phase 3 variants by grid: {sorted(by_label)}")
     return rows
 
 
@@ -368,8 +445,15 @@ def phase_kernel_vs_plain(fleet_problem) -> list[dict]:
 
 class LaunchRecorder:
     """During the main path: CUDA events right around every kernel launch
-    (the C function `knapsack._dispatch` calls), and the inputs of the
-    largest DP call on the card (by T*B*S)."""
+    (the C function `knapsack._dispatch` calls), the inputs of the largest
+    DP call on the card (by T*B*S), and each pricing call's wall time in
+    parts, on the host's clock: `pricing_steps` (the binary split), the
+    wait for the kernel and the copy of ``best`` and the mask of steps
+    taken (`_fetch`, with a synchronize before the copy), and the counts
+    from the mask (`PricingSteps.counts_from_taken`); the rest of the call
+    is the copies to the card, the checks and the launch."""
+
+    PARTS = ("split", "wait", "copy", "counts")
 
     def __init__(self):
         self.events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
@@ -377,6 +461,33 @@ class LaunchRecorder:
         self._size = -1
         self._dp = knapsack._dispatch
         self._kernel_fn = knapsack._kernel_fn
+        self._saved = (knapsack.price_knapsacks, knapsack.pricing_steps, knapsack._fetch,
+                       knapsack.PricingSteps.counts_from_taken)
+        self.calls: list[float] = []
+        self.parts = {k: 0.0 for k in self.PARTS}
+
+    def _clocked(self, part, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.parts[part] += time.perf_counter() - t0
+            return out
+        return call
+
+    def _fetch(self, best, taken):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = self._saved[2](best, taken)
+        self.parts["wait"] += t1 - t0
+        self.parts["copy"] += time.perf_counter() - t1
+        return out
+
+    def _price(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._saved[0](*args, **kwargs)
+        self.calls.append(time.perf_counter() - t0)
+        return out
 
     def _record_dp(self, step_values, step_weights, final_idx, levels):
         size = step_values.numel() * int(np.prod(levels))
@@ -403,11 +514,17 @@ class LaunchRecorder:
     def __enter__(self):
         knapsack._dispatch = self._record_dp
         knapsack._kernel_fn = self._timed_kernel_fn
+        knapsack.price_knapsacks = self._price
+        knapsack.pricing_steps = self._clocked("split", self._saved[1])
+        knapsack._fetch = self._fetch
+        knapsack.PricingSteps.counts_from_taken = self._clocked("counts", self._saved[3])
         return self
 
     def __exit__(self, *exc):
         knapsack._dispatch = self._dp
         knapsack._kernel_fn = self._kernel_fn
+        (knapsack.price_knapsacks, knapsack.pricing_steps, knapsack._fetch,
+         knapsack.PricingSteps.counts_from_taken) = self._saved
 
     def kernel_ms(self) -> float:
         torch.cuda.synchronize()
@@ -449,23 +566,37 @@ def phase_main_path() -> dict:
         raise AssertionError(f"default manager device is {manager.device}")
     with LaunchRecorder() as rec:
         knapsack.LAUNCHES = 0
+        for variant in knapsack.LAUNCHES_BY_VARIANT:
+            knapsack.LAUNCHES_BY_VARIANT[variant] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plan = manager.allocate(streams, ST3)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = knapsack.LAUNCHES
+        by_variant = dict(knapsack.LAUNCHES_BY_VARIANT)
     if launches == 0:
         raise AssertionError("the main path launched the knapsack kernel 0 times")
+    if by_variant != {"cluster": launches, "global": 0} or len(rec.calls) < launches:
+        raise AssertionError(f"main path: {launches} launches by variant {by_variant} in "
+                             f"{len(rec.calls)} pricing calls")
     plan.solution.validate()
     sim = simulate_plan(plan, table, target=manager.utilization_cap)
     if not sim["meets_target"]:
         raise AssertionError("500-camera plan misses the performance target")
     kernel_ms = rec.kernel_ms()
+    pricing_ms = sum(rec.calls) * 1e3
+    parts_ms = {k: v * 1e3 for k, v in rec.parts.items()}
     log(f"  card plan: ${plan.hourly_cost:.3f}/h, {len(plan.instances)} instances, "
-        f"optimal={plan.optimal}, {launches} kernel launches")
+        f"optimal={plan.optimal}, {launches} kernel launches by variant {by_variant}")
     log(f"  allocate wall {wall_s:.3f} s; kernel {kernel_ms:.3f} ms "
         f"({kernel_ms / 1e3 / wall_s:.4%} of it); host {wall_s - kernel_ms / 1e3:.3f} s")
+    log(f"  pricing calls: {len(rec.calls)}, wall {pricing_ms:.3f} ms in all "
+        f"({pricing_ms / 1e3 / wall_s:.3%} of the allocate): binary split "
+        f"{parts_ms['split']:.3f} ms, wait for the kernel {parts_ms['wait']:.3f}, copy of best "
+        f"and the steps taken {parts_ms['copy']:.3f}, counts {parts_ms['counts']:.3f}, rest "
+        f"(copies to the card, checks, launch) "
+        f"{pricing_ms - sum(parts_ms.values()):.3f}; kernel (events) {kernel_ms:.3f}")
 
     cpu_manager = ResourceManager(paper_ec2_catalog(), table, device="cpu")
     t0 = time.perf_counter()
@@ -490,8 +621,12 @@ def phase_main_path() -> dict:
         "instances": len(plan.instances),
         "optimal": plan.optimal,
         "launches": launches,
+        "launches_by_variant": by_variant,
         "allocate_wall_s": wall_s,
         "kernel_ms": kernel_ms,
+        "pricing_calls": len(rec.calls),
+        "pricing_ms": pricing_ms,
+        "pricing_parts_ms": parts_ms,
         "host_s": wall_s - kernel_ms / 1e3,
         "cpu_allocate_s": cpu_s,
         "largest_call": {"B": b_n, "T": t_n, "S": int(np.prod(largest[3]))},
@@ -502,47 +637,44 @@ def phase_main_path() -> dict:
 # --------------------------------------------------------------- phase 5
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_timing(largest) -> dict:
     step_values, step_weights, final_idx, levels = largest
     b_n, t_n = step_values.shape
     s_n = int(np.prod(levels))
     d_n = len(levels)
-    before = knapsack.LAUNCHES
+    variant = knapsack._variant(s_n)
+    before = knapsack.LAUNCHES, dict(knapsack.LAUNCHES_BY_VARIANT)
     # `_dispatch` launches the kernel without `knapsack_dp`'s checks, whose
     # device-to-host sync would land between the timed launches.
-    ms = time_ms(lambda: knapsack._dispatch(*largest), reps=20)
-    plain_ms = time_ms(lambda: knapsack.knapsack_dp_plain(*largest), reps=5)
-    knapsack.LAUNCHES = before  # timing launches are not the main path's
+    # Cold, as the other kernels: the card spins while the host queues a
+    # call, whose dispatch (allocations, two launches) would otherwise
+    # outlast the kernel.
+    ms = time_cold_ms(lambda: knapsack._dispatch(*largest), reps=20)
+    with forced_knapsack("global"):
+        global_ms = time_cold_ms(lambda: knapsack._dispatch(*largest), reps=20)
+    plain_ms = time_cold_ms(lambda: knapsack.knapsack_dp_plain(*largest), reps=5)
+    # Timing launches are not the main path's.
+    knapsack.LAUNCHES = before[0]
+    knapsack.LAUNCHES_BY_VARIANT.update(before[1])
     item = step_values.element_size()
-    bytes_moved = (
-        b_n * t_n * (item + 8 * d_n) + b_n * 8 + 2 * d_n * 8  # inputs
-        + t_n * b_n * s_n + b_n * item  # take + best
-    )
+    inputs = b_n * t_n * (item + 8 * d_n) + b_n * 8 + 2 * d_n * 8
+    # The first port's bound counted take at one byte a state; it needs one bit.
+    bytes_moved = inputs + t_n * b_n * s_n + b_n * item  # take + best
+    bits_moved = inputs + t_n * b_n * -(-s_n // 32) * 4 + b_n * item + b_n * t_n
     ops = t_n * b_n * s_n * (d_n + 2)  # fits compares, one add, one compare
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SIMT_OPS_PER_S * 1e3
-    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at B={b_n} T={t_n} "
-        f"S={s_n}; bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    bound = _bound(bytes_moved, ops, SIMT_OPS_PER_S)
+    bits_bound = _bound(bits_moved, ops, SIMT_OPS_PER_S)
+    log(f"  {variant} {ms:.4f} ms, global {global_ms:.4f} ms, plain {plain_ms:.4f} ms at "
+        f"B={b_n} T={t_n} S={s_n}; bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, "
+        f"take a byte a state), {bits_bound['bound_ms']:.5f} ms ({bits_bound['bound_by']}, "
+        f"take a bit a state); operations alone {ops_ms:.5f} ms")
     return {
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": bytes_moved, "ops": ops,
+        "variant": variant, "ms": ms, "global_ms": global_ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_bits_ms": bits_bound["bound_ms"], "bound_bits_by": bits_bound["bound_by"],
+        "bytes": bytes_moved, "bytes_take_bits": bits_moved, "ops": ops,
+        "B": b_n, "T": t_n, "S": s_n,
     }
 
 
@@ -604,7 +736,9 @@ RGLRU_CASES = [
     ("recurrentgemma-9b prefill", 4, 1024, 4096, True),
     ("ragged S=1000", 4, 1000, 4096, True),
     ("ragged S=7, W=100", 2, 7, 100, False),
-    ("three chunks, S=130, W=77", 3, 130, 77, True),
+    ("one step, S=1", 4, 1, 4096, True),
+    ("a box and a step, S=65, W=100", 2, 65, 100, True),
+    ("ragged S=130, W=77", 3, 130, 77, True),
 ]
 #: (label, kept pairs, experts, K, F, rows past the segments (dropped
 #: pairs), experts left empty).  A pair's expert is drawn uniformly from
@@ -821,6 +955,21 @@ def compare_flash_exact(d: int) -> dict:
             "max_abs_err": 0.0, "max_abs_want": float(want.float().abs().max())}
 
 
+def rglru_launch(a, b, h0, variant=None, lanes=None) -> tuple[str, torch.Tensor]:
+    """One `rglru.rglru_scan` launch on ``variant`` and ``lanes`` a CTA
+    (None: the wrapper's own choice), checked to have run on that variant;
+    ``(variant, h)``."""
+    want = variant or rglru._variant(a.shape[2])
+    before = dict(rglru.LAUNCHES_BY_VARIANT)
+    with forced_rglru(variant, lanes):
+        got = rglru.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    rose = {n: rglru.LAUNCHES_BY_VARIANT[n] - before[n] for n in before}
+    if rose != {n: int(n == want) for n in before}:
+        raise AssertionError(f"rglru: expected one {want} launch, counted {rose}")
+    return want, got
+
+
 def phase_kernels_vs_plain() -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -897,9 +1046,12 @@ def phase_kernels_vs_plain() -> list[dict]:
         a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32))
         bb = 0.3 * _normal(rng, (b, s, w), torch.float32)
         h0 = 0.1 * _normal(rng, (b, w), torch.float32) if with_h0 else None
-        rows.append({"kernel": "rglru_scan", **_compare(
-            f"rglru {label}", torch.float32, rglru.rglru_scan(a, bb, h0),
-            rglru.rglru_scan_plain(a, bb, h0), RGLRU_TOLERANCE)})
+        want = rglru.rglru_scan_plain(a, bb, h0)
+        # The variant `_variant` picks, then the other one where W lets both run.
+        for variant in (None, "cp_async") if w % 4 == 0 else (None,):
+            variant, got = rglru_launch(a, bb, h0, variant)
+            rows.append({"kernel": "rglru_scan", "variant": variant, **_compare(
+                f"rglru {label} [{variant}]", torch.float32, got, want, RGLRU_TOLERANCE)})
     for r in rows:
         log(f"  {r['label']} {r['dtype']}: max abs err {r['max_abs_err']:.3g} "
             f"(max abs {r['max_abs_want']:.3g})")
@@ -923,7 +1075,10 @@ SERVE_KERNELS = {"flash_attention": (flash, "largest"), "decode_attention": (dec
 #: The serving kernels with variants, whose launches `ServeRecorder` counts
 #: by variant.
 VARIANT_KERNELS = {"flash_attention": flash, "decode_attention": decode, "ssd_scan": ssd,
-                   "grouped_gemm": gg}
+                   "rglru_scan": rglru, "grouped_gemm": gg}
+#: The kernels whose `_kernel_fn` takes the variant (picked from shapes or
+#: alignment) as its first argument; the others' take the dtype.
+VARIANT_BY_ARGUMENT = ("grouped_gemm", "rglru_scan")
 #: The grouped GEMM launches kept, by (phase, index of the launch in that
 #: phase): layer 0's gate and down products of the first wave, and layer
 #: 0's gate product of the first decode step.
@@ -998,6 +1153,13 @@ def expected_ssd_variants(cfg, waves: int) -> dict:
     return {"prefill": {"mma": launches} if launches else {}, "decode": {}}
 
 
+def expected_rglru_variants(cfg, waves: int) -> dict:
+    """The RG-LRU scan's launches by phase and variant: every prefill launch
+    on ``tma`` (recurrentgemma-9b 26 a wave, W = 4096), none in decode."""
+    launches = expected_launches(cfg, waves, 0)["rglru_scan"]
+    return {"prefill": {"tma": launches} if launches else {}, "decode": {}}
+
+
 def _reset_serve_counts() -> None:
     for mod, _ in SERVE_KERNELS.values():
         mod.LAUNCHES = 0
@@ -1043,9 +1205,11 @@ class ServeRecorder:
         kernel_fn = self._saved[name][0]
 
         def fn(*a):
-            # grouped_gemm's a = (variant, dtype), the others' a = (dtype,)
+            # grouped_gemm's a = (variant, dtype), rglru_scan's (variant,), the
+            # others' (dtype,)
             if name in VARIANT_KERNELS:
-                variant = a[0] if name == "grouped_gemm" else VARIANT_KERNELS[name]._variant(a[0])
+                variant = (a[0] if name in VARIANT_BY_ARGUMENT
+                           else VARIANT_KERNELS[name]._variant(a[0]))
                 counts = self.variants[name][self._phase]
                 counts[variant] = counts.get(variant, 0) + 1
             return self._timed(self.launches[name][self._phase], kernel_fn(*a))
@@ -1170,7 +1334,8 @@ def phase_frame_analysis(arch: str, params) -> dict:
     for name, want in (("grouped_gemm", expected_gg_variants(cfg, waves, steps)),
                        ("flash_attention", expected_flash_variants(cfg, waves)),
                        ("decode_attention", expected_decode_variants(cfg, steps)),
-                       ("ssd_scan", expected_ssd_variants(cfg, waves))):
+                       ("ssd_scan", expected_ssd_variants(cfg, waves)),
+                       ("rglru_scan", expected_rglru_variants(cfg, waves))):
         if rec.variants[name] != want:
             raise AssertionError(f"frame analysis {arch}: {name} variants "
                                  f"{rec.variants[name]}, expected {want}")
@@ -1613,6 +1778,7 @@ def phase_scan_timing(ssd_args, rglru_args) -> dict:
     7(b)'s served inputs, then timed there beside their plain versions and
     bounds.  No single PyTorch call computes either function."""
     before = (ssd.LAUNCHES, rglru.LAUNCHES)
+    rglru_variants = dict(rglru.LAUNCHES_BY_VARIANT)
     *sargs, chunk = ssd_args
     x, _dt, _A, Bm, _Cm, h0 = sargs
     a, bb, h0r = rglru_args
@@ -1629,17 +1795,29 @@ def phase_scan_timing(ssd_args, rglru_args) -> dict:
     s_["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_plain(*sargs, chunk=chunk), reps=5)
     s_.update(ssd_bound(x, Bm, h0, chunk))
     s_["library_ms"] = None
-    r_ = {"shape": list(a.shape), "h0": h0r is not None, "dtype": "float32"}
+    r_ = {"shape": list(a.shape), "h0": h0r is not None, "dtype": "float32",
+          "variant": rglru._variant(a.shape[2]),
+          "lanes": rglru._lanes(a.shape[0], a.shape[2], torch.cuda.get_device_properties(
+              0).multi_processor_count)}
     r_["ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, h0r), reps=20)
+    # The other variant, and the other CTA width, forced on the same call.
+    with forced_rglru(variant="cp_async"):
+        r_["cp_async_ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, h0r), reps=20)
+    other = 192 - r_["lanes"]
+    with forced_rglru(lanes=other):
+        r_[f"lanes_{other}_ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, h0r), reps=20)
     r_["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_plain(a, bb, h0r), reps=3)
     r_.update(rglru_bound(a, h0r))
     r_["library_ms"] = None
     ssd.LAUNCHES, rglru.LAUNCHES = before  # timing launches are not the path's
+    rglru.LAUNCHES_BY_VARIANT.update(rglru_variants)
     for name, t in (("ssd_scan", s_), ("rglru_scan", r_)):
         log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     log(f"  ssd_scan [{s_['variant']}] parts: C·Bᵀ {s_['cb_ms']:.4f} ms + per-head "
         f"{s_['per_head_ms']:.4f} ms")
+    log(f"  rglru_scan [{r_['variant']}, {r_['lanes']} lanes] {r_['ms']:.4f} ms; cp_async "
+        f"{r_['cp_async_ms']:.4f} ms; {other} lanes {r_[f'lanes_{other}_ms']:.4f} ms")
     return {"ssd_scan": s_, "rglru_scan": r_, "served_checks": served}
 
 
@@ -1918,7 +2096,7 @@ def main(argv=None) -> int:
                 log(f"    {line.strip()}")
     log(f"  all sources built in {build_wall:.2f} s (in parallel)")
     flash_wgmma_ptxas = check_flash_wgmma_spills()
-    mma_ptxas = check_mma_spills()
+    spill_checks = check_instance_spills()
 
     timer.begin("phase 3", "knapsack kernel vs plain on the card")
     fleet_problem = ResourceManager(
@@ -1928,7 +2106,7 @@ def main(argv=None) -> int:
     log(f"  {len(checks)} comparisons exact")
     result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
               "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-              "flash_wgmma_ptxas": flash_wgmma_ptxas, "mma_ptxas": mma_ptxas,
+              "flash_wgmma_ptxas": flash_wgmma_ptxas, "ptxas": spill_checks,
               "checks": checks}
 
     if not args.kernel_only:
@@ -1994,6 +2172,11 @@ def main(argv=None) -> int:
             "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
             "library_ms": None,
+            "variant": timing["variant"],
+            "launches_by_variant": main_path["launches_by_variant"],
+            "global_ms": timing["global_ms"],
+            "bound_bits_ms": timing["bound_bits_ms"],
+            "bound_bits_by": timing["bound_bits_by"],
         }]
         for kname, replaces in (
             ("flash_attention", "src/repro/kernels/attention.py:75"),
@@ -2022,8 +2205,10 @@ def main(argv=None) -> int:
             }
             if "library" in t:
                 entry["library"] = t["library"]
-            # The passes of a two-pass kernel, timed apart.
-            parts = ("split_ms", "combine_ms", "cb_ms", "per_head_ms", "passes")
+            # The passes of a two-pass kernel, timed apart; RG-LRU's other
+            # variant and CTA width, forced.
+            parts = ("split_ms", "combine_ms", "cb_ms", "per_head_ms", "passes", "lanes",
+                     "cp_async_ms", "lanes_64_ms", "lanes_128_ms")
             entry.update({k: t[k] for k in parts if k in t})
             for shapes in ("internlm2", "recurrentgemma", "qwen3"):
                 if shapes in t:

@@ -5,9 +5,11 @@ asks for it by name, as the CPU tests do; there is no silent fallback.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -26,3 +28,10 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index`` (the
+    kernels' wrappers size their grids by it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -9,106 +9,222 @@
 // W=4096): a, b and h are 67.1 MB each, 201 MB, 60 us at 3.35 TB/s,
 // against 16.8 M multiply-adds: bytes-bound by far.
 //
-// Design.  The TPU kernel tiles (batch, width block, time block) with time
-// innermost and carries the state row in VMEM.  One thread per (b, lane)
-// walking all S steps gives only B * W = 16,384 threads at the served
-// shape, 4 warps an SM, too few loads in flight to approach the card's
-// bandwidth.  So time is cut into C chunks of L steps (C <= 16), and the
-// recurrence is composed chunk-wise in two passes, one thread per
-// (b, chunk, lane), lanes fastest so that a warp's loads of a step are 32
-// consecutive floats and a CTA's 256:
-//   1. summary: each chunk's composite map h -> A h + Bs, with A the
-//      product of its a_t and Bs its recurrence from zero, into a small
-//      (B, C, W) scratch pair;
-//   2. scan: each chunk folds h0 through the earlier chunks' maps to its
-//      entering state, then walks its own steps and writes h.
-// Pass 2 reads a and b again: 335 MB moved against the bound's 201 MB, in
-// exchange for C times the threads.  With C = 1 (S <= 64) pass 1 is
-// skipped.
+// Design: a streaming walk in the TPU kernel's order, time innermost.  One
+// CTA owns a (batch row, block of LANES lanes), one thread a lane, and walks
+// all S steps with the state in a register, so a and b are read once and h
+// written once.  a and b arrive through a ring of kStages boxes of (kSteps
+// steps x LANES lanes) in shared memory, so that kStages boxes of each are
+// in flight while the CTA computes (64 KB a CTA at 64 lanes; by Little's
+// law 3.35 TB/s over 132 SMs at about 1 us needs some 25 KB an SM).  h is
+// stored from the registers, a warp's 32 lanes of a step in one 128-byte
+// store.  Two variants, picked by shape before the launch (rglru._variant):
+//   - "tma": W a multiple of 4 and 16-byte-aligned a and b (TMA needs
+//     16-byte row strides): thread 0 loads each box of a and of b with one
+//     TMA copy onto an mbarrier; boxes past S or W are zero-filled;
+//   - "cp_async": any W: each thread copies its own lane's steps with 4-byte
+//     cp.async and reads only what it copied, so the ring needs no barrier.
+// LANES is 64 or 128 (rglru._lanes): 128 unless that leaves more than half
+// the SMs idle; at the served shape 128 CTAs of 128 lanes, one an SM.  The
+// ring's depth moved nothing there: 2 to 8 stages of 16 to 64 steps all ran
+// within 4% of each other, at some 2.6 TB/s of a, b and h together.
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kSteps = 32;  // time steps a box
+constexpr int kStages = 4;  // boxes in the ring
 
-__global__ void __launch_bounds__(kThreads)
-    summary_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ sum_a, float* __restrict__ sum_b, int S, int W, int L,
-                   int C) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const int c = blockIdx.y;
-  const size_t row = blockIdx.z;
-  const int t0 = c * L, t1 = min(S, t0 + L);
-  const size_t off = (row * S + t0) * W + w;
-  const float* ap = a + off;
-  const float* bp = b + off;
-  float prod = 1.f, acc = 0.f;
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t) {
-    const float at = *ap, bt = *bp;
-    prod *= at;
-    acc = fmaf(at, acc, bt);
-    ap += W;
-    bp += W;
-  }
-  sum_a[(row * C + c) * W + w] = prod;
-  sum_b[(row * C + c) * W + w] = acc;
+template <int LANES>
+constexpr size_t ring_bytes() {
+  return static_cast<size_t>(kStages) * 2 * kSteps * LANES * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                const float* __restrict__ h0, const float* __restrict__ sum_a,
-                const float* __restrict__ sum_b, float* __restrict__ h, int S, int W, int L,
-                int C) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const int c = blockIdx.y;
-  const size_t row = blockIdx.z;
-  float state = h0 ? h0[row * W + w] : 0.f;
-  for (int k = 0; k < c; ++k)
-    state = fmaf(sum_a[(row * C + k) * W + w], state, sum_b[(row * C + k) * W + w]);
-  const int t0 = c * L, t1 = min(S, t0 + L);
-  const size_t off = (row * S + t0) * W + w;
-  const float* ap = a + off;
-  const float* bp = b + off;
-  float* hp = h + off;
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t) {
-    state = fmaf(*ap, state, *bp);
-    *hp = state;
-    ap += W;
-    bp += W;
-    hp += W;
+// One box's steps: state through n steps of a and b (LANES apart in shared
+// memory), each h stored W apart.
+template <int LANES>
+__device__ __forceinline__ float walk(const float* as, const float* bs, float state, float* hp,
+                                      int n, int W, bool on) {
+  if (n == kSteps) {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      state = fmaf(as[k * LANES], state, bs[k * LANES]);
+      if (on) hp[static_cast<size_t>(k) * W] = state;
+    }
+  } else {
+    for (int k = 0; k < n; ++k) {
+      state = fmaf(as[k * LANES], state, bs[k * LANES]);
+      if (on) hp[static_cast<size_t>(k) * W] = state;
+    }
   }
+  return state;
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(LANES)
+    rglru_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              const float* __restrict__ h0, float* __restrict__ h, int S, int W) {
+  extern __shared__ __align__(128) float ring[];  // [kStages][a, b][kSteps][LANES]
+  __shared__ __align__(8) uint64_t full[kStages];
+  const int lane = threadIdx.x;
+  const int w0 = blockIdx.x * LANES;
+  const int row = blockIdx.y;
+  const int w = w0 + lane;
+  const bool on = w < W;
+  const int n_boxes = (S + kSteps - 1) / kSteps;
+  constexpr uint32_t kBoxBytes = kSteps * LANES * sizeof(float);
+  if (lane == 0) {
+    for (int i = 0; i < kStages; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  auto load_box = [&](int i) {
+    const int st = i % kStages;
+    float* dst = ring + st * 2 * kSteps * LANES;
+    hopper::mbar_arrive_expect_tx(&full[st], 2 * kBoxBytes);
+    hopper::tma_load_3d(dst, &map_a, &full[st], w0, i * kSteps, row);
+    hopper::tma_load_3d(dst + kSteps * LANES, &map_b, &full[st], w0, i * kSteps, row);
+  };
+  if (lane == 0)
+    for (int i = 0; i < kStages && i < n_boxes; ++i) load_box(i);
+  float state = (h0 != nullptr && on) ? h0[static_cast<size_t>(row) * W + w] : 0.f;
+  float* hp = h + static_cast<size_t>(row) * S * W + w;
+  for (int i = 0; i < n_boxes; ++i) {
+    const int st = i % kStages;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    const float* as = ring + st * 2 * kSteps * LANES + lane;
+    const int t0 = i * kSteps;
+    state = walk<LANES>(as, as + kSteps * LANES, state, hp + static_cast<size_t>(t0) * W,
+                        min(kSteps, S - t0), W, on);
+    // Every thread is done with the stage (its loads fed the stores above)
+    // before thread 0 refills it.
+    __syncthreads();
+    if (lane == 0 && i + kStages < n_boxes) load_box(i + kStages);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(hopper::smem_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(LANES)
+    rglru_cp_async(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ h0, float* __restrict__ h, int S, int W) {
+  extern __shared__ __align__(128) float ring[];  // [kStages][a, b][kSteps][LANES]
+  const int lane = threadIdx.x;
+  const int row = blockIdx.y;
+  const int w = blockIdx.x * LANES + lane;
+  const bool on = w < W;
+  const int n_boxes = (S + kSteps - 1) / kSteps;
+  const size_t base = static_cast<size_t>(row) * S * W + w;
+  // A thread copies its own lane's steps of box i and reads only those, so
+  // it needs no barrier with the other threads; it refills a stage only
+  // after the stores of its last steps, which waited on every read of it.
+  auto load_box = [&](int i) {
+    float* dst = ring + (i % kStages) * 2 * kSteps * LANES + lane;
+    const int t0 = i * kSteps;
+    const int n = min(kSteps, S - t0);
+    if (on) {
+      for (int k = 0; k < n; ++k) {
+        const size_t off = base + static_cast<size_t>(t0 + k) * W;
+        cp_async4(dst + k * LANES, a + off);
+        cp_async4(dst + (kSteps + k) * LANES, b + off);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_boxes) load_box(i);
+    else cp_async_commit();
+  }
+  float state = (h0 != nullptr && on) ? h0[static_cast<size_t>(row) * W + w] : 0.f;
+  float* hp = h + base;
+  for (int i = 0; i < n_boxes; ++i) {
+    cp_async_wait<kStages - 1>();  // box i has landed
+    const float* as = ring + (i % kStages) * 2 * kSteps * LANES + lane;
+    const int t0 = i * kSteps;
+    state = walk<LANES>(as, as + kSteps * LANES, state, hp + static_cast<size_t>(t0) * W,
+                        min(kSteps, S - t0), W, on);
+    if (i + kStages < n_boxes) load_box(i + kStages);
+    else cp_async_commit();
+  }
+}
+
+// A float32 tensor map over (W, S, B), innermost first, with a box of
+// (LANES, kSteps, 1), no swizzle, zero fill past the edges.
+int encode_f32(CUtensorMap* map, const void* base, int B, int S, int W, int lanes) {
+  const hopper::EncodeTiledFn fn = hopper::encode_tiled_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * 4,
+                                 static_cast<cuuint64_t>(S) * W * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(lanes), kSteps, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box,
+         ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int LANES>
+int launch(int variant, const void* a, const void* b, const void* h0, void* h, int B, int S,
+           int W, cudaStream_t st) {
+  constexpr size_t smem = ring_bytes<LANES>();
+  static_assert(smem <= 232448, "shared memory");
+  const dim3 grid((W + LANES - 1) / LANES, B);
+  const auto* h0f = static_cast<const float*>(h0);
+  auto* hf = static_cast<float*>(h);
+  if (variant == 0) {
+    CUtensorMap map_a, map_b;
+    int err = encode_f32(&map_a, a, B, S, W, LANES);
+    if (err == 0) err = encode_f32(&map_b, b, B, S, W, LANES);
+    if (err != 0) return err;
+    auto kernel = rglru_tma<LANES>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, LANES, smem, st>>>(map_a, map_b, h0f, hf, S, W);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 1) return (int)cudaErrorInvalidValue;
+  auto kernel = rglru_cp_async<LANES>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, LANES, smem, st>>>(static_cast<const float*>(a), static_cast<const float*>(b),
+                                    h0f, hf, S, W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, b and h (B, S, W), h0 (B, W) or null (zeros), float32, contiguous;
-// sum_a and sum_b (B, C, W) float32 scratch (unused when C = 1); the C
-// chunks of L steps cover S ((C - 1) * L < S <= C * L).  Returns the CUDA
-// error code of the launches (0 on success).
-extern "C" int rglru_scan_f32(const void* a, const void* b, const void* h0, void* sum_a,
-                              void* sum_b, void* h, int B, int S, int W, int L, int C,
-                              void* stream) {
-  if (B < 1 || S < 1 || W < 1 || B > 65535 || C < 1 || C > 65535 || L < 1 ||
-      static_cast<long long>(C - 1) * L >= S || static_cast<long long>(C) * L < S)
+// variant 0 ("tma": W % 4 == 0, a and b 16-byte aligned) or 1 ("cp_async");
+// lanes 64 or 128.  a, b and h (B, S, W), h0 (B, W) or null (zeros),
+// float32, contiguous.  Returns the CUDA error code of the launch (0 on
+// success).
+extern "C" int rglru_scan_f32(int variant, int lanes, const void* a, const void* b,
+                              const void* h0, void* h, int B, int S, int W, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (variant == 0 && (W % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+                       reinterpret_cast<uintptr_t>(b) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + kThreads - 1) / kThreads, C, B);
-  if (C > 1) {
-    summary_kernel<<<grid, kThreads, 0, st>>>(static_cast<const float*>(a),
-                                              static_cast<const float*>(b),
-                                              static_cast<float*>(sum_a),
-                                              static_cast<float*>(sum_b), S, W, L, C);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  scan_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(h0),
-      static_cast<const float*>(sum_a), static_cast<const float*>(sum_b), static_cast<float*>(h),
-      S, W, L, C);
-  return (int)cudaGetLastError();
+  if (lanes == 64) return launch<64>(variant, a, b, h0, h, B, S, W, st);
+  if (lanes == 128) return launch<128>(variant, a, b, h0, h, B, S, W, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -48,6 +48,8 @@ import numbers
 
 import torch
 
+from ..device import sm_count
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "decode_attention", "decode_attention_plain",
            "mma_splits", "splits"]
 
@@ -149,11 +151,6 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
 ]
 
 
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _target_ctas(device_index: int, variant: str) -> int:
     """CTAs to aim for on a card: one per SM for ``mma``, two for ``simt``.
 
@@ -162,7 +159,7 @@ def _target_ctas(device_index: int, variant: str) -> int:
     more and ties at recurrentgemma-9b's, but is 4-6% behind a half at
     qwen3-moe-30b-a3b's and internlm2-1.8b's (more splits spend more in
     the merge and pack their clusters worse).  One target serves all."""
-    return _sms(device_index) * (1 if variant == "mma" else 2)
+    return sm_count(device_index) * (1 if variant == "mma" else 2)
 
 
 @functools.cache

@@ -10,14 +10,18 @@ Two implementations:
 
 * `rglru_scan_plain` — plain torch, the sequential loop of
   `repro/kernels/ref.py:rglru_ref`;
-* the CUDA kernels in ``csrc/rglru.cu``: time is cut into up to 16
-  chunks (`chunks`); a summary pass composes each chunk's map
-  ``h -> A h + Bs`` into a float32 scratch, then a scan pass folds h0
-  through the earlier chunks' maps and walks each chunk's steps, one
-  thread per (b, chunk, lane).
+* the CUDA kernel in ``csrc/rglru.cu``: a streaming walk in the TPU
+  kernel's order, one CTA per (batch row, block of `_lanes` lanes) walking
+  all S steps with the state in registers, so ``a`` and ``b`` are read once
+  and ``h`` written once; a ring of (32 steps x lanes) boxes in shared
+  memory keeps the loads in flight.  Two variants, picked by shape before
+  the launch (`_variant`): ``"tma"`` (W a multiple of 4 and 16-byte-aligned
+  ``a`` and ``b``: one TMA copy a box) and ``"cp_async"`` (any W: each
+  thread copies its own lane with 4-byte ``cp.async``).
 
 `rglru_scan` dispatches by device: CPU tensors go to the plain version,
-CUDA tensors launch the kernel (or raise).
+CUDA tensors launch the kernel (or raise; nothing falls back to another
+variant).
 """
 from __future__ import annotations
 
@@ -25,15 +29,18 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "chunks", "rglru_scan", "rglru_scan_plain"]
+from ..device import sm_count
 
-#: Number of CUDA kernel launches made by `rglru_scan` in this process
-#: (one per call: the summary pass and the scan pass count as one).
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "boxes", "rglru_scan", "rglru_scan_plain"]
+
+#: Number of CUDA kernel launches made by `rglru_scan` in this process.
 LAUNCHES = 0
+#: The same launches by variant (`_variant`).
+LAUNCHES_BY_VARIANT = {"tma": 0, "cp_async": 0}
 
-#: Time steps per chunk aimed at, and the most chunks a call uses.
-_CHUNK_STEPS = 64
-_MAX_CHUNKS = 16
+#: Time steps a box of the kernel's ring (kSteps in csrc/rglru.cu).
+BOX_STEPS = 32
+_VARIANT_CODES = {"tma": 0, "cp_async": 1}
 
 
 def rglru_scan_plain(a, b, h0=None):
@@ -66,18 +73,35 @@ def _check_inputs(a, b, h0) -> None:
                          f"got {tuple(h0.shape)}")
 
 
-def chunks(s: int) -> tuple[int, int]:
-    """``(n_chunks, steps per chunk)`` that cover ``s`` steps: about
-    `_CHUNK_STEPS` a chunk, at most `_MAX_CHUNKS` chunks, none empty."""
-    n = min(_MAX_CHUNKS, -(-s // _CHUNK_STEPS))
-    per = -(-s // n)
-    return -(-s // per), per
+def boxes(s: int) -> tuple[int, int]:
+    """``(boxes, steps in the last)``: the kernel's ring walks ``s`` steps in
+    boxes of `BOX_STEPS`, the last one partial."""
+    n = -(-s // BOX_STEPS)
+    return n, s - (n - 1) * BOX_STEPS
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _variant(w: int, aligned: bool = True) -> str:
+    """The kernel for a width of ``w`` lanes: ``"tma"`` where the rows of
+    ``a`` and ``b`` are 16-byte aligned (``w`` a multiple of 4 and
+    ``aligned``, their base addresses on 16 bytes), else ``"cp_async"``."""
+    return "tma" if w % 4 == 0 and aligned else "cp_async"
 
 
-def _kernel_fn():
+def _lanes(bsz: int, w: int, n_sms: int) -> int:
+    """Lanes a CTA: 128 (one CTA an SM with its 128 KB ring), unless that
+    leaves more than half of the ``n_sms`` SMs without a CTA; then 64.  At
+    recurrentgemma-9b's served 4 x 4096 lanes, 128 CTAs of 128 lanes ran
+    1-2% faster than 256 of 64 on an H100 (``chip_smoke.py`` phase 8,
+    ``scripts/torch_rglru_ring.py``)."""
+    return 128 if 2 * bsz * -(-w // 128) >= n_sms else 64
+
+
+_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _kernel_fn(variant: str):
+    """The C function that launches ``variant`` (it takes the variant's code
+    among its arguments)."""
     from ._build import load_library
 
     fn = load_library("rglru").rglru_scan_f32
@@ -107,16 +131,17 @@ def _dispatch(a, b, h0):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"rglru_scan: {name} must be contiguous on CUDA")
     bsz, s, w = a.shape
-    n_chunks, per = chunks(s)
-    fn = _kernel_fn()
+    variant = _variant(w, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    lanes = _lanes(bsz, w, sm_count(index))
+    fn = _kernel_fn(variant)
     with torch.cuda.device(a.device):
         h = torch.empty_like(a)
-        # Per (b, chunk, lane): the chunk's product of a and its recurrence from zero.
-        scratch = torch.empty((2, bsz, n_chunks, w), dtype=torch.float32, device=a.device)
-        rc = fn(a.data_ptr(), b.data_ptr(), 0 if h0 is None else h0.data_ptr(),
-                scratch[0].data_ptr(), scratch[1].data_ptr(), h.data_ptr(),
-                bsz, s, w, per, n_chunks, torch.cuda.current_stream(a.device).cuda_stream)
+        rc = fn(_VARIANT_CODES[variant], lanes, a.data_ptr(), b.data_ptr(),
+                0 if h0 is None else h0.data_ptr(), h.data_ptr(), bsz, s, w,
+                torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"rglru_scan kernel launch failed ({variant}): CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return h

@@ -65,15 +65,27 @@ def _camera_fleet(n):
     return [StreamSpec(f"cam{i}", *kinds[i % 10]) for i in range(n)]
 
 
-def _assert_kernel_equals_plain(steps, device):
+def _assert_kernel_equals_plain(steps, device, variant=None):
+    """Kernel vs plain, bit for bit: best, the packed take bits, the
+    kernel's mask of steps taken against the plain backtrack over the same
+    bits, and the counts from it against `_backtrack`'s."""
     before = knapsack.LAUNCHES
-    best_k, take_k = knapsack.knapsack_dp(*steps.to(device))
+    by_variant = dict(knapsack.LAUNCHES_BY_VARIANT)
+    args = steps.to(device)
+    best_k, take_k, taken_k = knapsack._dispatch(*args)
     torch.cuda.synchronize()
     assert knapsack.LAUNCHES == before + 1
-    best_p, take_p = knapsack.knapsack_dp_plain(*steps.to(device))
+    if variant is not None:
+        assert knapsack.LAUNCHES_BY_VARIANT[variant] == by_variant[variant] + 1
+    best_p, take_p = knapsack.knapsack_dp_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(take_k, take_p)
     assert torch.equal(best_k, best_p)
+    taken_p = knapsack.taken_steps_plain(take_p, steps.shifts, steps.final_idx)
+    np.testing.assert_array_equal(taken_k.cpu().numpy(), taken_p)
+    e_n = int(steps.step_entry.max()) + 1
+    want = steps.counts(knapsack.unpack_take(take_p, steps.states).cpu().numpy(), e_n)
+    np.testing.assert_array_equal(steps.counts_from_taken(taken_k.cpu().numpy(), e_n), want)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -91,20 +103,62 @@ def test_kernel_equals_plain_seeded(cuda, seed, dtype):
     np.testing.assert_array_equal(got.counts, ref.counts)
 
 
-@pytest.mark.parametrize("grid_states", [32_768, 131_072])
-def test_kernel_equals_plain_on_fleet_grid(cuda, grid_states):
-    """The 500-camera fleet's grid (30,940 states, more than a block's
-    shared memory holds in float64) and a larger one."""
+def _fleet_steps(grid_states, n_nodes=1, dtype=np.float64):
+    """colgen's pricing batch on the 500-camera fleet's grid: 3 bin kinds a
+    node, seeded duals."""
     problem = ResourceManager(
-        paper_ec2_catalog(), paper_profile_table(), device=cuda
+        paper_ec2_catalog(), paper_profile_table(), device="cpu"
     ).formulate(_camera_fleet(500))
     class_reqs, _demands, _members = group_items(problem)
     grid = colgen._discretize(problem, class_reqs, grid_states)
+    n_kinds = grid.weights.shape[0]
     values = np.random.RandomState(1).uniform(
-        0.0, 0.5, size=(grid.weights.shape[0], len(grid.entries)))
-    steps = knapsack.pricing_steps(values, grid.weights, grid.fit, grid.cap_levels)
-    assert steps.states >= 30_940
-    _assert_kernel_equals_plain(steps, cuda)
+        0.0, 0.5, size=(n_nodes * n_kinds, len(grid.entries))).astype(dtype)
+    return knapsack.pricing_steps(values, np.tile(grid.weights, (n_nodes, 1, 1)),
+                                  np.tile(grid.fit, (n_nodes, 1)),
+                                  np.tile(grid.cap_levels, (n_nodes, 1)))
+
+
+@pytest.mark.parametrize("variant", ["cluster", "global"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("grid_states,n_nodes", [(32_768, 5), (131_072, 2)])
+def test_kernel_equals_plain_on_fleet_grid(cuda, monkeypatch, grid_states, n_nodes, dtype,
+                                           variant):
+    """The 500-camera fleet's grid (30,940 states, B = 15 as the main path's
+    largest call) and the large grid (120,384 states, 16 slices), each on
+    both variants."""
+    steps = _fleet_steps(grid_states, n_nodes, dtype)
+    assert steps.states in (30_940, 120_384)
+    assert knapsack._variant(steps.states) == "cluster"
+    monkeypatch.setattr(knapsack, "_variant", lambda s_n: variant)
+    _assert_kernel_equals_plain(steps, cuda, variant)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [2, 3, 4, 6, 8, 12, 16])
+def test_cluster_sizes_equal_plain(cuda, monkeypatch, c, dtype):
+    """The cluster variant at sizes from 2 to 16 on the fleet's 13,552-state
+    grid (two slices of 8,192 states hold it), through `_layout`'s slices."""
+    steps = _fleet_steps(16_384, 1, dtype)
+    assert steps.states == 13_552
+    monkeypatch.setattr(knapsack, "_cluster_size", lambda b_n, s_n, n_sms: c)
+    _assert_kernel_equals_plain(steps, cuda, "cluster")
+
+
+def test_cluster_waves_past_the_sms_equal_plain(cuda, monkeypatch):
+    """B x C > 132: 18 knapsacks on clusters of 16 run in two waves."""
+    steps = _fleet_steps(32_768, 6)
+    assert steps.step_values.shape[0] == 18
+    monkeypatch.setattr(knapsack, "_cluster_size", lambda b_n, s_n, n_sms: 16)
+    _assert_kernel_equals_plain(steps, cuda, "cluster")
+
+
+def test_global_variant_on_a_grid_past_the_clusters(cuda):
+    """A row larger than 16 slices (217,800 states) takes the global variant
+    by shape."""
+    steps = _fleet_steps(262_144, 1)
+    assert knapsack._variant(steps.states) == "global"
+    _assert_kernel_equals_plain(steps, cuda, "global")
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
@@ -481,19 +535,58 @@ def test_ssd_unaligned_strided_b_and_c(cuda, with_h0, dtype):
 
 @pytest.mark.parametrize("b,s,w,with_h0", [
     (4, 1024, 4096, True),  # recurrentgemma-9b's served prefill
-    (4, 1000, 4096, True),
-    (2, 7, 100, False),     # one chunk: the summary pass is skipped
-    (3, 130, 77, True),     # three chunks, ragged W
+    (4, 1000, 4096, True),  # a partial last box
+    (2, 7, 100, False),     # one partial box, no h0
+    (3, 130, 77, True),     # ragged W: the cp_async variant
 ])
 def test_rglru_kernel_matches_plain(cuda, b, s, w, with_h0):
     a = torch.sigmoid(_normal(0, (b, s, w), torch.float32, cuda))
     bb = 0.3 * _normal(1, (b, s, w), torch.float32, cuda)
     h0 = 0.1 * _normal(2, (b, w), torch.float32, cuda) if with_h0 else None
-    before = rglru.LAUNCHES
+    variant = rglru._variant(w)
+    before = rglru.LAUNCHES, rglru.LAUNCHES_BY_VARIANT[variant]
     got = rglru.rglru_scan(a, bb, h0)
     torch.cuda.synchronize()
-    assert rglru.LAUNCHES == before + 1
+    assert (rglru.LAUNCHES, rglru.LAUNCHES_BY_VARIANT[variant]) == (before[0] + 1,
+                                                                    before[1] + 1)
     torch.testing.assert_close(got, rglru.rglru_scan_plain(a, bb, h0), **RGLRU_TOL)
+
+
+@pytest.mark.parametrize("variant", ["tma", "cp_async"])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("b,s,w,with_h0", [(4, 1024, 4096, True), (2, 65, 100, False),
+                                           (1, 1, 4096, True), (3, 1000, 256, True)])
+def test_rglru_each_variant_matches_plain(cuda, monkeypatch, b, s, w, with_h0, lanes,
+                                          variant):
+    """Both variants at both CTA widths on the same inputs (every W here is
+    a multiple of 4, so both can run): ragged S, one step, h0 absent."""
+    a = torch.sigmoid(_normal(3, (b, s, w), torch.float32, cuda))
+    bb = 0.3 * _normal(4, (b, s, w), torch.float32, cuda)
+    h0 = 0.1 * _normal(5, (b, w), torch.float32, cuda) if with_h0 else None
+    monkeypatch.setattr(rglru, "_variant", lambda w, aligned=True: variant)
+    monkeypatch.setattr(rglru, "_lanes", lambda bsz, w, n_sms: lanes)
+    before = rglru.LAUNCHES_BY_VARIANT[variant]
+    got = rglru.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert rglru.LAUNCHES_BY_VARIANT[variant] == before + 1
+    torch.testing.assert_close(got, rglru.rglru_scan_plain(a, bb, h0), **RGLRU_TOL)
+
+
+def test_rglru_misaligned_base_takes_cp_async(cuda):
+    """a and b at a 4-byte offset: TMA cannot take them, so the shape check
+    picks cp_async before the launch; forcing TMA there raises."""
+    buf = torch.sigmoid(_normal(6, (2 * 64 * 256 + 1,), torch.float32, cuda))
+    a = buf[1:].view(2, 64, 256)  # contiguous, 4 bytes past an aligned base
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    before = rglru.LAUNCHES_BY_VARIANT["cp_async"]
+    got = rglru.rglru_scan(a, a)
+    torch.cuda.synchronize()
+    assert rglru.LAUNCHES_BY_VARIANT["cp_async"] == before + 1
+    torch.testing.assert_close(got, rglru.rglru_scan_plain(a, a), **RGLRU_TOL)
+    fn = rglru._kernel_fn("tma")
+    rc = fn(0, 64, a.data_ptr(), a.data_ptr(), None, torch.empty_like(a).data_ptr(), 2, 64,
+            256, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 def test_scan_wrappers_raise_instead_of_falling_back(cuda):

@@ -4,10 +4,17 @@
 tensors; it must be bit-identical to `repro.kernels.knapsack`'s numpy
 implementation (`impl="numpy"`, the live reference: the reference's jax and
 pallas paths need `jax.experimental.enable_x64`), in ``best``, the
-backtracked ``counts`` and the raw take bits.  The arithmetic is adds and
-compares only, so every comparison here is exact.  The CUDA kernel is
-held against the plain version on the card in tests/test_torch_gpu.py.
+backtracked ``counts`` and the raw take bits (packed 32 states to a word
+in the port, unpacked here).  The arithmetic is adds and compares only, so
+every comparison here is exact.  The CUDA kernel's index math (packed
+coordinates, slices of a cluster, reads across slices, the packed take
+words and the backtrack over them) is emulated here in numpy
+(`_cluster_emulated`) and held against the plain version; the kernel
+itself is held against the plain version on the card in
+tests/test_torch_gpu.py.
 """
+import pathlib
+import re
 import numpy as np
 import pytest
 import torch
@@ -58,8 +65,15 @@ def _assert_parity(values, weights, bounds, cap_levels):
     if steps.step_values.shape[1]:
         best, take = knapsack.knapsack_dp_plain(*steps.to("cpu"))
         ref_best, ref_take = _ref_take(values, weights, bounds, cap_levels)
-        np.testing.assert_array_equal(take.numpy(), ref_take)
+        np.testing.assert_array_equal(knapsack.unpack_take(take, steps.states).numpy(),
+                                      ref_take)
+        np.testing.assert_array_equal(take.numpy(),
+                                      knapsack.pack_take(torch.from_numpy(ref_take)).numpy())
         np.testing.assert_array_equal(best.numpy(), ref_best)
+        # The kernel's route to the counts: the mask of steps taken.
+        taken = knapsack.taken_steps_plain(take, steps.shifts, steps.final_idx)
+        np.testing.assert_array_equal(steps.counts_from_taken(taken, got.counts.shape[1]),
+                                      ref.counts)
     return got
 
 
@@ -172,3 +186,189 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError):
         knapsack.price_knapsacks(*args)
+
+
+# ---- packed take bits and the mask of steps taken -------------------------------
+
+
+@pytest.mark.parametrize("s_n", [1, 31, 32, 33, 100, 30_940])
+def test_pack_take_round_trip(s_n):
+    """Ragged S, a word's bit 31 (the int32 sign) and the last partial word."""
+    rng = np.random.RandomState(s_n)
+    take = torch.from_numpy(rng.rand(3, 2, s_n) < 0.5)
+    take[..., -1] = True
+    packed = knapsack.pack_take(take)
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (3, 2, -(-s_n // 32))
+    assert torch.equal(knapsack.unpack_take(packed, s_n), take)
+    if s_n >= 32:  # state 31 is a word's sign bit
+        assert torch.equal(packed[..., 0] < 0, take[..., 31])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("seed", range(4))
+def test_taken_mask_counts_equal_backtrack(seed, dtype):
+    """The mask of steps taken gives `_backtrack`'s counts and the
+    reference's, on the seeded sweep."""
+    rng = np.random.RandomState(100 + seed)
+    args = _random_pricing(rng, int(rng.randint(2, 6)), int(rng.randint(2, 7)),
+                           int(rng.randint(1, 4)), dtype)
+    steps = knapsack.pricing_steps(*args)
+    if not steps.step_values.shape[1]:
+        pytest.skip("no steps at this seed")  # pragma: no cover
+    e_n = args[0].shape[1]
+    _best, take = knapsack.knapsack_dp_plain(*steps.to("cpu"))
+    taken = knapsack.taken_steps_plain(take, steps.shifts, steps.final_idx)
+    want = steps.counts(knapsack.unpack_take(take, steps.states).numpy(), e_n)
+    np.testing.assert_array_equal(steps.counts_from_taken(taken, e_n), want)
+    ref = ref_knap.price_knapsacks(*args, impl="numpy")
+    np.testing.assert_array_equal(steps.counts_from_taken(taken, e_n), ref.counts)
+
+
+# ---- the CUDA kernel's index math, emulated ---------------------------------
+
+
+def _cluster_emulated(sv, sw, fi, levels, c):
+    """The ``cluster`` kernel's arithmetic in numpy: states in `_layout`'s
+    slices of 2^k states over CTAs, each state's coordinates packed once
+    (`_packing`), a step's fit test one subtraction, the shifted read from
+    whichever slice owns the state, take packed a warp (32 states) to a
+    word, and the backtrack over those words.  Returns (best, take words,
+    mask of steps taken)."""
+    sv, sw, fi = (np.asarray(t) for t in (sv, sw, fi))
+    b_n, t_n = sv.shape
+    s_n = int(np.prod(levels))
+    n_ctas, log2 = knapsack._layout(s_n, c)
+    p = 1 << log2
+    assert p % 32 == 0 and (n_ctas - 1) * p < s_n <= n_ctas * p
+    offsets, guards = knapsack._packing(levels)
+    strides = knapsack.grid_strides(levels)
+    lv = np.asarray(levels, dtype=np.int64)
+    s = np.arange(n_ctas * p, dtype=np.int64)
+    x = np.full(s.shape, guards, dtype=np.uint64)
+    for d in range(len(levels)):
+        digit = ((s.astype(np.uint32) // np.uint32(strides[d])) % np.uint32(lv[d]))
+        x += digit.astype(np.uint64) << np.uint64(offsets[d])
+    live = ((sw >= 0) & (sw < lv)).all(axis=-1)  # (B, T)
+    need = (sw.astype(np.uint64) << np.asarray(offsets, dtype=np.uint64)).sum(
+        axis=-1, dtype=np.uint64)
+    shift = np.where(live, (sw * strides).sum(axis=-1), -1)
+    words = -(-s_n // 32)
+    val = np.zeros((b_n, n_ctas, p), dtype=sv.dtype)
+    take = np.zeros((t_n, b_n, words), dtype=np.int32)
+    g = np.uint64(guards)
+    for t in range(t_n):
+        new = val.copy()
+        for b in range(b_n):
+            st = shift[b, t]
+            f = (s < s_n) & (st >= 0) & (((x - need[b, t]) & g) == g)
+            src = np.where(f, s - st, 0)
+            got = np.where(f, val[b, src >> log2, src & (p - 1)], 0).astype(sv.dtype)
+            old = val[b].reshape(-1)
+            cand = got + sv[b, t]
+            tk = f & (cand > old)
+            new[b] = np.where(tk, cand, old).reshape(n_ctas, p)
+            bits = tk.reshape(-1, 32).astype(np.int64) << np.arange(32)
+            take[t, b] = (bits.sum(axis=1) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)[:words]
+        val = new
+    best = val[np.arange(b_n), fi >> log2, fi & (p - 1)]
+    taken = np.zeros((b_n, t_n), dtype=bool)
+    for b in range(b_n):
+        cur = int(fi[b])
+        for t in range(t_n - 1, -1, -1):
+            bit = (int(take[t, b, cur >> 5]) >> (cur & 31)) & 1
+            taken[b, t] = bool(bit)
+            if bit:
+                cur -= int(shift[b, t])
+    return best, take, taken
+
+
+def _assert_emulation_equals_plain(steps, c):
+    sv, sw, fi, levels = steps.to("cpu")
+    best_p, take_p = knapsack.knapsack_dp_plain(sv, sw, fi, levels)
+    best_e, take_e, taken_e = _cluster_emulated(sv.numpy(), sw.numpy(), fi.numpy(), levels, c)
+    np.testing.assert_array_equal(best_e, best_p.numpy())
+    np.testing.assert_array_equal(take_e, take_p.numpy())
+    np.testing.assert_array_equal(
+        taken_e, knapsack.taken_steps_plain(take_p, steps.shifts, steps.final_idx))
+
+
+@pytest.mark.parametrize("c", range(1, 17))
+def test_cluster_emulation_equals_plain_on_fleet_grid(fleet_steps, c):
+    """The 30,940-state fleet grid cut into C = 1..16 slices: reads cross
+    slices, and the last slice is partial."""
+    _assert_emulation_equals_plain(fleet_steps, c)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("seed", range(4))
+def test_cluster_emulation_equals_plain_seeded(seed, dtype):
+    """Small grids with one-level dimensions and steps heavier than the
+    grid (which fit nowhere), at C = 1, 3 and 16."""
+    rng = np.random.RandomState(200 + seed)
+    values, weights, bounds, caps = _random_pricing(rng, 3, 5, 3, dtype)
+    caps[:, 1] = 0  # a dimension of one level
+    weights[0, 0, 0] = 9  # heavier than any knapsack
+    bounds[0, 0] = 2
+    steps = knapsack.pricing_steps(values, weights, bounds, caps)
+    for c in (1, 3, 16):
+        _assert_emulation_equals_plain(steps, c)
+
+
+@pytest.fixture(scope="module")
+def fleet_steps():
+    problem = _fleet_problem_ref(500)
+    class_reqs, demands, _members = ref_group_items(problem)
+    grid = ref_colgen._discretize(problem, class_reqs, 32_768)
+    duals = np.random.RandomState(5).uniform(0.0, 0.5, size=len(class_reqs))
+    values = np.repeat(duals[grid.entry_class][None, :], grid.weights.shape[0], axis=0)
+    dem = np.asarray(demands, dtype=np.int64)[grid.entry_class]
+    steps = knapsack.pricing_steps(values, grid.weights, np.minimum(grid.fit, dem[None, :]),
+                                   grid.cap_levels)
+    assert steps.states == 30_940
+    return steps
+
+
+@pytest.mark.parametrize("levels", [(28, 13, 17, 5), (1, 1, 7), (2,) * 30 + (1, 1),
+                                    (3,) * 19 + (1,) * 13, (46_341, 46_340)])
+def test_packing_fits_its_word_and_tests_fit(levels):
+    """Every grid under 2^31 states packs into 64 bits, even with 32
+    dimensions; on sampled states and weights the one-subtraction test
+    equals the per-dimension compares."""
+    offsets, guards = knapsack._packing(levels)
+    assert guards < 1 << 64
+    rng = np.random.RandomState(len(levels))
+    lv = np.asarray(levels, dtype=np.int64)
+    for _ in range(200):
+        coord = rng.randint(0, lv)
+        w = rng.randint(0, lv)
+        x = guards + sum(int(c) << o for c, o in zip(coord, offsets))
+        need = sum(int(v) << o for v, o in zip(w, offsets))
+        assert (((x - need) & guards) == guards) == bool((coord >= w).all())
+
+
+@pytest.mark.parametrize("b_n,s_n,want", [
+    (15, 30_940, ("cluster", 8, 12)),   # the main path's largest call: 120 CTAs
+    (18, 30_940, ("cluster", 4, 13)),   # 4 CTAs a knapsack keep 72 in one wave
+    (3, 30_940, ("cluster", 16, 11)),
+    (18, 120_384, ("cluster", 15, 13)),  # the large grid: 16 slices' worth, 15 used
+    (1, 50, ("cluster", 2, 5)),          # slices of 32 states
+    (200, 40, ("cluster", 1, 6)),        # more knapsacks than SMs: one CTA each
+    (4, 131_072, ("cluster", 16, 13)),
+    (4, 131_073, ("global", 1, 0)),
+    (2, 2**31 - 1, ("global", 1, 0)),
+])
+def test_variant_and_layout(b_n, s_n, want):
+    variant = knapsack._variant(s_n)
+    got = (variant, *(knapsack._layout(s_n, knapsack._cluster_size(b_n, s_n, 132))
+                      if variant == "cluster" else (1, 0)))
+    assert got == want
+
+
+def test_kernel_limits_match_the_source():
+    """`_MAX_SLICE` and `_MAX_CLUSTER` are the source's kMaxSlice and
+    kMaxCluster (the C side refuses a layout beyond them)."""
+    src = (pathlib.Path(knapsack.__file__).parent / "csrc" / "knapsack.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kMax\w+) = (\d+);", src))
+    assert int(consts["kMaxSlice"]) == knapsack._MAX_SLICE
+    assert int(consts["kMaxCluster"]) == knapsack._MAX_CLUSTER
+    assert int(consts["kMaxDims"]) == knapsack._MAX_DIMS

@@ -139,8 +139,82 @@ def test_init_has_the_reference_shapes_and_types():
 
 @pytest.mark.parametrize("s", [1, 7, 64, 65, 77, 1000, 1024, 4096, 100_000])
 def test_kernel_chunks_cover_the_sequence(s):
-    """The CUDA kernel's time chunks: at most 16, about 64 steps each, every
-    chunk holding at least one step."""
-    n, per = rglru.chunks(s)
-    assert 1 <= n <= 16 and (n - 1) * per < s <= n * per
-    assert n == 16 or per <= 64
+    """The CUDA kernel's ring walks S in boxes of `BOX_STEPS` steps, the last
+    one partial and none empty."""
+    n, last = rglru.boxes(s)
+    assert n >= 1 and 1 <= last <= rglru.BOX_STEPS
+    assert (n - 1) * rglru.BOX_STEPS + last == s
+
+
+STAGES = 4  # kStages in csrc/rglru.cu
+
+
+def _ring_emulated(a, b, h0, lanes, variant):
+    """The kernel's walk in numpy, CTA by CTA: a ring of `STAGES` stages of
+    (BOX_STEPS x lanes) boxes of a and b, loaded as the kernel loads them
+    (the first `STAGES` boxes, then box i + STAGES into box i's stage once
+    box i is walked), float32 multiply-adds, h stored only for lanes inside
+    W.  ``"tma"`` zero-fills a box past S or W; ``"cp_async"`` copies only
+    a lane's steps inside them and leaves the rest of the stage as it was
+    (NaN here, so a read of it would show)."""
+    bsz, s, w = a.shape
+    h = np.full_like(a, np.nan)
+    n_boxes, _ = rglru.boxes(s)
+    for row in range(bsz):
+        for w0 in range(0, w, lanes):
+            ring = np.full((STAGES, 2, rglru.BOX_STEPS, lanes), np.nan, dtype=np.float32)
+
+            def load(i):
+                box = ring[i % STAGES]
+                t0 = i * rglru.BOX_STEPS
+                t1, w1 = min(s, t0 + rglru.BOX_STEPS), min(w, w0 + lanes)
+                if variant == "tma":
+                    box[:] = 0.0
+                box[0, :t1 - t0, :w1 - w0] = a[row, t0:t1, w0:w1]
+                box[1, :t1 - t0, :w1 - w0] = b[row, t0:t1, w0:w1]
+
+            for i in range(min(STAGES, n_boxes)):
+                load(i)
+            state = np.zeros(lanes, dtype=np.float32)
+            if h0 is not None:
+                state[:min(w, w0 + lanes) - w0] = h0[row, w0:w0 + lanes]
+            for i in range(n_boxes):
+                box = ring[i % STAGES]
+                t0 = i * rglru.BOX_STEPS
+                for k in range(min(rglru.BOX_STEPS, s - t0)):
+                    state = (box[0, k] * state + box[1, k]).astype(np.float32)
+                    on = min(w, w0 + lanes) - w0
+                    h[row, t0 + k, w0:w0 + on] = state[:on]
+                if i + STAGES < n_boxes:
+                    load(i + STAGES)
+    return h
+
+
+@pytest.mark.parametrize("variant", ["tma", "cp_async"])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("b,s,w,with_h0", [(2, 1, 100, True), (1, 7, 77, False),
+                                           (2, 65, 130, True), (1, 1000, 64, True),
+                                           (1, 130, 77, True)])
+def test_ring_emulation_matches_plain(b, s, w, with_h0, lanes, variant):
+    """Ragged S (one step, a partial first box, a box and one step, the
+    ring wrapping many times) and ragged W (a partial lane block), with and
+    without h0: every h is written, within the card tolerance of the plain
+    recurrence."""
+    a, bb, h0 = _inputs(b, s, w, seed=s + w)
+    h0 = h0 if with_h0 else None
+    got = _ring_emulated(a, bb, h0, lanes, variant)
+    assert not np.isnan(got).any()
+    want = rglru.rglru_scan_plain(torch.from_numpy(a), torch.from_numpy(bb),
+                                  None if h0 is None else torch.from_numpy(h0))
+    np.testing.assert_allclose(got, want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bsz,w,aligned,want", [
+    (4, 4096, True, ("tma", 128)),    # recurrentgemma-9b's served prefill: 128 CTAs
+    (2, 4096, True, ("tma", 64)),     # 64 CTAs of 128 lanes would idle half the SMs
+    (3, 100, True, ("tma", 64)),      # 400-byte rows are 16-byte aligned
+    (3, 77, True, ("cp_async", 64)),  # 308-byte rows are not
+    (2, 64, False, ("cp_async", 64)),  # a base address off 16 bytes
+])
+def test_variant_and_lanes(bsz, w, aligned, want):
+    assert (rglru._variant(w, aligned), rglru._lanes(bsz, w, 132)) == want
