@@ -35,6 +35,20 @@ its plain torch version.  Phases, each raising on failure:
    queued while the card spins (`time_cold_ms`), beside the bound with
    take at one byte a state (as the first port of the kernel counted it)
    and at one bit;
+5b. the paper's test runs: VGG-16 and ZF at full width on a 640x480 frame
+   (`PROGRAMS`, default device) against the same seeded weights on the
+   CPU (1e-3 of the largest logit), each timed warm a frame a call (CUDA
+   events, median of 25) beside its bound; ``calibrate(impl="torch")`` on
+   the card against ``impl="numpy"`` bit for bit on both presets and 256
+   random workloads each, quantized and raw, and the numpy artifacts
+   against the committed ``CALIBRATION_*.json``; the reference's two
+   calibrated allocations (`benchmarks/calibration.py`: ec2, 20 VGG-16 at
+   0.2 FPS and 20 ZF at 5 FPS; the 50-stream tpu mix) through
+   branch-and-price on the card, knapsack launches counted (set to 0
+   just before each allocate), each plan compared with the same
+   allocation with ``device="cpu"`` and with the reference's
+   (`REFERENCE_CALIBRATED`); then ``cpu_mode="measured"`` on the ec2
+   preset, the programs timed on this machine's CPU (logged);
 6. serving kernels vs plain on the card.  Attention in float32 (atol =
    rtol = 2e-5) and bfloat16 (rtol one bf16 ulp, 2^-7, atol 1e-4): flash
    attention at gemma2-2b's served prefill (B=4, S=2048), at 8192 tokens
@@ -151,15 +165,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config  # noqa: E402
+from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core.binpack import colgen  # noqa: E402
 from repro_torch.core.binpack.arcflow import group_items  # noqa: E402
 from repro_torch.core.binpack.problem import BinType  # noqa: E402
-from repro_torch.core.catalog import paper_ec2_catalog  # noqa: E402
+from repro_torch.core.catalog import paper_ec2_catalog, tpu_cloud_catalog  # noqa: E402
 from repro_torch.core.manager import ResourceManager  # noqa: E402
 from repro_torch.core.profiler import paper_profile_table  # noqa: E402
 from repro_torch.core.simulator import simulate_plan  # noqa: E402
 from repro_torch.core.strategies import ALL_STRATEGIES, ST1, ST3  # noqa: E402
-from repro_torch.core.streams import AnalysisProgram, StreamSpec  # noqa: E402
+from repro_torch.core.streams import AnalysisProgram, FrameSize, StreamSpec  # noqa: E402
 from repro_torch.interop import plan_to_plain  # noqa: E402
 from repro_torch.kernels import _build, knapsack  # noqa: E402
 from repro_torch.kernels import attention as flash  # noqa: E402
@@ -167,6 +182,7 @@ from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rglru, ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import analysis_programs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -226,6 +242,29 @@ KINDS = [(VGG, f) for f in (0.05, 0.1, 0.15, 0.2, 0.25)] + [
 ]
 #: The main path's fleet: cameras over the 10 kinds (REFERENCE_500's fleet).
 N_CAMERAS = 500
+#: Phase 5b: the JAX reference's calibrated allocations on a CPU (numpy
+#: pricing; `benchmarks/calibration.py`'s two scenarios): $/h, instances by
+#: type, optimal.
+REFERENCE_CALIBRATED = {
+    "ec2": (3.900, {"g2.2xlarge": 6}, True),
+    "tpu": (12.870, {"v5e-4": 1, "v5e-8": 1}, False),
+}
+#: The tpu scenario's 50-stream mix, a copy of `benchmarks/calibration.py`'s
+#: ``MIX``: (program, fps, count).
+CALIBRATED_MIX = (
+    ("vgg16", 0.2, 12),
+    ("zf", 5.0, 8),
+    ("internlm2-1.8b", 0.05, 10),
+    ("gemma2-2b", 4.0, 8),
+    ("llava-next-mistral-7b", 1.5, 6),
+    ("mamba2-1.3b", 0.4, 6),
+)
+#: Phase 5b: VGG-16 and ZF on the card against the same weights on the
+#: CPU, both float32 (TF32 off): cuDNN's and the CPU's convs sum in other
+#: orders, so 1e-3 of the largest logit, as for the float32 models.
+PROGRAM_RTOL = 1e-3
+#: The analysis programs' camera frame (the paper's MJPEG streams).
+PROGRAM_FRAME = FrameSize(640, 480)
 
 
 def camera_fleet(n: int) -> list[StreamSpec]:
@@ -676,6 +715,199 @@ def phase_timing(largest) -> dict:
         "bytes": bytes_moved, "bytes_take_bits": bits_moved, "ops": ops,
         "B": b_n, "T": t_n, "S": s_n,
     }
+
+
+# --------------------------------------------------------------- phase 5b
+
+
+def time_frames_ms(fn, frame, reps: int = 25, warmup: int = 3) -> list[float]:
+    """ms of each of ``reps`` warm calls ``fn(frame)`` (CUDA events around
+    each; the frame's copy to the card included)."""
+    for _ in range(warmup):
+        fn(frame)
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(frame)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def phase_analysis_programs() -> dict:
+    """VGG-16 and ZF at full width on a 640x480 frame, one frame a call, on
+    the card against the CPU; ms per frame beside the bound."""
+    frame = analysis_programs.make_frame(PROGRAM_FRAME)
+    out = {}
+    for pid, run in analysis_programs.PROGRAMS.items():
+        got = run(frame)  # default: the card
+        if got.device.type != "cuda":
+            raise AssertionError(f"{pid}: ran on {got.device}")
+        want = run(frame, device="cpu")
+        got = got.cpu()
+        if got.shape != (1, 105) or not torch.isfinite(got).all():
+            raise AssertionError(f"{pid}: logits {tuple(got.shape)}, finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not scale > 0 or err > PROGRAM_RTOL * scale:
+            raise AssertionError(f"{pid}: card vs CPU {err:.3g} > {PROGRAM_RTOL} x {scale:.3g}")
+        times = time_frames_ms(run, frame)
+        flops = analysis_programs.program_flops(pid, PROGRAM_FRAME)
+        weight_bytes = 4.0 * analysis_programs.program_params(pid)
+        bound = _bound(weight_bytes, flops, SIMT_OPS_PER_S)
+        ms = float(np.median(times))
+        log(f"  {pid}: card vs CPU max |err| {err:.3g} (largest logit {scale:.4g}); "
+            f"{ms:.4f} ms a frame (median of {len(times)}, {min(times):.4f}-{max(times):.4f}); "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: {flops:.4g} FLOPs, "
+            f"{weight_bytes:.4g} weight bytes)")
+        out[pid] = {"max_abs_err": err, "largest_logit": scale, "ms": ms,
+                    "min_ms": min(times), "max_ms": max(times), "calls": len(times),
+                    "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                    "flops": flops, "weight_bytes": weight_bytes}
+    return out
+
+
+def phase_calibration() -> dict:
+    """``impl="torch"`` on the card against ``impl="numpy"`` bit for bit
+    (quantized and raw, on the presets and 256 random workloads each), and
+    the numpy artifacts against the committed ``CALIBRATION_*.json``."""
+    out = {}
+    for name, preset in sorted(cal.PRESETS.items()):
+        kwargs = dict(cpu=preset.cpu, roofline=preset.roofline,
+                      host_cores_fraction=preset.host_cores_fraction)
+        catalog = preset.catalog_fn()
+        np_art = cal.calibrate(catalog, preset.workloads_fn(), impl="numpy", **kwargs)
+        if cal.CalibrationArtifact.load(cal.default_artifact_path(name)) != np_art:
+            raise AssertionError(f"CALIBRATION_{name}.json differs from a fresh calibration")
+        caps = cal._max_caps((bt.name, tuple(float(c) for c in bt.capacity)) for bt in catalog)
+        rng = np.random.RandomState(len(name))
+        randoms = tuple(
+            cal.ProgramWorkload(f"w{i}", float(10.0 ** rng.uniform(3, 16)),
+                                float(10.0 ** rng.uniform(3, 16)),
+                                float(rng.uniform(1e-3, max(caps[1], caps[3]))))
+            for i in range(256))
+        quant = cal._quant
+        t_card = []
+        try:
+            for raw in (False, True):
+                cal._quant = float if raw else quant
+                for label, workloads in (("preset", preset.workloads_fn()),
+                                         ("random", randoms)):
+                    want = cal.calibrate(catalog, workloads, impl="numpy", **kwargs)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = cal.calibrate(catalog, workloads, impl="torch", **kwargs)
+                    t_card.append(time.perf_counter() - t0)
+                    if got.entries != want.entries:
+                        raise AssertionError(f"calibration {name} {label} raw={raw}: "
+                                             "torch on the card differs from numpy")
+        finally:
+            cal._quant = quant
+        log(f"  {name}: CALIBRATION_{name}.json fresh; impl='torch' on the card equals "
+            f"numpy bit for bit ({len(np_art.entries)} preset entries, "
+            f"{len(randoms)} random workloads; quantized and raw); "
+            f"{min(t_card) * 1e3:.3f}-{max(t_card) * 1e3:.3f} ms a calibration")
+        out[name] = {"entries": len(np_art.entries), "random_workloads": len(randoms),
+                     "torch_ms": [t * 1e3 for t in t_card]}
+    return out
+
+
+def calibrated_streams(name: str) -> list[StreamSpec]:
+    if name == "ec2":
+        vgg, zf = AnalysisProgram("vgg16", "vgg16"), AnalysisProgram("zf", "zf")
+        return ([StreamSpec(f"v{i}", vgg, 0.2) for i in range(20)]
+                + [StreamSpec(f"z{i}", zf, 5.0) for i in range(20)])
+    return [StreamSpec(f"{pid[:5]}{i}", AnalysisProgram(pid, pid), fps)
+            for pid, fps, n in CALIBRATED_MIX for i in range(n)]
+
+
+def phase_calibrated_allocations() -> dict:
+    """The two calibrated scenarios through branch-and-price on the card:
+    knapsack launches counted, plans equal to the CPU's and the
+    reference's."""
+    out = {}
+    for name, catalog_fn in (("ec2", paper_ec2_catalog), ("tpu", tpu_cloud_catalog)):
+        art = cal.load_or_calibrate(name)
+        streams = calibrated_streams(name)
+        for s in streams:
+            art.check_stream(s)
+        manager = ResourceManager(catalog_fn(), calibration=art, solver="colgen")
+        if manager.device.type != "cuda":
+            raise AssertionError(f"default manager device is {manager.device}")
+        with LaunchRecorder() as rec:
+            knapsack.LAUNCHES = 0
+            for variant in knapsack.LAUNCHES_BY_VARIANT:
+                knapsack.LAUNCHES_BY_VARIANT[variant] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = manager.allocate(streams)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = knapsack.LAUNCHES
+            by_variant = dict(knapsack.LAUNCHES_BY_VARIANT)
+        if launches == 0:
+            raise AssertionError(f"calibrated {name}: the knapsack kernel launched 0 times")
+        plan.solution.validate()
+        kernel_ms = rec.kernel_ms()
+        cpu_plan = ResourceManager(catalog_fn(), calibration=art, solver="colgen",
+                                   device="cpu").allocate(streams)
+        if knapsack.LAUNCHES != launches:
+            raise AssertionError("the CPU allocate launched the kernel")
+        a, b = plan_to_plain(plan), plan_to_plain(cpu_plan)
+        for key in a:
+            same = (np.array_equal(a[key], b[key]) if isinstance(a[key], np.ndarray)
+                    else a[key] == b[key])
+            if not same:
+                raise AssertionError(f"calibrated {name}: card and CPU plans differ in {key}")
+        cost, counts, optimal = REFERENCE_CALIBRATED[name]
+        if (abs(plan.hourly_cost - cost) > 1e-9 or plan.instance_counts() != counts
+                or plan.optimal != optimal):
+            raise AssertionError(
+                f"calibrated {name}: ${plan.hourly_cost:.3f}/h {plan.instance_counts()} "
+                f"optimal={plan.optimal}, reference ${cost:.3f}/h {counts} optimal={optimal}")
+        split = {}
+        for p in plan.placements:
+            split[p.device] = split.get(p.device, 0) + 1
+        log(f"  {name} ({len(streams)} streams): ${plan.hourly_cost:.3f}/h "
+            f"{plan.instance_counts()} optimal={plan.optimal}, split {split}; identical to "
+            f"the CPU's plan and to the reference's; allocate wall {wall_s:.3f} s, "
+            f"kernel {kernel_ms:.3f} ms, {launches} launches by variant {by_variant} in "
+            f"{len(rec.calls)} pricing calls ({sum(rec.calls) * 1e3:.3f} ms)")
+        out[name] = {"streams": len(streams), "hourly_cost": plan.hourly_cost,
+                     "instances": plan.instance_counts(), "optimal": plan.optimal,
+                     "split": split, "allocate_wall_s": wall_s, "kernel_ms": kernel_ms,
+                     "launches": launches, "launches_by_variant": by_variant,
+                     "pricing_calls": len(rec.calls), "pricing_ms": sum(rec.calls) * 1e3}
+    return out
+
+
+def phase_measured_calibration() -> dict:
+    """``cpu_mode="measured"`` on the ec2 preset: real wall-clock test runs
+    of VGG-16 and ZF on this machine's CPU (logged, not gated on values)."""
+    preset = cal.PRESETS["ec2"]
+    t0 = time.perf_counter()
+    art = cal.calibrate(preset.catalog_fn(), preset.workloads_fn(), cpu=preset.cpu,
+                        roofline=preset.roofline, cpu_mode="measured",
+                        host_cores_fraction=preset.host_cores_fraction)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for e in art.entries:
+        if e.device == "cpu":
+            if e.source != "measured" or not (e.requirement[0] > 0 and e.max_fps > 0):
+                raise AssertionError(f"measured {e.program_id}: source {e.source}, "
+                                     f"requirement {e.requirement}, max {e.max_fps}")
+        log(f"  {e.program_id} {e.device}: {list(e.requirement)} max {e.max_fps} fps "
+            f"({e.source})")
+        out[f"{e.program_id}/{e.device}"] = {"requirement": list(e.requirement),
+                                             "max_fps": e.max_fps, "source": e.source}
+    if {k for k, v in out.items() if v["source"] == "measured"} != {"vgg16/cpu", "zf/cpu"}:
+        raise AssertionError(f"measured mode: sources {out}")
+    log(f"  measured calibration took {seconds:.2f} s")
+    return {"entries": out, "seconds": seconds}
 
 
 # --------------------------------------------------------------- phase 6
@@ -2117,6 +2349,13 @@ def main(argv=None) -> int:
         result["main_path"] = main_path
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
+        timer.begin("phase 5b", "analysis programs, calibration and calibrated allocations")
+        result["analysis_programs"] = phase_analysis_programs()
+        result["calibration"] = phase_calibration()
+        result["calibrated_allocations"] = phase_calibrated_allocations()
+        result["measured_calibration"] = phase_measured_calibration()
+        analysis_programs._initialised.cache_clear()
+        torch.cuda.empty_cache()
 
     timer.begin("phase 6", "attention, SSD, RG-LRU and grouped GEMM kernels vs plain on the card")
     kernel_checks = phase_kernels_vs_plain()
@@ -2174,6 +2413,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "variant": timing["variant"],
             "launches_by_variant": main_path["launches_by_variant"],
+            "calibrated_launches": {name: a["launches"] for name, a in
+                                    result["calibrated_allocations"].items()},
             "global_ms": timing["global_ms"],
             "bound_bits_ms": timing["bound_bits_ms"],
             "bound_bits_by": timing["bound_bits_by"],

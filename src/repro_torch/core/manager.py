@@ -31,12 +31,10 @@ __all__ = ["AllocationPlan", "PlacedStream", "ResourceManager"]
 #: Entry points of the reference manager that later slices port, with the
 #: ROADMAP.md queue A item that ports each.
 _NOT_PORTED = {
-    "calibration": "calibrated requirements are not ported yet "
-    "(ROADMAP.md queue A item 8, core/calibration.py)",
     "controller": "the live re-planning controller is not ported yet "
-    "(ROADMAP.md queue A item 9, core/controller.py)",
+    "(ROADMAP.md queue A item 2, core/controller.py)",
     "sharded_controller": "the sharded controller is not ported yet "
-    "(ROADMAP.md queue A item 10, core/shard.py)",
+    "(ROADMAP.md queue A item 3, core/shard.py)",
 }
 
 
@@ -84,8 +82,14 @@ class AllocationPlan:
 class ResourceManager:
     """Estimates requirements, formulates MC-VBP, solves, and plans.
 
-    ``device`` is where branch-and-price runs its pricing DP: the card by
-    default (raises when there is none), the CPU only when asked for.
+    Requirements come from a profile table or from a calibration artifact
+    (``calibration=``, `set_calibration`; `core.calibration`).  ``device``
+    is where branch-and-price runs its pricing DP: the card by default
+    (raises when there is none), the CPU only when asked for.
+
+    The reference's live re-planning entry points, `controller`, `replan`
+    and `sharded_controller`, are not ported yet and raise
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -102,11 +106,18 @@ class ResourceManager:
     ) -> None:
         self.catalog = tuple(catalog)
         if calibration is not None:
-            raise NotImplementedError(_NOT_PORTED["calibration"])
-        if profiles is None:
-            raise ValueError("ResourceManager needs profiles")
+            # Calibrated source (core.calibration.CalibrationArtifact):
+            # requirement vectors come from the artifact's measured/derived
+            # profiles; the artifact must have been taken against this
+            # catalog's shape (signature-checked, StaleCalibrationError).
+            if profiles is not None:
+                raise ValueError("pass either profiles or calibration=, not both")
+            calibration.verify(self.catalog)
+            profiles = calibration.profile_table()
+        elif profiles is None:
+            raise ValueError("ResourceManager needs profiles or calibration=")
         self.device = resolve_device(device)
-        self.calibration = None
+        self.calibration = calibration
         self.profiles = profiles
         self.utilization_cap = utilization_cap
         self.solver = solver
@@ -156,8 +167,16 @@ class ResourceManager:
         return problem
 
     def set_calibration(self, artifact) -> None:
-        """Swap in a (re)calibrated artifact (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED["calibration"])
+        """Swap in a (re)calibrated artifact: fresh vectors.
+
+        Verifies the artifact against this manager's catalog, replaces the
+        profile table, and invalidates the formulate memo so every
+        subsequent solve re-derives its requirement vectors.
+        """
+        artifact.verify(self.catalog)
+        self.calibration = artifact
+        self.profiles = artifact.profile_table()
+        self._formulate_cache.clear()
 
     def controller(self, strategy: Strategy = ST3, **kwargs):
         """The live re-planning controller (not ported yet)."""

@@ -1,7 +1,7 @@
 """State carried across packages as plain values.
 
 The manager's state is the catalog, the profile table and the problem; the
-serving path's is the model's weights.  These helpers convert between the
+serving path's and the analysis programs' are their weights.  These helpers convert between the
 port's objects and plain tuples and numpy arrays — names, capacities,
 costs, requirement vectors, assignments, weight arrays — so that any
 producer of the same plain form (a file, another implementation of the
@@ -34,6 +34,7 @@ __all__ = [
     "profile_table_from_plain",
     "plan_to_plain",
     "params_from_plain",
+    "analysis_params_from_plain",
 ]
 
 
@@ -198,3 +199,28 @@ def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
                                 MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp))))
     return tfm.Transformer(put(tree["embed"]), put(tree["final_norm"]), blocks,
                            unembed=opt(tree, "unembed"), vision_proj=opt(tree, "vision_proj"))
+
+
+def analysis_params_from_plain(program_id: str, tree: dict, *, device=None) -> dict:
+    """The port's VGG-16 or ZF parameters from the reference's pytree.
+
+    ``tree`` is what the reference's ``init_vgg16``/``init_zf`` returns,
+    with every leaf a numpy array: ``convs``, one ``{"w": (kh, kw, cin,
+    cout) HWIO, "b"}`` per conv, and ``fc``, one ``{"w": (d_in, d_out),
+    "b"}`` per head layer.  Conv weights become OIHW; the fc weights keep
+    their layout, fc6's rows included, since the port flattens the trunk's
+    output in the reference's (h, w, c) order.  float32, on ``device``
+    (default: the card).
+    """
+    if program_id not in ("vgg16", "zf"):
+        raise KeyError(program_id)
+    dev = resolve_device(device)
+
+    def put(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return {
+        "convs": [{"w": put(np.transpose(p["w"], (3, 2, 0, 1))), "b": put(p["b"])}
+                  for p in tree["convs"]],
+        "fc": [{"w": put(p["w"]), "b": put(p["b"])} for p in tree["fc"]],
+    }

@@ -12,7 +12,9 @@ their plain versions, both in float32: float32 is held to the
 reference's kernel tolerance, 2e-5; in bfloat16 the two round to outputs
 at most one bf16 ulp apart (rtol 2^-7), with atol 1e-4 for the float32
 difference.  The SSD and RG-LRU scans' and the grouped GEMM's limits are
-stated beside their tests.
+stated beside their tests.  Calibration on the card equals the numpy path
+bit for bit; VGG-16 and ZF on the card (cuDNN convs, TF32 off) are within
+1e-3 of the largest logit of the same weights on the CPU.
 """
 import dataclasses
 
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import calibration as cal
 from repro_torch.core.binpack import colgen
 from repro_torch.core.binpack.arcflow import group_items
 from repro_torch.core.catalog import paper_ec2_catalog
@@ -32,6 +35,7 @@ from repro_torch.kernels import attention as flash
 from repro_torch.kernels import decode_attention as decode
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import knapsack, rglru, ssd
+from repro_torch.models import analysis_programs as ap
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Request, ServingEngine
 
@@ -812,3 +816,69 @@ def test_moe_engines_on_card_give_the_cpu_engine_tokens(cuda, arch):
         want = [layers * waves, layers * steps, 3 * layers * (waves + steps)]
         assert launched == ([0, 0, 0] if dev == "cpu" else want)
     assert tokens["cpu"] == tokens[str(cuda)]
+
+
+# ---- calibration and the analysis programs ------------------------------
+
+def _random_workloads(name, n, seed):
+    """FLOPs and bytes log-uniform over 1e3-1e16, memory inside the preset
+    catalog's largest capacity (as tests/test_torch_calibration.py draws)."""
+    catalog = cal.PRESETS[name].catalog_fn()
+    caps = cal._max_caps((bt.name, tuple(float(c) for c in bt.capacity)) for bt in catalog)
+    rng = np.random.RandomState(seed)
+    mem_cap = max(caps[1], caps[3])
+    return tuple(
+        cal.ProgramWorkload(f"w{i}", float(10.0 ** rng.uniform(3, 16)),
+                            float(10.0 ** rng.uniform(3, 16)),
+                            float(rng.uniform(1e-3, mem_cap)))
+        for i in range(n)
+    )
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["quantized", "raw"])
+@pytest.mark.parametrize("name", sorted(cal.PRESETS))
+def test_calibrate_torch_on_card_equals_numpy(cuda, monkeypatch, name, quantized):
+    """On CUDA a tensor over a CPU scalar multiplies by the reciprocal; the
+    torch path divides tensor by tensor, so it must equal the scalar path
+    bit for bit, before quantization too."""
+    if not quantized:
+        monkeypatch.setattr(cal, "_quant", float)
+    preset = cal.PRESETS[name]
+    kwargs = dict(cpu=preset.cpu, roofline=preset.roofline,
+                  host_cores_fraction=preset.host_cores_fraction)
+    for workloads in (preset.workloads_fn(), _random_workloads(name, 256, len(name))):
+        np_art = cal.calibrate(preset.catalog_fn(), workloads, impl="numpy", **kwargs)
+        card = cal.calibrate(preset.catalog_fn(), workloads, impl="torch", **kwargs)
+        assert card.entries == np_art.entries
+
+
+def test_calibrated_allocation_on_card_equals_cpu_plan(cuda):
+    art = cal.load_or_calibrate("ec2")
+    vgg, zf = AnalysisProgram("vgg16", "vgg16"), AnalysisProgram("zf", "zf")
+    streams = ([StreamSpec(f"v{i}", vgg, 0.2) for i in range(20)]
+               + [StreamSpec(f"z{i}", zf, 5.0) for i in range(20)])
+    before = knapsack.LAUNCHES
+    card = ResourceManager(paper_ec2_catalog(), calibration=art,
+                           solver="colgen").allocate(streams)
+    assert knapsack.LAUNCHES > before
+    cpu = ResourceManager(paper_ec2_catalog(), calibration=art, solver="colgen",
+                          device="cpu").allocate(streams)
+    a, b = plan_to_plain(card), plan_to_plain(cpu)
+    for key in a:
+        if isinstance(a[key], np.ndarray):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        else:
+            assert a[key] == b[key], key
+    assert card.hourly_cost == pytest.approx(3.9, abs=1e-9) and card.optimal
+
+
+@pytest.mark.parametrize("program_id", ["vgg16", "zf"])
+def test_analysis_program_on_card_matches_cpu(cuda, program_id):
+    frame = ap.make_frame(ap.FrameSize(640, 480))
+    out = ap.PROGRAMS[program_id](frame)
+    assert out.device.type == "cuda" and out.shape == (1, 105)
+    want = ap.PROGRAMS[program_id](frame, device="cpu")
+    got = out.cpu()
+    assert torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=0)

@@ -186,9 +186,6 @@ def test_unported_entry_points_raise(managers):
         lambda: port.controller(ST3),
         lambda: port.sharded_controller(ST3),
         lambda: port.replan([], ST3),
-        lambda: port.set_calibration(object()),
-        lambda: ResourceManager(paper_ec2_catalog(), calibration=object(),
-                                device="cpu"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
             call()
