@@ -30,6 +30,24 @@ its plain torch version.  Phases, each raising on failure:
    the host's binary split, the kernel, the wait for it, the copy of
    ``best`` and the mask of steps taken, and the host's counts, and the
    plan compared with the same fleet allocated with ``device="cpu"``;
+4b. the live re-planning loop, each replay with the live loop's kernel
+   counts set to 0 just before it and read just after: (a) phase 4's
+   500-camera controller folds `LIVE_EVENTS` churn events over the same
+   10 kinds (joins, leaves, rate and price changes, a reclamation notice
+   and a preemption of the instance with the most streams), each event
+   printed with its mode, $/h, gap, migrations, knapsack launches by
+   variant and placement calls by route, wall and kernel ms, and compared
+   with the same replay with ``device="cpu"`` and with the reference's
+   `LIVE_GOLDEN`; (b) `benchmarks/churn_replan.py`'s 500-stream,
+   200-event replay on ``CALIBRATION_ec2.json`` (warm path only), its
+   digest against `REPLAN_GOLDEN`; (c) `benchmarks/lifecycle.py`
+   experiment 3 (the acting autoscaler on the 500-stream bursty growth
+   trace, 2-minute boot), billed cost, degraded stream-seconds and spares
+   against `GROWTH_GOLDEN`, every what-if on the pack scan.  Then every
+   pack-scan launch against `pack_scan_plain` on the card and every
+   greedy-repair matrix through numpy, the placement kernel and its
+   plain version, bit for bit, plus one fleet-scale matrix; both kernels
+   timed beside their plain versions and bounds;
 5. knapsack timing: each variant and the plain version on the card at the
    manager path's largest pricing call, with CUDA events around calls
    queued while the card spins (`time_cold_ms`), beside the bound with
@@ -150,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import pathlib
 import re
@@ -166,17 +185,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config  # noqa: E402
 from repro_torch.core import calibration as cal  # noqa: E402
+from repro_torch.core import streams as port_streams  # noqa: E402
 from repro_torch.core.binpack import colgen  # noqa: E402
+from repro_torch.core.binpack import heuristics  # noqa: E402
 from repro_torch.core.binpack.arcflow import group_items  # noqa: E402
 from repro_torch.core.binpack.problem import BinType  # noqa: E402
 from repro_torch.core.catalog import paper_ec2_catalog, tpu_cloud_catalog  # noqa: E402
+from repro_torch.core.lifecycle import BillingModel  # noqa: E402
 from repro_torch.core.manager import ResourceManager  # noqa: E402
 from repro_torch.core.profiler import paper_profile_table  # noqa: E402
-from repro_torch.core.simulator import simulate_plan  # noqa: E402
+from repro_torch.core.policy import ActingAutoscaler  # noqa: E402
+from repro_torch.core.simulator import simulate_churn, simulate_plan  # noqa: E402
 from repro_torch.core.strategies import ALL_STRATEGIES, ST1, ST3  # noqa: E402
 from repro_torch.core.streams import AnalysisProgram, FrameSize, StreamSpec  # noqa: E402
-from repro_torch.interop import plan_to_plain  # noqa: E402
-from repro_torch.kernels import _build, knapsack  # noqa: E402
+from repro_torch.interop import plan_to_plain, replan_result_to_plain  # noqa: E402
+from repro_torch.kernels import _build, knapsack, pack, placement  # noqa: E402
 from repro_torch.kernels import attention as flash  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
@@ -190,6 +213,85 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 #: The JAX reference's result for the 500-camera fleet on a CPU, for the
 #: reader: $/h and instance count (repro.core.manager, numpy pricing).
 REFERENCE_500 = (24.657, 39)
+#: Phase 4b: the JAX reference's answers on a CPU to the live loop's three
+#: replays (`scripts/torch_live_loop_goldens.py`, numpy pricing).  (a) per
+#: event of the 500-camera fleet's churn: (event, $/h, mode, migrated).
+LIVE_GOLDEN = (
+    ('PriceChanged', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamRateChanged', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRateChanged', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamAdded', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRateChanged', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('StreamRemoved', 22.587, 'warm', 0),
+    ('InstancePreemptionNotice', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamAdded', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamAdded', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamRemoved', 21.994500000000002, 'warm', 0),
+    ('StreamAdded', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('StreamAdded', 21.994500000000002, 'warm', 0),
+    ('StreamRateChanged', 21.994500000000002, 'warm', 0),
+    ('InstancePreempted', 21.402, 'warm', 0),
+    ('StreamAdded', 21.402, 'warm', 0),
+    ('StreamRateChanged', 21.402, 'warm', 0),
+    ('StreamRemoved', 21.402, 'warm', 0),
+    ('StreamRateChanged', 21.402, 'noop', 0),
+    ('StreamRateChanged', 21.402, 'warm', 0),
+    ('StreamRateChanged', 21.402, 'warm', 0),
+    ('StreamRateChanged', 21.402, 'warm', 0),
+    ('StreamRemoved', 21.402, 'warm', 0),
+    ('StreamAdded', 21.402, 'warm', 0),
+    ('StreamRemoved', 21.402, 'warm', 0),
+    ('PriceChanged', 21.402, 'warm', 0),
+    ('StreamRemoved', 21.402, 'warm', 0),
+    ('StreamRemoved', 21.402, 'warm', 0),
+    ('PriceChanged', 21.372600000000002, 'warm', 0),
+    ('StreamRateChanged', 21.372600000000002, 'warm', 0),
+    ('StreamRateChanged', 21.372600000000002, 'warm', 0),
+    ('StreamRateChanged', 21.372600000000002, 'warm', 0),
+    ('StreamRateChanged', 21.372600000000002, 'noop', 0),
+    ('StreamRateChanged', 21.372600000000002, 'warm', 0),
+)
+#: (b) `benchmarks/churn_replan.py`'s replay: the digest of its per-event
+#: (cost, mode, migrated, gap) rows (`replay_digest`), its modes, its last $/h.
+REPLAN_GOLDEN = {
+    "digest": "381952d8ffb8b45fcff2cf8446727122e92aedd2e3c46983f8d7b408a66c772d",
+    "modes": {"warm": 166, "full": 1, "noop": 33},
+    "final_cost": 42.3853,
+}
+#: (c) `benchmarks/lifecycle.py` experiment 3: billed $, degraded
+#: stream-seconds past the initial boot, spares provisioned.
+GROWTH_GOLDEN = {
+    "billed_cost": 154.70000000000002,
+    "degraded_stream_seconds": 1071.0208979429153,
+    "spares_provisioned": 13,
+}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; non-tensor fp32 op/s;
 #: dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -670,7 +772,527 @@ def phase_main_path() -> dict:
         "cpu_allocate_s": cpu_s,
         "largest_call": {"B": b_n, "T": t_n, "S": int(np.prod(largest[3]))},
         "_largest": largest,
+        "_managers": (manager, cpu_manager),
     }
+
+
+# --------------------------------------------------------------- phase 4b
+#
+# The trace builders below take the streams module they build events from
+# (`st`), so that `scripts/torch_live_loop_goldens.py` replays the very
+# same traces through the JAX package on a CPU to compute the goldens.
+
+#: (a) the main path's churn: events after the 500-camera allocate, the
+#: seed, and the events that reclaim the instance with the most streams
+#: (a notice, then a preemption).  Those two displace a whole instance's
+#: streams at once, the greedy repair's largest candidate matrices.
+LIVE_EVENTS = 60
+LIVE_SEED = 2020
+LIVE_NOTICE_AT = 20
+LIVE_PREEMPT_AT = 40
+LIVE_GAP_H = 0.02
+#: The controller's gap threshold for (a): wide, so that every event stays
+#: on the warm path.  On this fleet colgen's budgeted duals certify a gap
+#: near 0.5, and at the default 0.1 every event would fall back to a full
+#: branch-and-price solve of some 70-90 s on a CPU.
+LIVE_GAP_THRESHOLD = 10.0
+LIVE_PRICES = {"c4.2xlarge": 0.419, "c4.8xlarge": 1.675, "g2.2xlarge": 0.650}
+#: (b) `benchmarks/churn_replan.py`'s scenario, warm path only.
+REPLAN_STREAMS = 500
+REPLAN_EVENTS = 200
+REPLAN_SEED = 1802
+REPLAN_MAX_NODES = 20_000
+#: (c) `benchmarks/lifecycle.py` experiment 3.
+GROWTH_STREAMS = 500
+GROWTH_EVENTS = 90
+GROWTH_SEED = 2618
+GROWTH_MAX_NODES = 20_000
+GROWTH_GAP_THRESHOLD = 0.3
+BOOT_H = 2.0 / 60.0
+LOOKAHEAD_H = 0.15
+MAX_SPARES = 3
+
+
+def fleet_kinds(st) -> list:
+    """The 10 camera kinds of `KINDS`, built from the streams module ``st``."""
+    vgg, zf = st.AnalysisProgram("VGG-16", "vgg16"), st.AnalysisProgram("ZF", "zf")
+    return [(vgg, f) for f in (0.05, 0.1, 0.15, 0.2, 0.25)] + [
+        (zf, f) for f in (0.1, 0.2, 0.3, 0.4, 0.5)]
+
+
+def largest_instance_uid(ctrl) -> int:
+    """The uid of the live instance hosting the most streams (the lowest uid
+    of equals)."""
+    members = ctrl.placement_state().members
+    uids = ctrl.instance_uids
+    return uids[max(range(len(uids)), key=lambda b: (len(members[b]), -uids[b]))]
+
+
+def live_event(st, ctrl, rng, i: int):
+    """Event ``i`` of (a)'s trace, drawn against the live fleet of ``ctrl``:
+    joins, leaves and rate changes over the 10 kinds, price moves of 5%,
+    and at `LIVE_NOTICE_AT` / `LIVE_PREEMPT_AT` a reclamation notice and a
+    preemption of the instance with the most streams."""
+    at = (i + 1) * LIVE_GAP_H
+    if i == LIVE_NOTICE_AT:
+        return st.InstancePreemptionNotice(largest_instance_uid(ctrl), at=at,
+                                           deadline=at + 2.5 / 60.0)
+    if i == LIVE_PREEMPT_AT:
+        return st.InstancePreempted(largest_instance_uid(ctrl), at=at)
+    kinds = fleet_kinds(st)
+    roll = rng.rand()
+    if roll < 0.30:
+        return st.StreamAdded(st.StreamSpec(f"live{i}", *kinds[rng.randint(10)]), at=at)
+    if roll < 0.55:
+        live = ctrl.fleet
+        return st.StreamRemoved(live[rng.randint(len(live))].name, at=at)
+    if roll < 0.90:
+        live = ctrl.fleet
+        s = live[rng.randint(len(live))]
+        rates = [f for p, f in kinds if p.program_id == s.program.program_id]
+        return st.StreamRateChanged(s.name, rates[rng.randint(len(rates))], at=at)
+    name = sorted(LIVE_PRICES)[rng.randint(len(LIVE_PRICES))]
+    return st.PriceChanged(name, round(LIVE_PRICES[name] * (1.0 + 0.05 * rng.randn()), 4),
+                           at=at)
+
+
+def replan_fleet(st) -> list:
+    """`benchmarks/churn_replan.py`'s initial fleet: 500 streams, 5 kinds."""
+    vgg, zf = st.AnalysisProgram("VGG-16", "vgg16"), st.AnalysisProgram("ZF", "zf")
+    kinds = [(vgg, 0.25), (vgg, 0.2), (zf, 0.5), (zf, 2.0), (zf, 5.0)]
+    return [st.StreamSpec(f"s{i}", *kinds[i % 5]) for i in range(REPLAN_STREAMS)], kinds
+
+
+def replan_event(st, kinds, ctrl, rng, at: float):
+    """`benchmarks/churn_replan.py`'s `_trace`: one event against the live
+    fleet of ``ctrl``."""
+    roll = rng.rand()
+    if roll < 0.30:
+        return st.StreamAdded(st.StreamSpec(f"j{rng.randint(10**9)}",
+                                            *kinds[rng.randint(len(kinds))]), at=at)
+    if roll < 0.55:
+        live = ctrl.fleet
+        return st.StreamRemoved(live[rng.randint(len(live))].name, at=at)
+    if roll < 0.95:
+        live = ctrl.fleet
+        s = live[rng.randint(len(live))]
+        rates = [f for p, f in kinds if p.program_id == s.program.program_id]
+        return st.StreamRateChanged(s.name, rates[rng.randint(len(rates))], at=at)
+    bt = ("c4.2xlarge", "c4.8xlarge", "g2.2xlarge")[rng.randint(3)]
+    base = {"c4.2xlarge": 0.419, "c4.8xlarge": 1.675, "g2.2xlarge": 0.650}[bt]
+    return st.PriceChanged(bt, round(base * (1.0 + 0.05 * rng.randn()), 4), at=at)
+
+
+def growth_scenario(st):
+    """`benchmarks/lifecycle.py` experiment 3's inputs: the consolidation
+    benchmark's 500-stream fleet, the bursty growth trace and the oracle
+    forecast of the joins within `LOOKAHEAD_H` (at most `MAX_SPARES`)."""
+    vgg, zf = st.AnalysisProgram("VGG-16", "vgg16"), st.AnalysisProgram("ZF", "zf")
+    kinds = [(vgg, 0.25), (vgg, 0.2), (zf, 0.5), (zf, 2.0), (zf, 5.0)]
+    initial = [st.StreamSpec(f"s{i}", *kinds[i % 5]) for i in range(GROWTH_STREAMS)]
+    trace = st.synthetic_timed_trace(
+        initial, np.random.RandomState(GROWTH_SEED), n_events=GROWTH_EVENTS,
+        mean_gap_hours=0.03, p_join=0.6, p_leave=0.15,
+        make_join=lambda i: st.StreamSpec(f"g{i}", *kinds[i % 5]),
+        rerate_fps=lambda s: [f for p, f in kinds if p.program_id == s.program.program_id],
+        burst=3)
+    adds = [(ev.at, ev.stream) for ev in trace if isinstance(ev, st.StreamAdded)]
+
+    def forecast(fleet, event):
+        now = event.at if event is not None else 0.0
+        live = {s.name for s in fleet}
+        upcoming = tuple(s for t, s in adds if now < t <= now + LOOKAHEAD_H
+                         and s.name not in live)
+        return st.StreamForecast(joins=upcoming[:MAX_SPARES])
+
+    return initial, trace, forecast
+
+
+def post_join_degraded(out: dict) -> float:
+    """`benchmarks/lifecycle.py`'s degraded stream-seconds past the initial
+    boot (which every policy pays once)."""
+    return out["degraded_stream_seconds"] - out["timeline"][0]["boot_wait_stream_hours"] * 3600.0
+
+
+def spares_provisioned(out: dict) -> int:
+    return sum(a.startswith("autoscale:provision") for t in out["timeline"] for a in t["actions"])
+
+
+def replay_digest(rows) -> str:
+    """sha256 of per-event (cost, mode, migrated, gap) rows, floats in hex."""
+    text = "\n".join(f"{float(c).hex()} {m} {n} {float(g).hex()}" for c, m, n, g in rows)
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+#: The live loop's kernels, by the name in the kernels line, and the
+#: module whose `_dispatch` launches each.
+LIVE_KERNELS = {"knapsack_dp": knapsack, "pack_scan": pack, "placement_scores": placement}
+#: H100 SXM float64 peak outside the tensor cores (NVIDIA data sheet).
+FP64_OPS_PER_S = 34e12
+
+
+class LiveClock:
+    """During phase 4b: CUDA events right around every launch of the live
+    loop's kernels (each module's `_dispatch`, on CUDA tensors), the
+    pack scan's inputs and outputs a launch (for the check against its
+    plain version), and the greedy repair's placement-score inputs (each
+    `heuristics.placement_scores` call, host arrays, whatever its route)."""
+
+    def __init__(self):
+        self.events = {name: [] for name in LIVE_KERNELS}
+        self.pack_calls: list[tuple] = []
+        self.placement_inputs: list[tuple] = []
+        self._saved = {name: mod._dispatch for name, mod in LIVE_KERNELS.items()}
+        self._scores = heuristics.placement_scores
+
+    def _timed(self, name, fn):
+        def call(*args):
+            if args[0].device.type != "cuda":
+                return fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events[name].append((start, end))
+            if name == "pack_scan":
+                self.pack_calls.append((args, out))
+            return out
+        return call
+
+    def _record_scores(self, req, choice_mask, resid, *, device=None):
+        self.placement_inputs.append((np.array(req), np.array(choice_mask), np.array(resid)))
+        return self._scores(req, choice_mask, resid, device=device)
+
+    def __enter__(self):
+        for name, mod in LIVE_KERNELS.items():
+            mod._dispatch = self._timed(name, self._saved[name])
+        heuristics.placement_scores = self._record_scores
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in LIVE_KERNELS.items():
+            mod._dispatch = self._saved[name]
+        heuristics.placement_scores = self._scores
+
+    def marks(self) -> dict:
+        return {name: len(ev) for name, ev in self.events.items()}
+
+    def ms_since(self, marks: dict) -> dict:
+        """Kernel ms by kernel over the launches after ``marks``."""
+        torch.cuda.synchronize()
+        return {name: float(sum(a.elapsed_time(b) for a, b in ev[marks[name]:]))
+                for name, ev in self.events.items()}
+
+
+def reset_live_counts() -> None:
+    """Every count of the live loop's kernels to 0: launches, launches by
+    variant, placement calls by route."""
+    for mod in LIVE_KERNELS.values():
+        mod.LAUNCHES = 0
+        for variant in getattr(mod, "LAUNCHES_BY_VARIANT", {}):
+            mod.LAUNCHES_BY_VARIANT[variant] = 0
+    for route in heuristics.PLACEMENT_ROUTES:
+        heuristics.PLACEMENT_ROUTES[route] = 0
+
+
+def live_counts() -> dict:
+    out = {}
+    for name, mod in LIVE_KERNELS.items():
+        out[name] = {"launches": mod.LAUNCHES}
+        if hasattr(mod, "LAUNCHES_BY_VARIANT"):
+            out[name]["by_variant"] = dict(mod.LAUNCHES_BY_VARIANT)
+    out["placement_routes"] = dict(heuristics.PLACEMENT_ROUTES)
+    return out
+
+
+def replay_events(ctrl, make_event, n_events, clock, label):
+    """Apply ``n_events`` events from ``make_event(i)`` to ``ctrl``; per event
+    the result, the wall ms (host clock, the card synchronised) and the
+    kernel ms by kernel (events)."""
+    rows, events = [], []
+    for i in range(n_events):
+        ev = make_event(i)
+        marks = clock.marks()
+        before = live_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ctrl.apply(ev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        after = live_counts()
+        kernel_ms = clock.ms_since(marks)
+        events.append(ev)
+        rows.append({
+            "event": type(ev).__name__, "mode": r.mode, "cost": r.plan.hourly_cost,
+            "gap": r.gap, "migrated": len(r.migrated), "displaced": len(r.displaced),
+            "wall_ms": wall_ms, "kernel_ms": sum(kernel_ms.values()),
+            "kernel_ms_by_kernel": kernel_ms,
+            "knapsack_by_variant": {
+                v: after["knapsack_dp"]["by_variant"][v] - before["knapsack_dp"]["by_variant"][v]
+                for v in knapsack.LAUNCHES_BY_VARIANT},
+            "placement_routes": {
+                k: after["placement_routes"][k] - before["placement_routes"][k]
+                for k in heuristics.PLACEMENT_ROUTES},
+            "_result": r,
+        })
+        if label:
+            row = rows[-1]
+            log(f"  {label} {i:3d} {row['event']:<24} {row['mode']:<5} ${row['cost']:.4f}/h "
+                f"gap {row['gap']:.4f} migrated {row['migrated']:3d} knapsack "
+                f"{row['knapsack_by_variant']} placement {row['placement_routes']} "
+                f"wall {wall_ms:.1f} ms, kernels {row['kernel_ms']:.3f} ms")
+    return rows, events
+
+
+def warm_split(rows) -> dict:
+    """Mean wall ms of the warm events, split into the kernels' time and the
+    rest (host)."""
+    warm = [r for r in rows if r["mode"] == "warm"]
+    if not warm:
+        return {"warm_events": 0}
+    walls = [r["wall_ms"] for r in warm]
+    wall = float(np.mean(walls))
+    kern = float(np.mean([r["kernel_ms"] for r in warm]))
+    return {"warm_events": len(warm), "wall_ms": wall, "kernel_ms": kern,
+            "host_ms": wall - kern, "median_wall_ms": float(np.median(walls))}
+
+
+def live_main_path(managers, clock) -> dict:
+    """(a): the 500-camera allocate's controller folds `LIVE_EVENTS` events,
+    on the card and again with ``device="cpu"``; both against
+    `LIVE_GOLDEN`."""
+    manager, cpu_manager = managers
+    ctrl = manager.controller(ST3, gap_threshold=LIVE_GAP_THRESHOLD)
+    rng = np.random.RandomState(LIVE_SEED)
+    reset_live_counts()
+    rows, events = replay_events(
+        ctrl, lambda i: live_event(port_streams, ctrl, rng, i), LIVE_EVENTS, clock, "(a)")
+    counts = live_counts()
+    if counts["knapsack_dp"]["launches"] == 0:
+        raise AssertionError("(a) launched the knapsack kernel 0 times")
+    cpu_ctrl = cpu_manager.controller(ST3, gap_threshold=LIVE_GAP_THRESHOLD)
+    t0 = time.perf_counter()
+    cpu_rows = [replan_result_to_plain(cpu_ctrl.apply(ev)) for ev in events]
+    cpu_s = time.perf_counter() - t0
+    if any(live_counts()[name] != counts[name] for name in LIVE_KERNELS):
+        raise AssertionError("(a) the CPU replay launched a kernel")
+    for i, (row, cpu) in enumerate(zip(rows, cpu_rows)):
+        if replan_result_to_plain(row["_result"]) != cpu:
+            raise AssertionError(f"(a) event {i}: card and CPU differ: "
+                                 f"{row['mode']} {row['cost']} vs {cpu['mode']} {cpu['cost']}")
+        got = (row["event"], row["cost"], row["mode"], row["migrated"])
+        if got != LIVE_GOLDEN[i]:
+            raise AssertionError(f"(a) event {i}: {got} vs the reference's {LIVE_GOLDEN[i]}")
+    split = warm_split(rows)
+    log(f"  (a) {LIVE_EVENTS} events equal to the CPU replay ({cpu_s:.1f} s) and the "
+        f"reference's; launches {counts}; warm event {split}")
+    return {"events": [{k: v for k, v in r.items() if k != "_result"} for r in rows],
+            "counts": counts, "warm": split, "cpu_replay_s": cpu_s}
+
+
+def live_churn_replan(clock) -> dict:
+    """(b): `benchmarks/churn_replan.py`'s replay on the card, warm path only
+    (no cold samples); its digest against `REPLAN_GOLDEN`."""
+    art = cal.CalibrationArtifact.load(ROOT / "CALIBRATION_ec2.json")
+    manager = ResourceManager(paper_ec2_catalog(), calibration=art,
+                              max_nodes=REPLAN_MAX_NODES)
+    fleet, kinds = replan_fleet(port_streams)
+    reset_live_counts()
+    t0 = time.perf_counter()
+    manager.allocate(fleet)
+    reset_s = time.perf_counter() - t0
+    ctrl = manager.controller()
+    rng = np.random.RandomState(REPLAN_SEED)
+    rows, _events = replay_events(
+        ctrl, lambda i: replan_event(port_streams, kinds, ctrl, rng, (i + 1) * 0.02),
+        REPLAN_EVENTS, clock, None)
+    counts = live_counts()
+    digest = replay_digest([(r["cost"], r["mode"], r["migrated"], r["gap"]) for r in rows])
+    modes = {m: sum(r["mode"] == m for r in rows) for m in ("warm", "full", "noop")}
+    if digest != REPLAN_GOLDEN["digest"] or modes != REPLAN_GOLDEN["modes"]:
+        raise AssertionError(f"(b) digest {digest} modes {modes}, the reference's "
+                             f"{REPLAN_GOLDEN}")
+    split = warm_split(rows)
+    log(f"  (b) {REPLAN_EVENTS} events, digest equal to the reference's, modes {modes}, "
+        f"reset {reset_s:.2f} s; launches {counts}; warm event {split}")
+    return {"digest": digest, "modes": modes, "reset_s": reset_s, "counts": counts,
+            "warm": split, "final_cost": rows[-1]["cost"]}
+
+
+def live_growth(clock) -> dict:
+    """(c): `benchmarks/lifecycle.py` experiment 3 on the card; every
+    what-if launches the pack scan; against `GROWTH_GOLDEN`."""
+    initial, trace, forecast = growth_scenario(port_streams)
+    manager = ResourceManager(paper_ec2_catalog(), paper_profile_table(),
+                              max_nodes=GROWTH_MAX_NODES)
+    manager.controller(gap_threshold=GROWTH_GAP_THRESHOLD)
+    reset_live_counts()
+    n_calls = len(clock.pack_calls)
+    what_ifs = []
+    inner = manager.controller().what_if
+
+    def counted_what_if(fleets, **kw):
+        what_ifs.append(len(fleets))
+        return inner(fleets, **kw)
+
+    manager.controller().what_if = counted_what_if
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = simulate_churn(
+        manager, initial, trace, paper_profile_table(),
+        policy=ActingAutoscaler(forecast=forecast, max_spares=MAX_SPARES),
+        billing=BillingModel(boot_hours=BOOT_H, quantum_hours=1.0))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = live_counts()
+    got = {"billed_cost": out["billed_cost"], "degraded_stream_seconds": post_join_degraded(out),
+           "spares_provisioned": spares_provisioned(out)}
+    if got != GROWTH_GOLDEN:
+        raise AssertionError(f"(c) {got} vs the reference's {GROWTH_GOLDEN}")
+    if counts["pack_scan"]["launches"] != len(what_ifs) or not what_ifs:
+        raise AssertionError(f"(c) {len(what_ifs)} what-ifs, pack_scan launched "
+                             f"{counts['pack_scan']}")
+    log(f"  (c) {len(trace)} events in {wall_s:.1f} s: billed ${got['billed_cost']:.4f}, "
+        f"degraded {got['degraded_stream_seconds']:.1f} stream-s, "
+        f"{got['spares_provisioned']} spares, equal to the reference's; {len(what_ifs)} "
+        f"what-ifs of {sorted(set(what_ifs))} fleets; launches {counts}")
+    return {**got, "wall_s": wall_s, "counts": counts, "what_ifs": len(what_ifs),
+            "pack_calls": (n_calls, len(clock.pack_calls))}
+
+
+def check_pack_calls(calls) -> dict:
+    """Every recorded pack-scan launch against `pack_scan_plain` on the card,
+    on the same inputs, bit for bit."""
+    for (args, (recs, n_open, total)) in calls:
+        (p_recs, p_open, p_total) = pack.pack_scan_plain(*args[:6], best_fit=args[6])
+        same = (all(torch.equal(a, b) for a, b in zip(recs, p_recs))
+                and torch.equal(n_open, p_open) and torch.equal(total, p_total))
+        if not same:
+            raise AssertionError(f"pack_scan differs from its plain version at shape "
+                                 f"{tuple(args[0].shape)}")
+    shapes = sorted({tuple(a[0].shape) for a, _ in calls})
+    log(f"  pack_scan: {len(calls)} launches equal to pack_scan_plain on the card, "
+        f"bit for bit; shapes {shapes[:4]}{' ...' if len(shapes) > 4 else ''}")
+    return {"checked": len(calls), "max_abs_err": 0.0}
+
+
+def check_placement_inputs(inputs) -> dict:
+    """Every recorded greedy-repair matrix through both routes (numpy and the
+    kernel) and the plain version on the card, bit for bit, and one
+    fleet-scale matrix above the threshold."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    k, c, p_n = 500, 2, 64
+    big_req = rng.uniform(0.0, 2.0, size=(k, c, 4))
+    big_mask = rng.rand(k, c) < 0.9
+    big_req[~big_mask] = np.inf
+    big = (big_req, big_mask, rng.uniform(0.0, 2.0, size=(p_n, 4)))
+    if k * c * p_n < heuristics._CUDA_MIN_CANDIDATES:
+        raise AssertionError("the fleet-scale matrix is below the threshold")
+    before = placement.LAUNCHES
+    sizes = []
+    for req, mask, resid in list(inputs) + [big]:
+        want = heuristics.placement_scores_np(req, mask, resid)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (req, mask, resid)]
+        got = placement._dispatch(*args).cpu().numpy()
+        plain = placement.placement_scores_plain(*args).cpu().numpy()
+        if not (np.array_equal(got, want) and np.array_equal(plain, want)):
+            raise AssertionError(f"placement_scores differs at shape {want.shape}")
+        sizes.append(want.size)
+    placement.LAUNCHES = before  # comparison launches are not the path's
+    log(f"  placement_scores: {len(sizes)} matrices ({min(sizes)}-{max(sizes)} candidates) "
+        f"equal through numpy, the kernel and the plain version, bit for bit")
+    launched = [x for x in inputs if x[0].shape[0] * x[0].shape[1] * x[2].shape[0]
+                >= heuristics._CUDA_MIN_CANDIDATES]
+    largest = max(launched, key=lambda x: x[0].size * x[2].shape[0]) if launched else big
+    return {"checked": len(sizes), "max_abs_err": 0.0, "candidates": sizes, "_big": big,
+            "_largest": largest}
+
+
+def pack_bound(args, n_open_steps: int) -> dict:
+    """The pack scan's least time: its inputs read once and its records
+    written once over HBM; its operations (an add and a compare a
+    dimension a candidate pair, best fit also a subtraction and a
+    division), counted over the pairs this run's steps tried, over the
+    float64 peak."""
+    req, mask, score, order, caps, costs, best_fit = args
+    b_n, n = order.shape
+    bytes_moved = sum(t.numel() * t.element_size() for t in (req, mask, score, order, caps, costs))
+    bytes_moved += 3 * b_n * n * 8 + b_n * 16
+    ops = n_open_steps * req.shape[2] * req.shape[3] * (4 if best_fit else 2)
+    out = _bound(bytes_moved, ops, FP64_OPS_PER_S)
+    out["steps"] = n
+    return out
+
+
+def placement_timing(inputs) -> dict:
+    """The placement kernel and its plain version on ``inputs`` (host
+    arrays) on the card, beside the bound."""
+    dev = torch.device("cuda")
+    targs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in inputs]
+    ms = time_cold_ms(lambda: placement._dispatch(*targs), reps=20)
+    plain_ms = time_cold_ms(lambda: placement.placement_scores_plain(*targs), reps=20)
+    k, c, dim = inputs[0].shape
+    p_n = inputs[2].shape[0]
+    bytes_moved = sum(t.numel() * t.element_size() for t in targs) + k * c * p_n * 8
+    bound = _bound(bytes_moved, k * c * p_n * dim * 4, FP64_OPS_PER_S)
+    log(f"  placement_scores {ms:.4f} ms at {(k, c, p_n)} (plain {plain_ms:.4f} ms), "
+        f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, **bound, "shape": [k, c, p_n]}
+
+
+def phase_live_timing(pack_calls, largest, big) -> dict:
+    """The pack scan at the largest recorded cone batch and the placement
+    kernel at the largest matrix the replays launched it on (and at the
+    fleet-scale matrix): kernel, plain version, bound."""
+    args, (recs, _n_open, _total) = max(pack_calls, key=lambda c: c[0][0].numel())
+    before = (pack.LAUNCHES, dict(pack.LAUNCHES_BY_VARIANT), placement.LAUNCHES)
+    bt_rec = recs[2]
+    opened_before = (bt_rec >= 0).to(torch.int64).cumsum(dim=1) - (bt_rec >= 0).to(torch.int64)
+    n_open_steps = int(opened_before.sum())
+    ms = time_cold_ms(lambda: pack._dispatch(*args), reps=10)
+    plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=3)
+    bound = pack_bound(args, n_open_steps)
+    path = placement_timing(largest)
+    fleet_scale = placement_timing(big)
+    pack.LAUNCHES, placement.LAUNCHES = before[0], before[2]
+    pack.LAUNCHES_BY_VARIANT.update(before[1])
+    b_n, n = args[3].shape
+    log(f"  pack_scan {pack._variant(n, args[0].shape[2], args[0].shape[3])} {ms:.4f} ms at "
+        f"B={b_n} n={n} (plain {plain_ms:.3f} ms), bound {bound['bound_ms']:.5f} ms "
+        f"({bound['bound_by']}; {n} dependent steps, {ms / n * 1e3:.2f} us a step)")
+    return {
+        "pack_scan": {"ms": ms, "plain_ms": plain_ms, **bound, "B": b_n, "n": n,
+                      "variant": pack._variant(n, args[0].shape[2], args[0].shape[3]),
+                      "us_per_step": ms / n * 1e3},
+        "placement_scores": {**path, "fleet_scale": fleet_scale},
+    }
+
+
+def phase_live_loop(managers) -> dict:
+    """Phase 4b: the live re-planning loop on the card — (a), (b), (c), then
+    both new kernels against their plain versions and timed."""
+    out = {}
+    with LiveClock() as clock:
+        out["main"] = live_main_path(managers, clock)
+        out["churn_replan"] = live_churn_replan(clock)
+        out["growth"] = live_growth(clock)
+    out["pack_check"] = check_pack_calls(clock.pack_calls)
+    placement_check = check_placement_inputs(clock.placement_inputs)
+    big, largest = placement_check.pop("_big"), placement_check.pop("_largest")
+    out["placement_check"] = {k: v for k, v in placement_check.items() if k != "candidates"}
+    out["placement_candidates"] = {"max": max(placement_check["candidates"]),
+                                   "threshold": heuristics._CUDA_MIN_CANDIDATES}
+    out["timing"] = phase_live_timing(clock.pack_calls, largest, big)
+    launches = {name: sum(out[part]["counts"][name]["launches"]
+                          for part in ("main", "churn_replan", "growth"))
+                for name in LIVE_KERNELS}
+    for name in ("pack_scan", "placement_scores"):
+        if launches[name] == 0:
+            raise AssertionError(f"the live loop launched {name} 0 times")
+    out["launches"] = launches
+    return out
 
 
 # --------------------------------------------------------------- phase 5
@@ -2346,7 +2968,12 @@ def main(argv=None) -> int:
         result["quickstart_savings"] = phase_quickstart()
         main_path = phase_main_path()
         largest = main_path.pop("_largest")
+        managers = main_path.pop("_managers")
         result["main_path"] = main_path
+        timer.begin("phase 4b", "live re-planning loop: (a) the 500-camera fleet's churn, "
+                    "(b) churn_replan, (c) lifecycle experiment 3")
+        result["live_loop"] = phase_live_loop(managers)
+        del managers
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
         timer.begin("phase 5b", "analysis programs, calibration and calibrated allocations")
@@ -2418,7 +3045,34 @@ def main(argv=None) -> int:
             "global_ms": timing["global_ms"],
             "bound_bits_ms": timing["bound_bits_ms"],
             "bound_bits_by": timing["bound_bits_by"],
+            "live_loop_launches": result["live_loop"]["launches"]["knapsack_dp"],
         }]
+        live = result["live_loop"]
+        for kname, src, replaces in (
+            ("pack_scan", "pack", "src/repro/core/binpack/heuristics.py:209"),
+            ("placement_scores", "placement", "src/repro/core/binpack/heuristics.py:498"),
+        ):
+            t = live["timing"][kname]
+            check = live[f"{src}_check"]
+            result["kernels"].append({
+                "name": kname,
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "replaces": replaces,
+                "launches": live["launches"][kname],
+                "max_abs_err": check["max_abs_err"],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": None,
+                "launches_by_replay": {part: live[part]["counts"][kname]["launches"]
+                                       for part in ("main", "churn_replan", "growth")},
+                **({"steps": t["steps"], "variant": t["variant"], "B": t["B"]}
+                   if kname == "pack_scan" else
+                   {"shape": t["shape"], "threshold": heuristics._CUDA_MIN_CANDIDATES,
+                    "fleet_scale": t["fleet_scale"]}),
+            })
         for kname, replaces in (
             ("flash_attention", "src/repro/kernels/attention.py:75"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:72"),

@@ -25,10 +25,11 @@ Consumers: `heuristics` (vectorized FFD/BFD — batched sort keys, one
 sweep, which derives restricted tensors for ST1/ST2 via
 `ProblemTensors.restrict` instead of rebuilding from the object model.
 
-The reference package's batched device packers (`pack_jax`,
-`batched_fleet_costs`, `placement_scores`' device branch) and
-`evacuation_scores` are not exported yet: they come with the live-loop
-and sharding slices.
+The device half of `heuristics` — the batched FFD/BFD scan over many
+fleets (`pack_device`, `batched_fleet_costs`, `batched_pack`, on the
+``pack_scan`` kernel) and the repair's `placement_scores` (on the
+placement kernel from a measured size up) — stands in for the reference's
+jax-traced `pack_jax` family; `evacuation_scores` is numpy in both.
 """
 from .problem import (
     Assignment,
@@ -43,8 +44,15 @@ from .problem import (
     build_solution,
 )
 from .heuristics import (
+    batched_fleet_costs,
+    batched_pack,
     best_fit_decreasing,
+    best_fit_decreasing_device,
+    evacuation_scores,
     first_fit_decreasing,
+    first_fit_decreasing_device,
+    pack_device,
+    placement_scores,
     placement_scores_np,
 )
 from .bincompletion import (
@@ -69,8 +77,15 @@ __all__ = [
     "ProblemTensors",
     "Solution",
     "build_solution",
+    "batched_fleet_costs",
+    "batched_pack",
     "best_fit_decreasing",
+    "best_fit_decreasing_device",
+    "evacuation_scores",
     "first_fit_decreasing",
+    "first_fit_decreasing_device",
+    "pack_device",
+    "placement_scores",
     "placement_scores_np",
     "SolveStats",
     "migration_subproblem",

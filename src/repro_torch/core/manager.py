@@ -31,8 +31,6 @@ __all__ = ["AllocationPlan", "PlacedStream", "ResourceManager"]
 #: Entry points of the reference manager that later slices port, with the
 #: ROADMAP.md queue A item that ports each.
 _NOT_PORTED = {
-    "controller": "the live re-planning controller is not ported yet "
-    "(ROADMAP.md queue A item 2, core/controller.py)",
     "sharded_controller": "the sharded controller is not ported yet "
     "(ROADMAP.md queue A item 3, core/shard.py)",
 }
@@ -84,11 +82,13 @@ class ResourceManager:
 
     Requirements come from a profile table or from a calibration artifact
     (``calibration=``, `set_calibration`; `core.calibration`).  ``device``
-    is where branch-and-price runs its pricing DP: the card by default
-    (raises when there is none), the CPU only when asked for.
+    is where the device work runs — branch-and-price's pricing DP and the
+    live controllers' what-if scan and placement scores: the card by
+    default (raises when there is none), the CPU only when asked for.
 
-    The reference's live re-planning entry points, `controller`, `replan`
-    and `sharded_controller`, are not ported yet and raise
+    `allocate` plans through the live re-planning controller
+    (`controller`), which `replan` then folds churn events into.  The
+    reference's `sharded_controller` is not ported yet and raises
     ``NotImplementedError``.
     """
 
@@ -124,13 +124,15 @@ class ResourceManager:
         self.max_nodes = max_nodes
         # Branch-and-price column pool: catalog-keyed, so one pool can be
         # shared by every solve over the same bin types (and reused across
-        # fleet churn — see `binpack.colgen.ColumnPool`).  Callers may
-        # inject their own to share columns.
+        # fleet churn — see `binpack.colgen.ColumnPool`).  Callers
+        # (controllers) may inject their own to share columns.
         self.colgen_pool = colgen_pool
         # formulate() memo: repeated allocations of the same fleet (solver
         # cross-checks, simulator re-plans, benchmark timing loops) reuse
         # one Problem instance and therefore one ProblemTensors build.
         self._formulate_cache: dict[tuple, Problem] = {}
+        # Live re-planning controllers, one per strategy name (lazy).
+        self._controllers: dict[str, object] = {}
 
     def formulate(
         self, streams: Sequence[StreamSpec], strategy: Strategy = ST3
@@ -171,7 +173,9 @@ class ResourceManager:
 
         Verifies the artifact against this manager's catalog, replaces the
         profile table, and invalidates the formulate memo so every
-        subsequent solve re-derives its requirement vectors.
+        subsequent solve re-derives its requirement vectors.  Live
+        controllers keep their fleet state; call their ``recalibrate()`` to
+        re-solve the standing fleet under the new vectors.
         """
         artifact.verify(self.catalog)
         self.calibration = artifact
@@ -179,8 +183,45 @@ class ResourceManager:
         self._formulate_cache.clear()
 
     def controller(self, strategy: Strategy = ST3, **kwargs):
-        """The live re-planning controller (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED["controller"])
+        """The live re-planning controller for `strategy` (one per name).
+
+        `allocate` delegates through it, so after any allocation the
+        controller holds the fleet and `replan` can fold churn events in
+        incrementally (see `core.controller.FleetController`).  ``policy``
+        selects the re-planning policy layer (consolidation, dual-price
+        aging, autoscaling — see `core.policy`); ``billing`` installs an
+        instance-lifecycle billing model (`core.lifecycle.BillingModel`:
+        boot latency + billing quantum) the controller's ledger bills the
+        fleet through.  Reconfiguring a live controller swaps either
+        without dropping its fleet state (a swapped billing model seeds a
+        fresh ledger from the live instances)."""
+        ctrl = self._controllers.get(strategy.name)
+        if ctrl is None:
+            from .controller import FleetController
+
+            ctrl = FleetController(self, strategy, **kwargs)
+            self._controllers[strategy.name] = ctrl
+        else:
+            # Reconfigure in place — replacing would silently drop the
+            # live fleet state a prior allocate() established.  Billing
+            # swaps (global model and/or per-type map) go through
+            # set_billing together so the fresh ledger sees both.
+            if "billing" in kwargs or "billing_by_type" in kwargs:
+                ctrl.set_billing(
+                    kwargs.pop("billing", ctrl.billing),
+                    by_type=kwargs.pop("billing_by_type", None),
+                )
+            for key, value in kwargs.items():
+                if key in (
+                    "gap_threshold",
+                    "sub_max_nodes",
+                    "policy",
+                    "drain_on_notice",
+                ):
+                    setattr(ctrl, key, value)
+                else:
+                    raise TypeError(f"unknown controller option {key!r}")
+        return ctrl
 
     def sharded_controller(self, strategy: Strategy = ST3, **kwargs):
         """The hierarchical sharded controller (not ported yet)."""
@@ -189,17 +230,23 @@ class ResourceManager:
     def allocate(
         self, streams: Sequence[StreamSpec], strategy: Strategy = ST3
     ) -> AllocationPlan:
-        """Formulate and solve one fleet under one strategy.
-
-        The reference delegates through its live controller's ``reset``,
-        which plans exactly this way; the controller itself is not ported
-        yet.
-        """
-        return self._plan(streams, self.formulate(streams, strategy), strategy)
+        """Formulate and solve one fleet under one strategy, through the
+        strategy's live controller (`controller`), which then holds it."""
+        return self.controller(strategy).reset(streams).plan
 
     def replan(self, events, strategy: Strategy = ST3, **controller_kwargs):
-        """Apply fleet events incrementally (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED["controller"])
+        """Apply fleet events to the last allocated fleet, incrementally.
+
+        ``events`` is a `streams.TimedTrace` or a plain event sequence
+        (untimed events replay at the controller's current clock).
+        Returns the `ReplanResult` list (one per event); requires a prior
+        `allocate` (or `controller().reset`) under the same strategy.
+        Extra keyword arguments (``policy=``, ``billing=``, ...) reconfigure
+        the live controller before the replay, as `controller` does.
+        """
+        return self.controller(strategy, **controller_kwargs).apply_events(
+            list(events)
+        )
 
     def allocate_sweep(
         self,
@@ -403,8 +450,8 @@ class ResourceManager:
         """Branch-and-price with the manager's shared (lazy) column pool.
 
         Budgets here are the *live* ones — tighter than `solve_colgen`'s
-        defaults, because this sits on the re-plan path where a warm pool
-        (columns survive churn) does most of the work.  The
+        defaults, because this sits on the controller re-plan path where a
+        warm pool (columns survive churn) does most of the work.  The
         returned gap stays certified either way; offline/bench callers
         wanting the full squeeze call `colgen.solve_colgen` directly.
         """

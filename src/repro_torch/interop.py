@@ -1,22 +1,28 @@
 """State carried across packages as plain values.
 
 The manager's state is the catalog, the profile table and the problem; the
-serving path's and the analysis programs' are their weights.  These helpers convert between the
-port's objects and plain tuples and numpy arrays — names, capacities,
-costs, requirement vectors, assignments, weight arrays — so that any
-producer of the same plain form (a file, another implementation of the
-manager or the model) can feed the port identical inputs, and results can
-be compared value for value.
+live controller's adds the fleet, its churn trace and its billing
+contracts; the serving path's and the analysis programs' are their
+weights.  These helpers convert between the port's objects and plain
+tuples and numpy arrays — names, capacities, costs, requirement vectors,
+streams, events, assignments, weight arrays — so that any producer of the
+same plain form (a file, another implementation of the manager or the
+model) can feed the port identical inputs, and results can be compared
+value for value.
 
 The ``*_to_plain`` functions read attributes only, so they accept any
 object with the port's field names.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .core import streams as _streams
 from .core.binpack.problem import BinType, Choice, Item, Problem
+from .core.lifecycle import BillingModel
 from .core.profiler import ProfileTable, ResourceProfile
 from .device import resolve_device
 from .models import moe, rglru, ssm
@@ -28,6 +34,17 @@ from .models.rglru import RGLRU
 from .models.ssm import Mamba2
 
 __all__ = [
+    "catalog_to_plain",
+    "catalog_from_plain",
+    "stream_to_plain",
+    "stream_from_plain",
+    "event_to_plain",
+    "event_from_plain",
+    "trace_to_plain",
+    "trace_from_plain",
+    "billing_to_plain",
+    "billing_from_plain",
+    "replan_result_to_plain",
     "problem_to_plain",
     "problem_from_plain",
     "profile_table_to_plain",
@@ -36,6 +53,146 @@ __all__ = [
     "params_from_plain",
     "analysis_params_from_plain",
 ]
+
+
+def catalog_to_plain(catalog) -> tuple:
+    """``(name, capacity, cost, hazard, rent)`` per instance type, spot
+    types (``hazard > 0``, ``rent`` set) included."""
+    return tuple(
+        (
+            bt.name,
+            tuple(float(c) for c in bt.capacity),
+            float(bt.cost),
+            float(bt.hazard),
+            None if bt.rent is None else float(bt.rent),
+        )
+        for bt in catalog
+    )
+
+
+def catalog_from_plain(rows) -> tuple[BinType, ...]:
+    """The port's catalog from `catalog_to_plain`'s rows."""
+    return tuple(
+        BinType(name, tuple(cap), cost, hazard=hazard, rent=rent)
+        for name, cap, cost, hazard, rent in rows
+    )
+
+
+_TIER_FIELDS = ("name", "rank", "rate_ladder", "blackout_budget_s",
+                "rung_penalty", "blackout_penalty", "parkable")
+
+
+def stream_to_plain(spec) -> tuple:
+    """``(name, (program name, program_id), desired_fps, (width, height),
+    tier)``, the tier as its `SLATier` fields in declaration order."""
+    tier = spec.tier
+    return (
+        spec.name,
+        (spec.program.name, spec.program.program_id),
+        float(spec.desired_fps),
+        (int(spec.frame_size.width), int(spec.frame_size.height)),
+        tuple(
+            tuple(getattr(tier, f)) if f == "rate_ladder" else getattr(tier, f)
+            for f in _TIER_FIELDS
+        ),
+    )
+
+
+def stream_from_plain(plain) -> _streams.StreamSpec:
+    """The port's `StreamSpec` from `stream_to_plain`'s form."""
+    name, (prog_name, program_id), fps, (w, h), tier = plain
+    return _streams.StreamSpec(
+        name,
+        _streams.AnalysisProgram(prog_name, program_id),
+        fps,
+        _streams.FrameSize(w, h),
+        _streams.SLATier(**dict(zip(_TIER_FIELDS, tier))),
+    )
+
+
+#: The fleet events `event_to_plain` knows, by class name.
+_EVENTS = ("StreamAdded", "StreamRemoved", "StreamRateChanged", "PriceChanged",
+           "InstancePreempted", "InstancePreemptionNotice")
+
+
+def event_to_plain(event) -> tuple:
+    """``(class name, {field: value})`` of a fleet event, ``at`` included;
+    a `StreamAdded`'s stream in `stream_to_plain`'s form."""
+    kind = type(event).__name__
+    if kind not in _EVENTS:
+        raise TypeError(f"unknown fleet event {event!r}")
+    fields = {
+        f.name: getattr(event, f.name) for f in dataclasses.fields(event)
+    }
+    if "stream" in fields:
+        fields["stream"] = stream_to_plain(fields["stream"])
+    return kind, fields
+
+
+def event_from_plain(plain) -> _streams.FleetEvent:
+    """The port's fleet event from `event_to_plain`'s form."""
+    kind, fields = plain
+    if kind not in _EVENTS:
+        raise TypeError(f"unknown fleet event kind {kind!r}")
+    fields = dict(fields)
+    if "stream" in fields:
+        fields["stream"] = stream_from_plain(fields["stream"])
+    return getattr(_streams, kind)(**fields)
+
+
+def trace_to_plain(trace) -> dict:
+    """``{"events", "horizon"}``: a `TimedTrace`'s events in
+    `event_to_plain`'s form and its horizon."""
+    return {
+        "events": tuple(event_to_plain(ev) for ev in trace.events),
+        "horizon": float(trace.horizon),
+    }
+
+
+def trace_from_plain(plain: dict) -> _streams.TimedTrace:
+    """The port's `TimedTrace` from `trace_to_plain`'s form."""
+    return _streams.TimedTrace(
+        events=tuple(event_from_plain(ev) for ev in plain["events"]),
+        horizon=plain["horizon"],
+    )
+
+
+def billing_to_plain(billing) -> tuple:
+    """``(boot_hours, quantum_hours, min_billed_hours)``."""
+    return (
+        float(billing.boot_hours),
+        float(billing.quantum_hours),
+        float(billing.min_billed_hours),
+    )
+
+
+def billing_from_plain(plain) -> BillingModel:
+    """The port's `BillingModel` from `billing_to_plain`'s form."""
+    boot, quantum, minimum = plain
+    return BillingModel(boot_hours=boot, quantum_hours=quantum,
+                        min_billed_hours=minimum)
+
+
+def replan_result_to_plain(result) -> dict:
+    """A `ReplanResult` as plain values: ``mode``, ``cost`` (the plan's
+    $/h), ``gap``, ``lower_bound``, ``displaced``, ``migrated``,
+    ``actions``, ``at`` and ``assignments``: ``(stream name, instance
+    index, instance type, device)`` per placement, in the plan's order."""
+    plan = result.plan
+    return {
+        "mode": result.mode,
+        "cost": float(plan.hourly_cost),
+        "gap": float(result.gap),
+        "lower_bound": float(result.lower_bound),
+        "displaced": tuple(result.displaced),
+        "migrated": tuple(result.migrated),
+        "actions": tuple(result.actions),
+        "at": float(result.at),
+        "assignments": tuple(
+            (p.stream.name, int(p.instance_index), p.instance_type, p.device)
+            for p in plan.placements
+        ),
+    }
 
 
 def problem_to_plain(problem) -> dict:

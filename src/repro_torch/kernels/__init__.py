@@ -12,6 +12,10 @@
     prefill (``csrc/rglru.cu``)
   * grouped_gemm — the ragged expert GEMM, the ``"moe"`` block's expert
     products (``csrc/grouped_gemm.cu``)
+  * pack — the FFD/BFD scan over many fleets, the live controller's what-if
+    packer (``csrc/pack.cu``)
+  * placement — the best-fit placement scores of the controller's greedy
+    repair (``csrc/placement.cu``)
 
 Each source is built on first use by ``_build``.  Kernel libraries are
 built and loaded inside the call that launches them, never at import.

@@ -45,6 +45,8 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),
+    "pack": (NVCC_FLAGS, ()),
+    "placement": (NVCC_FLAGS, ()),
 }
 
 #: Per source name: {"seconds": build wall time (0.0 when reused),

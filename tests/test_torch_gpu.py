@@ -12,7 +12,9 @@ their plain versions, both in float32: float32 is held to the
 reference's kernel tolerance, 2e-5; in bfloat16 the two round to outputs
 at most one bf16 ulp apart (rtol 2^-7), with atol 1e-4 for the float32
 difference.  The SSD and RG-LRU scans' and the grouped GEMM's limits are
-stated beside their tests.  Calibration on the card equals the numpy path
+stated beside their tests.  The live loop's pack scan and placement scores
+equal their plain versions bit for bit, and a short replay on the card
+equals the same replay on the CPU.  Calibration on the card equals the numpy path
 bit for bit; VGG-16 and ZF on the card (cuDNN convs, TF32 off) are within
 1e-3 of the largest logit of the same weights on the CPU.
 """
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import calibration as cal
-from repro_torch.core.binpack import colgen
+from repro_torch.core.binpack import colgen, heuristics
 from repro_torch.core.binpack.arcflow import group_items
 from repro_torch.core.catalog import paper_ec2_catalog
 from repro_torch.core.manager import ResourceManager
@@ -34,7 +36,7 @@ from repro_torch.interop import plan_to_plain
 from repro_torch.kernels import attention as flash
 from repro_torch.kernels import decode_attention as decode
 from repro_torch.kernels import grouped_gemm as gg
-from repro_torch.kernels import knapsack, rglru, ssd
+from repro_torch.kernels import knapsack, pack, placement, rglru, ssd
 from repro_torch.models import analysis_programs as ap
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Request, ServingEngine
@@ -882,3 +884,171 @@ def test_analysis_program_on_card_matches_cpu(cuda, program_id):
     assert torch.isfinite(got).all()
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=0)
+
+
+# ---- the live loop: the pack scan and the placement scores ----------------
+#
+# Both kernels do adds, a division and compares in float64, each rounded
+# once, so each must equal its plain version bit for bit.
+
+def _scan_inputs(seed, b_n, n, c, n_bt, dim=4, pad_items=True):
+    """A random padded batch as `heuristics._pad_fleets` lays it out."""
+    rng = np.random.RandomState(seed)
+    caps = rng.uniform(4.0, 12.0, size=(n_bt, dim))
+    costs = rng.uniform(0.2, 2.0, size=n_bt)
+    req = rng.uniform(0.05, 1.0, size=(b_n, n, c, dim)) * caps.min(axis=0)
+    mask = rng.rand(b_n, n, c) < 0.8
+    mask[..., 0] = True
+    if pad_items:
+        for b in range(b_n):
+            mask[b, n - b:] = False  # fleet b has b padding items
+    req[~mask] = np.inf
+    score = rng.uniform(0.1, 2.0, size=(b_n, n, n_bt, c))
+    score[:, :, :, :] = np.where(mask[:, :, None, :], score, np.inf)
+    order = np.stack([rng.permutation(n) for _ in range(b_n)])
+    return req, mask, score, order, caps, costs
+
+
+def _assert_scan_equals_plain(args, device, best_fit, variant=None, monkeypatch=None):
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
+    if variant is not None:
+        monkeypatch.setattr(pack, "_variant", lambda n, c, dim: variant)
+    before = pack.LAUNCHES_BY_VARIANT.copy()
+    recs, n_open, total = pack.pack_scan(*t, best_fit=best_fit)
+    torch.cuda.synchronize()
+    p_recs, p_open, p_total = pack.pack_scan_plain(*t, best_fit=best_fit)
+    for a, b in zip(recs, p_recs):
+        assert torch.equal(a, b)
+    assert torch.equal(n_open, p_open) and torch.equal(total, p_total)
+    if variant is not None:
+        assert pack.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
+
+
+@pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
+@pytest.mark.parametrize("b_n,n,c,n_bt", [(1, 1, 1, 1), (3, 17, 2, 3), (8, 120, 3, 5),
+                                          (2, 600, 2, 10)])
+def test_pack_scan_kernel_equals_plain(cuda, b_n, n, c, n_bt, best_fit):
+    _assert_scan_equals_plain(_scan_inputs(n + b_n, b_n, n, c, n_bt), cuda, best_fit)
+
+
+@pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
+def test_pack_scan_global_variant_equals_plain(cuda, monkeypatch, best_fit):
+    """The global-memory variant, forced at a shape the shared one takes."""
+    _assert_scan_equals_plain(_scan_inputs(5, 4, 90, 2, 4), cuda, best_fit, "global",
+                              monkeypatch)
+
+
+def test_pack_scan_takes_global_memory_past_shared_memory(cuda):
+    """A fleet whose loads and capacities outgrow a CTA's shared memory."""
+    assert pack._variant(4000, 2, 4) == "global"
+    assert pack._variant(500, 2, 4) == "shared"
+    args = _scan_inputs(9, 1, 4000, 2, 3, pad_items=False)
+    _assert_scan_equals_plain(args, cuda, False)
+
+
+def test_pack_scan_on_a_500_stream_forecast_cone(cuda):
+    """A what-if cone at the live loop's scale: 500 streams, 3 forecast
+    joins by 2 leaves, through `batched_fleet_costs` on the card and the
+    plain scan on the card, and the numpy packer per fleet."""
+    fleet = _camera_fleet(500)
+    joins = tuple(_camera_fleet(503)[500:])
+    joins = tuple(dataclasses.replace(s, name=f"f{i}") for i, s in enumerate(joins))
+    from repro_torch.core.streams import StreamForecast, forecast_cone
+
+    fleets = forecast_cone(fleet, StreamForecast(joins=joins, leaves=("cam3", "cam7")))
+    mgr = ResourceManager(paper_ec2_catalog(), paper_profile_table())
+    problems = [mgr.formulate(list(f)) for f in fleets]
+    ts = [p.tensors() for p in problems]
+    padded = heuristics._pad_fleets(problems, ts)
+    for best_fit in (False, True):
+        _assert_scan_equals_plain(padded + (ts[0].caps, ts[0].costs), cuda, best_fit)
+        before = pack.LAUNCHES
+        costs = heuristics.batched_fleet_costs(problems, best_fit=best_fit)
+        assert pack.LAUNCHES == before + 1
+        assert costs.tolist() == [heuristics._pack(p, best_fit).cost for p in problems]
+
+
+@pytest.mark.parametrize("k,c,p", [(1, 1, 1), (3, 2, 40), (500, 2, 64), (37, 3, 1029)])
+def test_placement_kernel_equals_plain(cuda, k, c, p):
+    rng = np.random.RandomState(k + p)
+    req = rng.uniform(0.0, 2.0, size=(k, c, 4))
+    mask = rng.rand(k, c) < 0.8
+    req[~mask] = np.inf
+    resid = rng.uniform(0.0, 2.0, size=(p, 4))
+    resid[0] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (req, mask, resid)]
+    before = placement.LAUNCHES
+    got = placement.placement_scores(*args)
+    assert placement.LAUNCHES == before + 1
+    want = placement.placement_scores_plain(*args)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  heuristics.placement_scores_np(req, mask, resid))
+
+
+def test_placement_routes_by_size_on_the_card(cuda, monkeypatch):
+    rng = np.random.RandomState(3)
+    small = (rng.rand(1, 2, 4), np.ones((1, 2), dtype=bool), rng.rand(3, 4) + 1.0)
+    k = heuristics._CUDA_MIN_CANDIDATES // 2 + 1
+    large = (rng.rand(k, 2, 4), np.ones((k, 2), dtype=bool), rng.rand(1, 4) + 1.0)
+    monkeypatch.setitem(heuristics.PLACEMENT_ROUTES, "kernel", 0)
+    monkeypatch.setitem(heuristics.PLACEMENT_ROUTES, "numpy", 0)
+    for req, mask, resid in (small, large):
+        got = heuristics.placement_scores(req, mask, resid)
+        assert got.flags.writeable
+        np.testing.assert_array_equal(got, heuristics.placement_scores_np(req, mask, resid))
+    assert heuristics.PLACEMENT_ROUTES == {"kernel": 1, "numpy": 1}
+
+
+def test_live_kernel_wrappers_raise_instead_of_falling_back(cuda):
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in _scan_inputs(1, 2, 9, 2, 3)]
+    before = (pack.LAUNCHES, placement.LAUNCHES)
+    with pytest.raises(TypeError):
+        pack.pack_scan(args[0].float(), *args[1:], best_fit=False)
+    with pytest.raises(ValueError):
+        pack.pack_scan(args[0], args[1].cpu(), *args[2:], best_fit=False)
+    with pytest.raises(ValueError):
+        pack.pack_scan(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:],
+                       best_fit=False)
+    req = args[0][0]
+    with pytest.raises(ValueError):
+        placement.placement_scores(req.transpose(0, 1).contiguous().transpose(0, 1),
+                                   args[1][0], args[4])
+    assert (pack.LAUNCHES, placement.LAUNCHES) == before
+
+
+def test_short_replay_on_card_equals_the_cpu_replay(cuda):
+    """The acting autoscaler over a 40-stream growth trace: every what-if on
+    the pack scan, on the card and with ``device="cpu"``; the whole
+    `simulate_churn` output equal."""
+    from repro_torch.core.lifecycle import BillingModel
+    from repro_torch.core.policy import ActingAutoscaler
+    from repro_torch.core.simulator import simulate_churn
+    from repro_torch.core.streams import StreamAdded, StreamForecast, synthetic_timed_trace
+
+    vgg, zf = AnalysisProgram("VGG-16", "vgg16"), AnalysisProgram("ZF", "zf")
+    kinds = [(vgg, 0.25), (vgg, 0.2), (zf, 0.5), (zf, 2.0), (zf, 5.0)]
+    initial = [StreamSpec(f"s{i}", *kinds[i % 5]) for i in range(40)]
+    trace = synthetic_timed_trace(
+        initial, np.random.RandomState(2618), n_events=20, mean_gap_hours=0.03, p_join=0.6,
+        p_leave=0.15, make_join=lambda i: StreamSpec(f"g{i}", *kinds[i % 5]), burst=3)
+    adds = [(ev.at, ev.stream) for ev in trace if isinstance(ev, StreamAdded)]
+
+    def forecast(fleet, event):
+        now = event.at if event is not None else 0.0
+        live = {s.name for s in fleet}
+        return StreamForecast(joins=tuple(
+            s for t, s in adds if now < t <= now + 0.15 and s.name not in live)[:3])
+
+    outs = []
+    for device in (None, "cpu"):
+        mgr = ResourceManager(paper_ec2_catalog(), paper_profile_table(), device=device)
+        mgr.controller(gap_threshold=0.3)
+        before = pack.LAUNCHES
+        outs.append(simulate_churn(
+            mgr, initial, trace, paper_profile_table(),
+            policy=ActingAutoscaler(forecast=forecast, max_spares=3),
+            billing=BillingModel(boot_hours=2.0 / 60.0, quantum_hours=1.0)))
+        assert (pack.LAUNCHES > before) == (device is None)
+    assert outs[0] == outs[1]
