@@ -48,6 +48,30 @@ its plain torch version.  Phases, each raising on failure:
    greedy-repair matrix through numpy, the placement kernel and its
    plain version, bit for bit, plus one fleet-scale matrix; both kernels
    timed beside their plain versions and bounds;
+4c. the sharded controller (`core/shard.py`), each part with the live
+   loop's kernel counts set to 0 just before it and read just after:
+   (a) `benchmarks/shard.py`'s 100,000 streams over 512 cells — two twins
+   cold-started by one batched pack scan each (B = 512 fleets), the
+   serial per-cell certification on one and the batched one (one knapsack
+   launch a column-generation round over every (cell, instance type)
+   knapsack, cold then warm) on the other, 192 events through the serial
+   loop and through the batched pipeline (delta 0), and a third twin
+   folding them on `SHARD_WORKERS` threads (equal) — against
+   `SHARD_GOLDEN` (the summed lower bounds, the per-event (cost, lower
+   bound) digest, the end state, the routing and pricing counters); (b)
+   `repack()` on the live cells against `REPACK_GOLDEN`; (c) the
+   500-stream cost parity on the benchmark trace's first `PARITY_EVENTS`
+   events (flat, one cell equal to flat at every step, 8 cells with the
+   market, the last in a process of its own started with the phase and
+   joined last, since its market's trial moves take minutes of host work;
+   (c) runs after (d)) against `PARITY_GOLDEN`; (d) a sharded `simulate_churn` on a
+   spot catalog (8 cells, a consolidation policy a cell, the batched
+   reset, the market) whose whole output dict must digest to
+   `CHURN_GOLDEN`'s.  Each step's wall time, kernel ms by kernel (CUDA
+   events around every launch) and launches by variant are logged; then
+   every pack-scan and knapsack launch of the phase against its plain
+   version on the card, bit for bit, and both timed at the phase's
+   largest launch beside their plain versions and bounds;
 5. knapsack timing: each variant and the plain version on the card at the
    manager path's largest pricing call, with CUDA events around calls
    queued while the card spins (`time_cold_ms`), beside the bound with
@@ -162,7 +186,8 @@ CUDA card:
 
     python3 chip_smoke.py [--json PATH] [--kernel-only]
 
-``--kernel-only`` runs phases 1-3 and 6.
+``--kernel-only`` runs phases 1-3 and 6.  ``--cells-parity PATH`` is how
+phase 4c starts its 8-cell replay in a process of its own.
 """
 from __future__ import annotations
 
@@ -174,7 +199,9 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -185,16 +212,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config  # noqa: E402
 from repro_torch.core import calibration as cal  # noqa: E402
+from repro_torch.core import shard  # noqa: E402
 from repro_torch.core import streams as port_streams  # noqa: E402
 from repro_torch.core.binpack import colgen  # noqa: E402
 from repro_torch.core.binpack import heuristics  # noqa: E402
 from repro_torch.core.binpack.arcflow import group_items  # noqa: E402
 from repro_torch.core.binpack.problem import BinType  # noqa: E402
-from repro_torch.core.catalog import paper_ec2_catalog, tpu_cloud_catalog  # noqa: E402
+from repro_torch.core.catalog import (  # noqa: E402
+    paper_ec2_catalog, tpu_cloud_catalog, with_spot_variants)
+from repro_torch.core.controller import FleetController  # noqa: E402
 from repro_torch.core.lifecycle import BillingModel  # noqa: E402
 from repro_torch.core.manager import ResourceManager  # noqa: E402
 from repro_torch.core.profiler import paper_profile_table  # noqa: E402
-from repro_torch.core.policy import ActingAutoscaler  # noqa: E402
+from repro_torch.core.policy import ActingAutoscaler, ConsolidationPolicy  # noqa: E402
 from repro_torch.core.simulator import simulate_churn, simulate_plan  # noqa: E402
 from repro_torch.core.strategies import ALL_STRATEGIES, ST1, ST3  # noqa: E402
 from repro_torch.core.streams import AnalysisProgram, FrameSize, StreamSpec  # noqa: E402
@@ -1242,32 +1272,37 @@ def placement_timing(inputs) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, **bound, "shape": [k, c, p_n]}
 
 
+def pack_timing(pack_calls) -> dict:
+    """The pack scan at the largest recorded launch: kernel, plain version,
+    bound (timing launches are not the path's)."""
+    args, (recs, _n_open, _total) = max(pack_calls, key=lambda c: c[0][0].numel())
+    before = (pack.LAUNCHES, dict(pack.LAUNCHES_BY_VARIANT))
+    bt_rec = recs[2]
+    opened_before = (bt_rec >= 0).to(torch.int64).cumsum(dim=1) - (bt_rec >= 0).to(torch.int64)
+    ms = time_cold_ms(lambda: pack._dispatch(*args), reps=10)
+    plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=3)
+    bound = pack_bound(args, int(opened_before.sum()))
+    pack.LAUNCHES = before[0]
+    pack.LAUNCHES_BY_VARIANT.update(before[1])
+    b_n, n = args[3].shape
+    variant = pack._variant(n, args[0].shape[2], args[0].shape[3])
+    log(f"  pack_scan {variant} {ms:.4f} ms at B={b_n} n={n} C={args[0].shape[2]} "
+        f"(plain {plain_ms:.3f} ms), bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
+        f"{n} dependent steps, {ms / n * 1e3:.2f} us a step)")
+    return {"ms": ms, "plain_ms": plain_ms, **bound, "B": b_n, "n": n, "C": args[0].shape[2],
+            "variant": variant, "us_per_step": ms / n * 1e3}
+
+
 def phase_live_timing(pack_calls, largest, big) -> dict:
     """The pack scan at the largest recorded cone batch and the placement
     kernel at the largest matrix the replays launched it on (and at the
     fleet-scale matrix): kernel, plain version, bound."""
-    args, (recs, _n_open, _total) = max(pack_calls, key=lambda c: c[0][0].numel())
-    before = (pack.LAUNCHES, dict(pack.LAUNCHES_BY_VARIANT), placement.LAUNCHES)
-    bt_rec = recs[2]
-    opened_before = (bt_rec >= 0).to(torch.int64).cumsum(dim=1) - (bt_rec >= 0).to(torch.int64)
-    n_open_steps = int(opened_before.sum())
-    ms = time_cold_ms(lambda: pack._dispatch(*args), reps=10)
-    plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=3)
-    bound = pack_bound(args, n_open_steps)
-    path = placement_timing(largest)
-    fleet_scale = placement_timing(big)
-    pack.LAUNCHES, placement.LAUNCHES = before[0], before[2]
-    pack.LAUNCHES_BY_VARIANT.update(before[1])
-    b_n, n = args[3].shape
-    log(f"  pack_scan {pack._variant(n, args[0].shape[2], args[0].shape[3])} {ms:.4f} ms at "
-        f"B={b_n} n={n} (plain {plain_ms:.3f} ms), bound {bound['bound_ms']:.5f} ms "
-        f"({bound['bound_by']}; {n} dependent steps, {ms / n * 1e3:.2f} us a step)")
-    return {
-        "pack_scan": {"ms": ms, "plain_ms": plain_ms, **bound, "B": b_n, "n": n,
-                      "variant": pack._variant(n, args[0].shape[2], args[0].shape[3]),
-                      "us_per_step": ms / n * 1e3},
-        "placement_scores": {**path, "fleet_scale": fleet_scale},
-    }
+    before = placement.LAUNCHES
+    out = {"pack_scan": pack_timing(pack_calls),
+           "placement_scores": {**placement_timing(largest),
+                                "fleet_scale": placement_timing(big)}}
+    placement.LAUNCHES = before
+    return out
 
 
 def phase_live_loop(managers) -> dict:
@@ -1292,6 +1327,618 @@ def phase_live_loop(managers) -> dict:
         if launches[name] == 0:
             raise AssertionError(f"the live loop launched {name} 0 times")
     out["launches"] = launches
+    return out
+
+
+# --------------------------------------------------------------- phase 4c
+#
+# `benchmarks/shard.py`'s scenarios through the port's sharded controller.
+# The builders and replays below take the package they run as a namespace
+# (`port_package`), so that `scripts/torch_shard_goldens.py` runs the very
+# same steps through the JAX package on a CPU to compute the goldens.
+
+#: (a) and (b): the 100,000-stream fleet over 512 cells, 192 events.
+SHARD_SEED = 7201
+SHARD_STREAMS = 100_000
+SHARD_CELLS = 512
+SHARD_EVENTS = 192
+SHARD_MAX_NODES = 400_000
+SHARD_SUB_MAX_NODES = 5_000
+#: Warm repair only, as the benchmark's replay: certification is a
+#: calm-time activity at this scale, not a per-event one.
+SHARD_GAP_THRESHOLD = 10.0
+#: The rerun of the batched apply folds its cells on this many threads.
+SHARD_WORKERS = 4
+#: (c) the cost parity at 500 streams: the first `PARITY_EVENTS` events of
+#: the benchmark's 48-event trace, so that the 8-cell replay's market runs
+#: (after its 8th and 16th events).  A market round tries moves until 4
+#: are kept, each a pair of exact cell solves: minutes of host time, so
+#: the 8-cell replay runs in a process of its own beside the rest of the
+#: phase (`start_cells_parity`).
+PARITY_STREAMS = 500
+PARITY_TRACE_EVENTS = 48
+PARITY_EVENTS = 16
+PARITY_CELLS = 8
+PARITY_REBALANCE_EVERY = 8
+#: (d) a sharded `simulate_churn` on a spot catalog.
+CHURN_STREAMS = 48
+CHURN_EVENTS = 16
+CHURN_SEED = 7203
+CHURN_CELLS = 8
+CHURN_REBALANCE_EVERY = 10
+#: Rates each program can reach (VGG-16 saturates at 0.25 FPS).
+SHARD_RATES = {"vgg16": [0.2, 0.25], "zf": [0.5, 2.0, 5.0]}
+
+
+def port_package() -> types.SimpleNamespace:
+    """The port's names the phase-4c replays use."""
+    return types.SimpleNamespace(
+        st=port_streams, ResourceManager=ResourceManager, ST3=ST3,
+        ShardedController=shard.ShardedController, hash_cells=shard.hash_cells,
+        FleetController=FleetController, ConsolidationPolicy=ConsolidationPolicy,
+        paper_ec2_catalog=paper_ec2_catalog, paper_profile_table=paper_profile_table,
+        with_spot_variants=with_spot_variants, simulate_churn=simulate_churn,
+    )
+
+
+def shard_fleet(st, n: int) -> list:
+    """`benchmarks/shard.py`'s fleet: ``n`` streams over the consolidation
+    benchmark's 5 kinds."""
+    vgg, zf = st.AnalysisProgram("VGG-16", "vgg16"), st.AnalysisProgram("ZF", "zf")
+    kinds = [(vgg, 0.25), (vgg, 0.2), (zf, 0.5), (zf, 2.0), (zf, 5.0)]
+    return [st.StreamSpec(f"s{i}", *kinds[i % len(kinds)]) for i in range(n)]
+
+
+def shard_events(st, rng, fleet, n_events: int) -> list:
+    """`benchmarks/shard.py`'s `_events`: joins, leaves and re-rates with
+    program-valid rates, 0.01 h apart."""
+    vgg, zf = st.AnalysisProgram("VGG-16", "vgg16"), st.AnalysisProgram("ZF", "zf")
+    kinds = [(vgg, 0.25), (vgg, 0.2), (zf, 0.5), (zf, 2.0), (zf, 5.0)]
+    evs, t, nxt = [], 0.0, len(fleet)
+    prog = {s.name: s.program.program_id for s in fleet}
+    names = [s.name for s in fleet]
+    for _ in range(n_events):
+        t += 0.01
+        roll = rng.rand()
+        if roll < 0.3 or not names:
+            kind = kinds[nxt % len(kinds)]
+            name = f"j{nxt}"
+            nxt += 1
+            evs.append(st.StreamAdded(st.StreamSpec(name, *kind), at=t))
+            names.append(name)
+            prog[name] = kind[0].program_id
+        elif roll < 0.55:
+            name = names.pop(int(rng.rand() * len(names)))
+            evs.append(st.StreamRemoved(name, at=t))
+        else:
+            name = names[int(rng.rand() * len(names))]
+            rates = SHARD_RATES[prog[name]]
+            evs.append(st.StreamRateChanged(name, rates[rng.randint(len(rates))], at=t))
+    return evs
+
+
+def shard_manager(pkg, max_nodes: int = SHARD_MAX_NODES):
+    return pkg.ResourceManager(pkg.paper_ec2_catalog(), pkg.paper_profile_table(),
+                               max_nodes=max_nodes)
+
+
+def shard_twin(pkg, streams, workers: int = 0):
+    """One controller of (a), cold-started by one batched pack."""
+    sc = pkg.ShardedController(
+        shard_manager(pkg), pkg.ST3, cell_key=pkg.hash_cells(SHARD_CELLS),
+        sub_max_nodes=SHARD_SUB_MAX_NODES, gap_threshold=SHARD_GAP_THRESHOLD,
+        batch_workers=workers)
+    sc.reset(streams, at=0.0, pack="batched")
+    return sc
+
+
+def _sha(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def floats_digest(values) -> str:
+    """sha256 of the floats in hex: equal digests, equal bits."""
+    return _sha(" ".join(float(v).hex() for v in values))
+
+
+def plan_digest(plan) -> str:
+    """sha256 of a plan's placements (stream, instance, type, device) and
+    instance types, in the plan's order."""
+    rows = [f"{p.stream.name} {p.instance_index} {p.instance_type} {p.device}"
+            for p in plan.placements]
+    return _sha("\n".join(rows) + "\n" + " ".join(plan.instances))
+
+
+def shard_state(sc, horizon: float) -> dict:
+    """The merged fleet's end state: placements and instances, uids, the
+    billed cost at ``horizon``."""
+    return {"plan": plan_digest(sc.plan), "uids": _sha(" ".join(map(str, sc.instance_uids))),
+            "instances": len(sc.instance_uids), "billed": sc.lifecycle.billed_cost(horizon),
+            "total_cost": sc.total_cost()}
+
+
+def big_replay(pkg, tick, workers: bool = True) -> tuple[dict, object]:
+    """(a): `benchmarks/shard.py`'s `_big_replay` — two twins cold-started by
+    one batched pack each; the serial per-cell certification on one, the
+    batched one (cold, then warm) on the other, then the serial one there
+    too, so that both apply from the same prices; the 192 events through
+    the serial loop on one and the batched pipeline on the other.  With
+    ``workers``, a third twin, cold-started and certified serially as the
+    first, folds them through the batched pipeline on `SHARD_WORKERS`
+    threads (its cells are arc-flow priced, at most 5 item classes each,
+    so the column pool the batched certification warms enters none of
+    their pricing): ``workers_equal`` says whether it ends as the batched
+    twin, event by event.  The reference's threaded fold is not run: its
+    `formulate` cache evicts from several threads at once and raises at
+    this scale.  ``tick(label)`` is called after each step (label None:
+    the start).  Returns the plain outcome and the batched twin."""
+    streams = shard_fleet(pkg.st, SHARD_STREAMS)
+    events = shard_events(pkg.st, np.random.RandomState(SHARD_SEED), streams, SHARD_EVENTS)
+    horizon = events[-1].at + 1.0
+    tick(None)
+    serial = shard_twin(pkg, streams)
+    tick("reset")
+    batched = shard_twin(pkg, streams)
+    tick("reset_twin")
+    if batched.n_cells != SHARD_CELLS or len(batched.fleet) != SHARD_STREAMS:
+        raise AssertionError(f"{batched.n_cells} cells, {len(batched.fleet)} streams")
+    lbs = {"serial": serial.refresh_prices(batched=False)}
+    tick("certify_serial")
+    lbs["batched_cold"] = batched.refresh_prices()
+    tick("certify_batched_cold")
+    lbs["batched"] = batched.refresh_prices()
+    tick("certify_batched_warm")
+    lbs["serial_twin"] = batched.refresh_prices(batched=False)
+    tick("certify_serial_twin")
+    certify_stats = {k: v for k, v in batched.stats().items() if k != "events_per_cell"}
+    rows = []
+    for ev in events:
+        r = serial.apply(ev)
+        rows.append((r.plan.hourly_cost, r.lower_bound))
+    tick("apply_serial")
+    rb = batched.apply_events(events)
+    tick("apply_batched")
+    rows_b = [(r.plan.hourly_cost, r.lower_bound) for r in rb]
+    end, end_b = shard_state(serial, horizon), shard_state(batched, horizon)
+    delta = max(abs(x - y) for a, b in zip(rows, rows_b) for x, y in zip(a, b))
+    if end != end_b or len(rows) != len(rows_b):
+        delta = float("inf")
+    stats = batched.stats()
+    out = {
+        "cells": batched.n_cells,
+        "lower_bounds": lbs,
+        "certify_stats": certify_stats,
+        "events": floats_digest(v for row in rows for v in row),
+        "final_cost": rows[-1][0],
+        "end": end,
+        "delta": delta,
+        "routed": stats["events_routed"],
+        "barriers": stats["batch_barriers"],
+        "seg_cache": (stats["seg_cache_hits"], stats["seg_cache_misses"]),
+        "dispatches": (stats["batched_repair_dispatches"], stats["serial_repair_dispatches"]),
+    }
+    if workers:
+        del serial
+        threaded = shard_twin(pkg, streams, workers=SHARD_WORKERS)
+        threaded.refresh_prices(batched=False)
+        tick("workers_prepare")
+        rw = threaded.apply_events(events)
+        tick("apply_workers")
+        out["workers_equal"] = ([(r.plan.hourly_cost, r.lower_bound) for r in rw] == rows
+                                and shard_state(threaded, horizon) == end)
+    return out, batched
+
+
+def shard_repack(pkg, batched, tick) -> dict:
+    """(b): the batched repair on the live cells of (a)'s batched twin (one
+    pack launch over every cell)."""
+    tick(None)
+    r = batched.repack()
+    tick("repack")
+    return {"mode": r.mode, "actions": _sha("\n".join(r.actions)), "n_actions": len(r.actions),
+            "migrated": len(r.migrated), "cost": r.plan.hourly_cost,
+            "total_cost": batched.total_cost()}
+
+
+def parity_trace(pkg) -> tuple[list, list]:
+    """(c)'s fleet and its first `PARITY_EVENTS` events."""
+    streams = shard_fleet(pkg.st, PARITY_STREAMS)
+    events = shard_events(pkg.st, np.random.RandomState(SHARD_SEED + 2), streams,
+                          PARITY_TRACE_EVENTS)[:PARITY_EVENTS]
+    return streams, events
+
+
+def parity_replay(ctrl, streams, events) -> list[float]:
+    costs = [ctrl.reset(streams, at=0.0).plan.hourly_cost]
+    costs += [ctrl.apply(ev).plan.hourly_cost for ev in events]
+    return costs
+
+
+def cells_parity(pkg, tick) -> list[float]:
+    """(c)'s `PARITY_CELLS`-cell replay, the market every
+    `PARITY_REBALANCE_EVERY` events: its per-step costs."""
+    streams, events = parity_trace(pkg)
+    tick(None)
+    costs = parity_replay(pkg.ShardedController(
+        shard_manager(pkg), pkg.ST3, cell_key=pkg.hash_cells(PARITY_CELLS),
+        sub_max_nodes=SHARD_SUB_MAX_NODES, rebalance_every=PARITY_REBALANCE_EVERY),
+        streams, events)
+    tick("cells")
+    return costs
+
+
+def cost_parity(pkg, tick, cells=None) -> dict:
+    """(c): `benchmarks/shard.py`'s `_cost_parity` on its trace's first
+    `PARITY_EVENTS` events: flat, one cell, and `cells_parity`; per-step
+    costs.  ``cells``: where another process runs the last replay
+    (`start_cells_parity`), a function that waits for it and returns its
+    costs, called after the other two; else the replay runs here."""
+    streams, events = parity_trace(pkg)
+    tick(None)
+    flat = parity_replay(pkg.FleetController(shard_manager(pkg), pkg.ST3,
+                                             sub_max_nodes=SHARD_SUB_MAX_NODES),
+                         streams, events)
+    tick("flat")
+    one = parity_replay(pkg.ShardedController(shard_manager(pkg), pkg.ST3,
+                                              sub_max_nodes=SHARD_SUB_MAX_NODES),
+                        streams, events)
+    tick("one_cell")
+    cells = cells_parity(pkg, tick) if cells is None else cells()
+    return {"flat": floats_digest(flat), "flat_final": flat[-1], "cells": floats_digest(cells),
+            "cells_final": cells[-1], "one_cell_delta": max(abs(a - b) for a, b in zip(flat, one))}
+
+
+def churn_digest(out: dict) -> str:
+    """sha256 of a `simulate_churn` output dict (plain values only), every
+    float by its repr (exact), keys sorted."""
+    return _sha(json.dumps(out, sort_keys=True))
+
+
+def sharded_churn(pkg, tick) -> dict:
+    """(d): `simulate_churn` through the sharded path — `CHURN_CELLS` cells,
+    a consolidation policy a cell, the batched reset and the market every
+    `CHURN_REBALANCE_EVERY` events — on a spot catalog's seeded trace with
+    preemption shocks and price drift."""
+    catalog = pkg.with_spot_variants(pkg.paper_ec2_catalog(), price_ratio=0.35, hazard=0.4)
+    manager = pkg.ResourceManager(catalog, pkg.paper_profile_table(), max_nodes=20_000)
+    initial = shard_fleet(pkg.st, CHURN_STREAMS)
+    trace = pkg.st.synthetic_timed_trace(
+        initial, np.random.RandomState(CHURN_SEED), n_events=CHURN_EVENTS,
+        preemption_hazard=0.4, hazard_pool=16, price_drift=0.3,
+        price_drift_types=[("c4.2xlarge-spot", 0.147)], price_drift_gap_hours=0.1)
+    tick(None)
+    out = pkg.simulate_churn(
+        manager, initial, trace, pkg.paper_profile_table(),
+        cell_key=pkg.hash_cells(CHURN_CELLS),
+        policy_factory=lambda: pkg.ConsolidationPolicy(max_migrations=2),
+        rebalance_every=CHURN_REBALANCE_EVERY, reset_pack="batched")
+    tick("simulate_churn")
+    actions = [a for t in out["timeline"] for a in t["actions"]]
+    return {"digest": churn_digest(out), "final_cost": out["final_cost"],
+            "billed_cost": out["billed_cost"], "events": len(out["timeline"]) - 1,
+            "rebalance_moves": sum(a.startswith("rebalance:") for a in actions)}
+
+
+#: The goldens of (a)-(d), from `scripts/torch_shard_goldens.py` (the JAX
+#: package on a CPU): its output, pasted.
+SHARD_GOLDEN = {'cells': 512,
+ 'lower_bounds': {'serial': 13812.499999999987,
+                  'batched_cold': 11894.242106268472,
+                  'batched': 13811.283489623318,
+                  'serial_twin': 13812.499999999987},
+ 'certify_stats': {'events_routed': 0,
+                   'event_batches': 0,
+                   'batch_barriers': 0,
+                   'seg_cache_hits': 0,
+                   'seg_cache_misses': 512,
+                   'batched_repair_dispatches': 1,
+                   'serial_repair_dispatches': 0,
+                   'pricing_dispatches': 13,
+                   'pricing_rounds': 13,
+                   'serial_price_refreshes': 512},
+ 'events': 'd8ac8191ceefb89a1bfae29016852d23714e35e998d17ccc3fecbcb07ad27100',
+ 'final_cost': 16951.726999999984,
+ 'end': {'plan': '1398792b381e48a76ef2bdd7a1c4ceb69b6a38f5f0e668b3f1fb9270a753eeaf',
+         'uids': '1b3b23658652c3703b99a3f23b77c074be0f8e3f67f2479bf27361697ba5c7d3',
+         'instances': 29272,
+         'billed': 49466.22244000003,
+         'total_cost': 16951.727},
+ 'delta': 0.0,
+ 'routed': 192,
+ 'barriers': 0,
+ 'seg_cache': (38, 986),
+ 'dispatches': (1, 192)}
+REPACK_GOLDEN = {'mode': 'warm',
+ 'actions': 'ceef3efb538fda955b485874600d17439cb37c5acf811067c8d94e704e9511f0',
+ 'n_actions': 72,
+ 'migrated': 5078,
+ 'cost': 16872.825999999994,
+ 'total_cost': 16872.826}
+PARITY_GOLDEN = {'flat': '156b9d0f5e8b7a24ff538a9a7dfdf7a7b1d458093218ddd7519c6c62a5bfdb90',
+ 'flat_final': 69.55,
+ 'cells': 'e8cf29dea27a35f7e8826ff39ee233cc9e6757fc0551e3c8e1dc3f17225813e2',
+ 'cells_final': 70.388,
+ 'one_cell_delta': 0.0}
+CHURN_GOLDEN = {'digest': '30194e3e7614b82666589530f074340d084572f45c5e2f4bdd7d4018a8133760',
+ 'final_cost': 2.73,
+ 'billed_cost': 2.8781420140692644,
+ 'events': 34,
+ 'rebalance_moves': 3}
+
+
+class ShardClock(LiveClock):
+    """`LiveClock` that also keeps each knapsack launch's inputs and outputs
+    on the card, for the check against the plain version."""
+
+    def __init__(self):
+        super().__init__()
+        self.knapsack_calls: list[tuple] = []
+
+    def _timed(self, name, fn):
+        call = super()._timed(name, fn)
+        if name != "knapsack_dp":
+            return call
+
+        def record(*args):
+            out = call(*args)
+            if args[0].device.type == "cuda":
+                self.knapsack_calls.append((args, out))
+            return out
+
+        return record
+
+
+def card_tick(clock, steps: dict, part: str):
+    """A `tick` for the replays on the card: per step, its wall seconds (the
+    card synchronised at both ends), the kernels' ms by kernel (CUDA
+    events around every launch), the rest (host), and the launches by
+    kernel and variant."""
+    state: dict = {}
+
+    def launches() -> dict:
+        counts = live_counts()
+        out = {name: counts[name]["launches"] for name in LIVE_KERNELS}
+        out.update({f"{name}.{v}": n for name in ("knapsack_dp", "pack_scan")
+                    for v, n in counts[name]["by_variant"].items()})
+        return out
+
+    def tick(label):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if label is not None:
+            kernel_ms = clock.ms_since(state["marks"])
+            wall_s = now - state["t"]
+            rose = {k: v - state["launches"][k] for k, v in launches().items()
+                    if v != state["launches"][k]}
+            steps[f"{part}.{label}"] = {
+                "wall_s": wall_s, "kernel_ms": kernel_ms,
+                "host_s": wall_s - sum(kernel_ms.values()) / 1e3, "launches": rose}
+            log(f"  ({part}) {label}: wall {wall_s:.3f} s, kernels "
+                f"{ {k: round(v, 3) for k, v in kernel_ms.items() if v} } ms, "
+                f"launches {rose}")
+        state.update(t=time.perf_counter(), marks=clock.marks(), launches=launches())
+
+    return tick
+
+
+def check_golden(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                if got.get(k) != want.get(k)}
+        raise AssertionError(f"{label} differs from the reference's golden: {diff}")
+
+
+def check_knapsack_calls(calls) -> dict:
+    """Every recorded knapsack launch against `knapsack_dp_plain` on the
+    card, on the same inputs: ``best`` and the packed take words, bit for
+    bit."""
+    for args, (best, take, _taken) in calls:
+        best_p, take_p = knapsack.knapsack_dp_plain(*args)
+        if not (torch.equal(best, best_p) and torch.equal(take, take_p)):
+            raise AssertionError(f"knapsack_dp differs from its plain version at "
+                                 f"B={args[0].shape[0]} T={args[0].shape[1]}")
+    shapes = sorted({(a[0].shape[0], a[0].shape[1], int(np.prod(a[3]))) for a, _ in calls})
+    log(f"  knapsack_dp: {len(calls)} launches equal to knapsack_dp_plain on the card, bit "
+        f"for bit; (B, T, S) from {shapes[0]} to {shapes[-1]}")
+    return {"checked": len(calls), "max_abs_err": 0.0}
+
+
+def knapsack_bound(args) -> dict:
+    """The knapsack DP's least time: its steps, weights and final states
+    read once, the take bits (one a state), ``best`` and the mask of steps
+    taken written once; the fit compares, one add and one compare a state
+    a step over the float32 peak."""
+    step_values, _w, _f, levels = args
+    b_n, t_n = step_values.shape
+    s_n, d_n, item = int(np.prod(levels)), len(levels), step_values.element_size()
+    inputs = b_n * t_n * (item + 8 * d_n) + b_n * 8 + 2 * d_n * 8
+    bits_moved = inputs + t_n * b_n * -(-s_n // 32) * 4 + b_n * item + b_n * t_n
+    return _bound(bits_moved, t_n * b_n * s_n * (d_n + 2), SIMT_OPS_PER_S)
+
+
+def phase_shard_timing(pack_calls, knapsack_calls) -> dict:
+    """The pack scan at (a)'s B = 512 launch and the knapsack DP at the
+    batched certification's largest launch: kernel, plain version, bound."""
+    pack_scan = pack_timing(pack_calls)
+    before = (knapsack.LAUNCHES, dict(knapsack.LAUNCHES_BY_VARIANT))
+    kargs, _out = max(knapsack_calls, key=lambda c: c[0][0].numel())
+    k_ms = time_cold_ms(lambda: knapsack._dispatch(*kargs), reps=10)
+    k_plain_ms = time_cold_ms(lambda: knapsack.knapsack_dp_plain(*kargs), reps=3)
+    k_bound = knapsack_bound(kargs)
+    kb, kt = kargs[0].shape
+    ks = int(np.prod(kargs[3]))
+    k_variant = knapsack._variant(ks)
+    index = torch.cuda.current_device()
+    ctas = (knapsack._cluster_size(kb, ks, knapsack.sm_count(index))
+            if k_variant == "cluster" else 1)
+    log(f"  knapsack_dp {k_variant} ({ctas} CTA a knapsack) {k_ms:.4f} ms at B={kb} T={kt} "
+        f"S={ks} (plain {k_plain_ms:.3f} ms), bound {k_bound['bound_ms']:.5f} ms "
+        f"({k_bound['bound_by']})")
+    knapsack.LAUNCHES = before[0]
+    knapsack.LAUNCHES_BY_VARIANT.update(before[1])
+    return {
+        "pack_scan": pack_scan,
+        "knapsack_dp": {"ms": k_ms, "plain_ms": k_plain_ms, **k_bound, "B": kb, "T": kt,
+                        "S": ks, "variant": k_variant, "ctas_per_knapsack": ctas},
+    }
+
+
+def shard_kernel_entry(sharded: dict, name: str) -> dict:
+    """A kernel's phase-4c numbers for the kernels line: its launches by
+    part, and, for the pack scan and the knapsack DP, its time at the
+    phase's largest launch beside its plain version and bound."""
+    entry = {"launches": sharded["launches"][name],
+             "launches_by_part": {part: sharded[part]["counts"][name]["launches"]
+                                  for part in "abcd"}}
+    entry.update(sharded["timing"].get(name, {}))
+    if name == "knapsack_dp":
+        steps = sharded["steps"]
+        entry["certify"] = {
+            label: {"wall_s": steps[f"a.{label}"]["wall_s"],
+                    "kernel_ms": steps[f"a.{label}"]["kernel_ms"]["knapsack_dp"],
+                    "launches": steps[f"a.{label}"]["launches"].get("knapsack_dp", 0)}
+            for label in ("certify_batched_cold", "certify_batched_warm")}
+        entry["certify"]["rounds"] = sharded["a"]["certify_stats"]["pricing_rounds"]
+    return entry
+
+
+#: The 8-cell replay's process must end within this many seconds of its start.
+CELLS_PARITY_TIMEOUT_S = 900
+
+
+def start_cells_parity(workdir: pathlib.Path) -> subprocess.Popen:
+    """(c)'s `cells_parity` in a process of its own (this script with
+    ``--cells-parity``), so that its market's host work runs beside the
+    rest of phase 4c; its outcome and its log go to ``workdir``."""
+    with open(workdir / "cells_parity.log", "w") as out:
+        return subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()), "--cells-parity",
+             str(workdir / "cells_parity.json")],
+            stdout=out, stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def finish_cells_parity(proc: subprocess.Popen, workdir: pathlib.Path, t0: float) -> dict:
+    """Wait for `start_cells_parity`'s process (killed past
+    `CELLS_PARITY_TIMEOUT_S`), log its lines and return its outcome."""
+    try:
+        rc = proc.wait(timeout=max(1.0, CELLS_PARITY_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed past its time limit"
+    for line in (workdir / "cells_parity.log").read_text().splitlines():
+        log(f"  [cells] {line}")
+    if rc != 0:
+        raise AssertionError(f"(c) the {PARITY_CELLS}-cell replay's process: exit {rc}")
+    return json.loads((workdir / "cells_parity.json").read_text())
+
+
+def run_cells_parity(path: str) -> int:
+    """``--cells-parity PATH``: `cells_parity` on the card, the live loop's
+    kernel counts set to 0 just before it and read just after, every
+    kernel launch of it against its plain version; the outcome to PATH."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_num_threads(1)  # host work beside the main process's
+    steps: dict = {}
+    with ShardClock() as clock:
+        reset_live_counts()
+        costs = cells_parity(port_package(), card_tick(clock, steps, "c"))
+        counts = live_counts()
+    out = {"costs": costs, "steps": steps, "counts": counts,
+           "knapsack_check": (check_knapsack_calls(clock.knapsack_calls)
+                              if clock.knapsack_calls else {"checked": 0, "max_abs_err": 0.0}),
+           "pack_check": (check_pack_calls(clock.pack_calls)
+                          if clock.pack_calls else {"checked": 0, "max_abs_err": 0.0})}
+    pathlib.Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    """Two `live_counts` added, key by key."""
+    return {k: add_counts(v, b[k]) if isinstance(v, dict) else v + b[k] for k, v in a.items()}
+
+
+def sharded_parts(pkg, out: dict, proc, workdir: pathlib.Path, t0: float) -> "ShardClock":
+    """Phase 4c's parts, (a), (b), (d), (c), into ``out``; (c)'s 8-cell
+    replay is `start_cells_parity`'s process ``proc``, joined last.
+    Returns the clock with the launches made in this process."""
+    with ShardClock() as clock:
+        reset_live_counts()
+        big, batched = big_replay(pkg, card_tick(clock, out["steps"], "a"))
+        out["a"] = {**big, "counts": live_counts()}
+        log(f"  (a) {big['cells']} cells: lower bounds {big['lower_bounds']}, final "
+            f"${big['final_cost']:.4f}/h, delta {big['delta']}, workers equal "
+            f"{big['workers_equal']}; routed {big['routed']}, barriers {big['barriers']}, "
+            f"segment cache {big['seg_cache']}, repair dispatches {big['dispatches']}; "
+            f"pricing {big['certify_stats']['pricing_dispatches']} dispatches in "
+            f"{big['certify_stats']['pricing_rounds']} rounds")
+        check_golden("(a)", {k: v for k, v in big.items() if k != "workers_equal"},
+                     SHARD_GOLDEN)
+        if not big["workers_equal"]:
+            raise AssertionError(f"(a) the fold on {SHARD_WORKERS} threads differs")
+        reset_live_counts()
+        rep = shard_repack(pkg, batched, card_tick(clock, out["steps"], "b"))
+        out["b"] = {**rep, "counts": live_counts()}
+        log(f"  (b) repack: {rep}")
+        check_golden("(b)", rep, REPACK_GOLDEN)
+        del batched
+        reset_live_counts()
+        churn = sharded_churn(pkg, card_tick(clock, out["steps"], "d"))
+        out["d"] = {**churn, "counts": live_counts()}
+        log(f"  (d) {churn}")
+        check_golden("(d)", churn, CHURN_GOLDEN)
+        reset_live_counts()
+        cells: dict = {}
+
+        def join() -> list[float]:
+            cells.update(finish_cells_parity(proc, workdir, t0))
+            return cells["costs"]
+
+        parity = cost_parity(pkg, card_tick(clock, out["steps"], "c"), cells=join)
+        out["c"] = {**parity, "counts": add_counts(live_counts(), cells["counts"])}
+        out["steps"].update(cells["steps"])
+        out["c_checks"] = {"knapsack": cells["knapsack_check"], "pack": cells["pack_check"]}
+        log(f"  (c) flat ${parity['flat_final']:.4f}/h, {PARITY_CELLS} cells "
+            f"${parity['cells_final']:.4f}/h, one cell delta {parity['one_cell_delta']}")
+        check_golden("(c)", parity, PARITY_GOLDEN)
+    return clock
+
+
+def phase_sharded() -> dict:
+    """Phase 4c: the sharded controller on the card — (a) the 100k replay,
+    (b) the batched repair, (c) the cost parity (its 8-cell replay in a
+    process of its own, from the phase's start), (d) a sharded churn
+    replay, each with the live loop's kernel counts set to 0 just before
+    it and read just after, each against the reference's goldens; then
+    every pack and knapsack launch of the phase against its plain version
+    on the card (the 8-cell replay's, in its process), and both timed at
+    the phase's largest launch."""
+    pkg = port_package()
+    out: dict = {"steps": {}}
+    with tempfile.TemporaryDirectory() as workdir:
+        workdir = pathlib.Path(workdir)
+        t0 = time.perf_counter()
+        proc = start_cells_parity(workdir)
+        try:
+            clock = sharded_parts(pkg, out, proc, workdir, t0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for part in ("a", "b"):
+        if out[part]["counts"]["pack_scan"]["launches"] == 0:
+            raise AssertionError(f"({part}) launched pack_scan 0 times")
+    if out["a"]["counts"]["knapsack_dp"]["launches"] == 0:
+        raise AssertionError("(a) launched knapsack_dp 0 times")
+    out["pack_check"] = check_pack_calls(clock.pack_calls)
+    out["knapsack_check"] = check_knapsack_calls(clock.knapsack_calls)
+    for kind in ("pack", "knapsack"):  # and the 8-cell replay's, checked in its process
+        out[f"{kind}_check"]["checked"] += out["c_checks"][kind]["checked"]
+    out["timing"] = phase_shard_timing(clock.pack_calls, clock.knapsack_calls)
+    out["launches"] = {name: sum(out[part]["counts"][name]["launches"] for part in "abcd")
+                       for name in LIVE_KERNELS}
     return out
 
 
@@ -1321,11 +1968,10 @@ def phase_timing(largest) -> dict:
     inputs = b_n * t_n * (item + 8 * d_n) + b_n * 8 + 2 * d_n * 8
     # The first port's bound counted take at one byte a state; it needs one bit.
     bytes_moved = inputs + t_n * b_n * s_n + b_n * item  # take + best
-    bits_moved = inputs + t_n * b_n * -(-s_n // 32) * 4 + b_n * item + b_n * t_n
-    ops = t_n * b_n * s_n * (d_n + 2)  # fits compares, one add, one compare
+    bits_bound = knapsack_bound(largest)
+    bits_moved, ops = bits_bound["bytes"], bits_bound["ops"]
     ops_ms = ops / SIMT_OPS_PER_S * 1e3
     bound = _bound(bytes_moved, ops, SIMT_OPS_PER_S)
-    bits_bound = _bound(bits_moved, ops, SIMT_OPS_PER_S)
     log(f"  {variant} {ms:.4f} ms, global {global_ms:.4f} ms, plain {plain_ms:.4f} ms at "
         f"B={b_n} T={t_n} S={s_n}; bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, "
         f"take a byte a state), {bits_bound['bound_ms']:.5f} ms ({bits_bound['bound_by']}, "
@@ -2922,7 +3568,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write the measurements to this file")
     ap.add_argument("--kernel-only", action="store_true",
                     help="run only phases 1-3 and 6 (build and kernel checks)")
+    ap.add_argument("--cells-parity", metavar="PATH",
+                    help="run only phase 4c (c)'s 8-cell replay and write its outcome to PATH "
+                         "(phase 4c starts the script so)")
     args = ap.parse_args(argv)
+    if args.cells_parity:
+        return run_cells_parity(args.cells_parity)
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -2974,6 +3625,11 @@ def main(argv=None) -> int:
                     "(b) churn_replan, (c) lifecycle experiment 3")
         result["live_loop"] = phase_live_loop(managers)
         del managers
+        timer.begin("phase 4c", f"sharded controller: (a) {SHARD_STREAMS:,} streams over "
+                    f"{SHARD_CELLS} cells, (b) the batched repair, (c) cost parity at "
+                    f"{PARITY_STREAMS} streams, (d) a sharded churn replay")
+        result["sharded"] = phase_sharded()
+        torch.cuda.empty_cache()
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
         timer.begin("phase 5b", "analysis programs, calibration and calibrated allocations")
@@ -3046,6 +3702,7 @@ def main(argv=None) -> int:
             "bound_bits_ms": timing["bound_bits_ms"],
             "bound_bits_by": timing["bound_bits_by"],
             "live_loop_launches": result["live_loop"]["launches"]["knapsack_dp"],
+            "shard": shard_kernel_entry(result["sharded"], "knapsack_dp"),
         }]
         live = result["live_loop"]
         for kname, src, replaces in (
@@ -3072,6 +3729,7 @@ def main(argv=None) -> int:
                    if kname == "pack_scan" else
                    {"shape": t["shape"], "threshold": heuristics._CUDA_MIN_CANDIDATES,
                     "fleet_scale": t["fleet_scale"]}),
+                "shard": shard_kernel_entry(result["sharded"], kname),
             })
         for kname, replaces in (
             ("flash_attention", "src/repro/kernels/attention.py:75"),

@@ -41,7 +41,6 @@ from __future__ import annotations
 import threading
 
 import numpy as np
-import torch
 
 from ...device import resolve_device
 from ...kernels import pack as _pack_kernel
@@ -207,22 +206,6 @@ def best_fit_decreasing(problem: Problem) -> Solution:
 # --------------------------------------------------------------------------
 
 
-def _dispatch_pack(best_fit, reqs, masks, scores, orders, caps, costs, device):
-    """Launch the batched pack scan on ``device`` (one launch on the card,
-    the plain scan on the CPU) over the padded fleet axis; returns its
-    tensors on ``device``: ``((bin_rec, choice_rec, bt_rec), n_open,
-    total_cost)``, the records (B, n) in step order."""
-    if orders.size and (orders.min() < 0 or orders.max() >= reqs.shape[1]):
-        raise ValueError("pack orders must lie in [0, n)")
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    args = [put(a) for a in (reqs, masks, scores, orders, caps, costs)]
-    _pack_kernel._check_inputs(*args)
-    return _pack_kernel._dispatch(*args, bool(best_fit))
-
-
 def pack_device(
     problem: Problem, *, best_fit: bool = False, device=None
 ) -> Solution:
@@ -253,10 +236,11 @@ def batched_fleet_costs(
         return np.zeros(0)
     ts = [p.tensors() for p in problems]
     reqs, masks, scores, orders = _pad_fleets(problems, ts)
-    _recs, _n_open, costs = _dispatch_pack(
-        best_fit, reqs, masks, scores, orders, ts[0].caps, ts[0].costs, device
+    _recs, _n_open, costs = _pack_kernel.pack_scan_host(
+        reqs, masks, scores, orders, ts[0].caps, ts[0].costs,
+        best_fit=best_fit, device=device,
     )
-    return costs.cpu().numpy()
+    return costs
 
 
 def _pad_fleets(problems, ts):
@@ -323,13 +307,10 @@ def _batched_pack_raw(
         return []
     ts = [p.tensors() for p in problems]
     reqs, masks, scores, orders = _pad_fleets(problems, ts)
-    recs, n_open, _costs = _dispatch_pack(
-        best_fit, reqs, masks, scores, orders, ts[0].caps, ts[0].costs, device
+    (bin_rec, choice_rec, bt_rec), n_open, _costs = _pack_kernel.pack_scan_host(
+        reqs, masks, scores, orders, ts[0].caps, ts[0].costs,
+        best_fit=best_fit, device=device,
     )
-    # The records and the bins opened back to the host in one copy.
-    host = torch.cat([torch.stack(recs).reshape(-1), n_open]).cpu().numpy()
-    bin_rec, choice_rec, bt_rec = host[: -len(problems)].reshape(3, len(problems), -1)
-    n_open = host[-len(problems):]
     out = []
     for b, p in enumerate(problems):
         placed = bin_rec[b] >= 0  # padding items: skipped by the scan
@@ -375,15 +356,9 @@ def placement_scores(
     device = resolve_device(device)
     n_candidates = req.shape[0] * req.shape[1] * resid.shape[0]
     if device.type == "cuda" and n_candidates >= _CUDA_MIN_CANDIDATES:
-
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
-        out = _placement_kernel.placement_scores(
-            put(req, np.float64), put(choice_mask, bool), put(resid, np.float64)
-        )
+        out = _placement_kernel.placement_scores_host(req, choice_mask, resid, device=device)
         _count_route("kernel")
-        return out.cpu().numpy()
+        return out
     _count_route("numpy")
     return placement_scores_np(req, choice_mask, resid)
 

@@ -132,6 +132,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..device import KernelError
 from .binpack import arcflow, bincompletion, heuristics
 from .binpack.problem import (
     BinType,
@@ -1647,7 +1648,7 @@ class FleetController:
             self._prices, _ = class_prices(
                 problem, self._colgen_pool, device=self.manager.device
             )
-        except RuntimeError:
+        except KernelError:
             # A kernel that fails to build or launch, or a missing card,
             # is not a pricing blow-up: it surfaces.
             raise

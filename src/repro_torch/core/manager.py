@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -27,13 +28,6 @@ from .strategies import ALL_STRATEGIES, ST3, Strategy
 from .streams import StreamSpec
 
 __all__ = ["AllocationPlan", "PlacedStream", "ResourceManager"]
-
-#: Entry points of the reference manager that later slices port, with the
-#: ROADMAP.md queue A item that ports each.
-_NOT_PORTED = {
-    "sharded_controller": "the sharded controller is not ported yet "
-    "(ROADMAP.md queue A item 3, core/shard.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +81,9 @@ class ResourceManager:
     default (raises when there is none), the CPU only when asked for.
 
     `allocate` plans through the live re-planning controller
-    (`controller`), which `replan` then folds churn events into.  The
-    reference's `sharded_controller` is not ported yet and raises
-    ``NotImplementedError``.
+    (`controller`), which `replan` then folds churn events into;
+    `sharded_controller` partitions a fleet into cells of such
+    controllers (`core.shard`).
     """
 
     def __init__(
@@ -125,14 +119,23 @@ class ResourceManager:
         # Branch-and-price column pool: catalog-keyed, so one pool can be
         # shared by every solve over the same bin types (and reused across
         # fleet churn — see `binpack.colgen.ColumnPool`).  Callers
-        # (controllers) may inject their own to share columns.
+        # (controllers, shards) may inject their own to share columns.
         self.colgen_pool = colgen_pool
         # formulate() memo: repeated allocations of the same fleet (solver
         # cross-checks, simulator re-plans, benchmark timing loops) reuse
         # one Problem instance and therefore one ProblemTensors build.
         self._formulate_cache: dict[tuple, Problem] = {}
+        # The sharded controller's threaded fold (``batch_workers``)
+        # formulates from several threads: eviction and insertion hold
+        # this lock (the reference evicts unguarded and can pop one key
+        # twice).
+        self._formulate_lock = threading.Lock()
         # Live re-planning controllers, one per strategy name (lazy).
         self._controllers: dict[str, object] = {}
+        # Sharded controllers live apart: their cells are plain
+        # FleetControllers that must NOT appear in `_controllers` (price
+        # events would double-reprice them through `_apply_price`'s loop).
+        self._sharded_controllers: dict[str, object] = {}
 
     def formulate(
         self, streams: Sequence[StreamSpec], strategy: Strategy = ST3
@@ -163,9 +166,10 @@ class ResourceManager:
         # Evict oldest-first (dict insertion order): wholesale clearing
         # thrashed workloads alternating between >64 fleets, rebuilding
         # every tensor cache each cycle.
-        while len(self._formulate_cache) >= 64:
-            self._formulate_cache.pop(next(iter(self._formulate_cache)))
-        self._formulate_cache[key] = problem
+        with self._formulate_lock:  # cells fold on threads (`core.shard`)
+            while len(self._formulate_cache) >= 64:
+                self._formulate_cache.pop(next(iter(self._formulate_cache)))
+            self._formulate_cache[key] = problem
         return problem
 
     def set_calibration(self, artifact) -> None:
@@ -224,8 +228,55 @@ class ResourceManager:
         return ctrl
 
     def sharded_controller(self, strategy: Strategy = ST3, **kwargs):
-        """The hierarchical sharded controller (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED["sharded_controller"])
+        """The hierarchical sharded controller for `strategy` (one per name).
+
+        Like `controller`, but returns a `core.shard.ShardedController`:
+        the fleet partitions into cells by ``cell_key``, each cell runs
+        its own warm-start `FleetController`, batched kernel dispatches
+        cold-start / defrag all cells at once, and a periodic dual-price
+        market (``rebalance_every``) migrates streams toward cheap cells.
+        Kept in a registry separate from the flat controllers, so a flat
+        and a sharded controller of the same strategy can coexist (e.g.
+        for equivalence tests).  ``policy_factory`` (not ``policy``)
+        supplies per-cell policy instances — policies are stateful, so
+        cells must not share one.  Reconfiguring a live sharded
+        controller updates its facade options in place; billing swaps
+        propagate to every existing cell via `set_billing`.
+        """
+        ctrl = self._sharded_controllers.get(strategy.name)
+        if ctrl is None:
+            from .shard import ShardedController
+
+            ctrl = ShardedController(self, strategy, **kwargs)
+            self._sharded_controllers[strategy.name] = ctrl
+        else:
+            if "billing" in kwargs or "billing_by_type" in kwargs:
+                billing = kwargs.pop("billing", ctrl.billing)
+                by_type = kwargs.pop("billing_by_type", None)
+                ctrl.billing = billing
+                ctrl.billing_by_type = by_type
+                for cell in ctrl._cells.values():
+                    cell.set_billing(
+                        billing if billing is not None else cell.billing,
+                        by_type=by_type,
+                    )
+            for key, value in kwargs.items():
+                if key in (
+                    "cell_key",
+                    "gap_threshold",
+                    "sub_max_nodes",
+                    "policy_factory",
+                    "drain_on_notice",
+                    "rebalance_every",
+                    "rebalance_moves",
+                    "rebalance_min_saving",
+                ):
+                    setattr(ctrl, key, value)
+                else:
+                    raise TypeError(
+                        f"unknown sharded controller option {key!r}"
+                    )
+        return ctrl
 
     def allocate(
         self, streams: Sequence[StreamSpec], strategy: Strategy = ST3

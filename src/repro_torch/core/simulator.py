@@ -216,25 +216,10 @@ def simulate_churn(
     ``rung_penalty`` over reduced-rate hours plus ``blackout_penalty``
     over blackout hours, pricing graceful degradation against blackout
     in one scalar.
-
-    The sharded replay's arguments (``cell_key``, ``policy_factory``,
-    ``rebalance_every``, ``reset_pack`` other than ``"exact"``) raise
-    ``NotImplementedError``: the sharded controller is not ported yet.
     """
     from .streams import InstancePreempted, TimedTrace
     from .strategies import ST3
 
-    if (
-        cell_key is not None
-        or policy_factory is not None
-        or rebalance_every
-        or reset_pack != "exact"
-    ):
-        raise NotImplementedError(
-            "sharded churn replay (cell_key, policy_factory, rebalance_every, "
-            "reset_pack) is not ported yet (ROADMAP.md queue A item 3, "
-            "core/shard.py)"
-        )
     trace = TimedTrace.coerce(events)
     if horizon is None:
         horizon = trace.horizon
@@ -248,9 +233,27 @@ def simulate_churn(
         kwargs["billing_by_type"] = billing_by_type
     if drain_on_notice is not None:
         kwargs["drain_on_notice"] = drain_on_notice
-    if policy is not None:
-        kwargs["policy"] = policy
-    ctrl = manager.controller(strategy, **kwargs)
+    if cell_key is not None or policy_factory is not None:
+        # Sharded replay: partition into cells of warm-start controllers
+        # (see `core.shard.ShardedController`).  ``policy_factory`` (one
+        # fresh policy per cell — policies are stateful) replaces
+        # ``policy``; the rest of the replay reads the identical facade.
+        if policy is not None:
+            raise TypeError(
+                "sharded simulate_churn takes policy_factory, not policy "
+                "(each cell needs its own policy instance)"
+            )
+        if policy_factory is not None:
+            kwargs["policy_factory"] = policy_factory
+        if cell_key is not None:
+            kwargs["cell_key"] = cell_key
+        ctrl = manager.sharded_controller(
+            strategy, rebalance_every=rebalance_every, **kwargs
+        )
+    else:
+        if policy is not None:
+            kwargs["policy"] = policy
+        ctrl = manager.controller(strategy, **kwargs)
     tiers: dict = {}  # stream name -> SLATier, sticky across removals
 
     def note_tiers() -> None:
@@ -259,23 +262,49 @@ def simulate_churn(
         for s in ctrl.parked.values():
             tiers[s.name] = s.tier
 
-    results = [ctrl.reset(initial_streams, at=0.0)]
+    if cell_key is not None or policy_factory is not None:
+        results = [ctrl.reset(initial_streams, at=0.0, pack=reset_pack)]
+    else:
+        results = [ctrl.reset(initial_streams, at=0.0)]
     uid_steps = [ctrl.instance_uids]
     preempted_steps: list[tuple[str, ...]] = [()]
     event_names = ["init"]
     rung_steps = [ctrl.degraded_rungs]
     park_steps = [ctrl.parked]
     note_tiers()
-    for ev in trace:
-        results.append(ctrl.apply(ev))
-        uid_steps.append(ctrl.instance_uids)
-        event_names.append(type(ev).__name__)
-        rung_steps.append(ctrl.degraded_rungs)
-        park_steps.append(ctrl.parked)
-        note_tiers()
-        preempted_steps.append(
-            results[-1].displaced if isinstance(ev, InstancePreempted) else ()
+    if cell_key is not None or policy_factory is not None:
+        # Sharded replay: the whole trace goes through the batched
+        # event pipeline (cross-cell barriers split it internally), and
+        # the per-step facade state the accounting loop needs comes back
+        # as snapshots instead of per-event property walks.
+        trace = list(trace)
+        step_results, step_snaps = ctrl.apply_events(
+            trace, with_snapshots=True
         )
+        for ev, r, snap in zip(trace, step_results, step_snaps):
+            results.append(r)
+            uid_steps.append(snap["uids"])
+            event_names.append(type(ev).__name__)
+            rung_steps.append(snap["rungs"])
+            park_steps.append(snap["parked"])
+            tiers.update(snap["tiers"])
+            preempted_steps.append(
+                r.displaced if isinstance(ev, InstancePreempted) else ()
+            )
+        note_tiers()
+    else:
+        for ev in trace:
+            results.append(ctrl.apply(ev))
+            uid_steps.append(ctrl.instance_uids)
+            event_names.append(type(ev).__name__)
+            rung_steps.append(ctrl.degraded_rungs)
+            park_steps.append(ctrl.parked)
+            note_tiers()
+            preempted_steps.append(
+                results[-1].displaced
+                if isinstance(ev, InstancePreempted)
+                else ()
+            )
     ledger = ctrl.lifecycle
     times = [r.at for r in results]
     ends = times[1:] + [max(horizon, times[-1])]

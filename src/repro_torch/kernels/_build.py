@@ -5,7 +5,8 @@ by ``nvcc`` into a shared library under ``build/repro_torch_kernels/`` at
 the root of the checkout and loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  The library name carries a hash of the source, the
 headers it includes and its flags, so an edited source is rebuilt and an
-unchanged one is reused.  A failed build raises with nvcc's output.
+unchanged one is reused.  A failed build raises `KernelError` with
+nvcc's output.
 `build_all` starts one nvcc process per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..device import KernelError
 
 __all__ = ["BUILD_INFO", "SOURCES", "build_all", "load_library"]
 
@@ -66,7 +69,7 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    raise KernelError("nvcc not found (looked on PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
 def _library_path(name: str) -> pathlib.Path:
@@ -106,11 +109,14 @@ def build_all(names=tuple(SOURCES)) -> dict[str, ctypes.CDLL]:
             built[name] = (time.perf_counter() - t0, log)
         for name, (cmd, tmp, t0, proc) in started.items():
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+                raise KernelError(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
                                    f"{' '.join(cmd)}\n{built[name][1]}")
             os.replace(tmp, paths[name])
         for name in todo:
-            _LIBS[name] = ctypes.CDLL(str(paths[name]))
+            try:
+                _LIBS[name] = ctypes.CDLL(str(paths[name]))
+            except OSError as e:  # a library that does not load (no CUDA runtime, ...)
+                raise KernelError(f"cannot load {paths[name]}: {e}") from e
             seconds, log = built.get(name, (0.0, ""))
             BUILD_INFO[name] = {"seconds": seconds, "log": log, "path": str(paths[name])}
         return {n: _LIBS[n] for n in names}

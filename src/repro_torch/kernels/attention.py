@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from ..device import KernelError
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "flash_attention", "flash_attention_plain"]
 
 #: Number of CUDA kernel launches made by `flash_attention` in this process.
@@ -153,7 +155,7 @@ def _dispatch(q, k, v, window, logit_softcap):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention {variant} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"flash_attention {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return out

@@ -48,7 +48,7 @@ import numbers
 
 import torch
 
-from ..device import sm_count
+from ..device import KernelError, sm_count
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "decode_attention", "decode_attention_plain",
            "mma_splits", "splits"]
@@ -248,7 +248,7 @@ def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"decode_attention {variant} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"decode_attention {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return out

@@ -44,6 +44,8 @@ import ctypes
 
 import torch
 
+from ..device import KernelError
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_plain",
            "grouped_gemm_ragged", "pad_and_sort_tokens"]
 
@@ -156,7 +158,7 @@ def _dispatch(x, w, offsets, variant: str | None = None):
         rc = fn(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, k, f, e,
                 _VARIANT_CODES[variant], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"grouped_gemm {variant} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"grouped_gemm {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return out

@@ -67,7 +67,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device, sm_count
+from ..device import KernelError, on_card, resolve_device, sm_count
 
 __all__ = [
     "LAUNCHES",
@@ -93,6 +93,8 @@ LAUNCHES_BY_VARIANT = {"cluster": 0, "global": 0}
 _LAUNCHES_LOCK = threading.Lock()  # allocate_sweep(parallel=True) prices from threads
 
 _MAX_DIMS = 32  # kMaxDims in csrc/knapsack.cu
+#: The kernel indexes states with 32-bit ints: its grids are smaller.
+_MAX_STATES = 1 << 31
 #: States a CTA of the ``cluster`` variant holds, and the largest cluster
 #: (`knapsack_max_slice` and `knapsack_max_cluster` in csrc/knapsack.cu).
 _MAX_SLICE = 8192
@@ -291,7 +293,7 @@ def _packing(levels: Sequence[int]) -> tuple[tuple[int, ...], int]:
             guards |= 1 << (bit + g)
             bit += g + 1
     if bit > 64:
-        raise ValueError(f"grid {tuple(levels)} needs {bit} bits of packed coordinates")
+        raise KernelError(f"grid {tuple(levels)} needs {bit} bits of packed coordinates")
     return tuple(offsets), guards
 
 
@@ -351,9 +353,10 @@ def knapsack_dp(
 
     CPU tensors run `knapsack_dp_plain`; CUDA tensors launch the CUDA kernel
     (built on first use) on the current stream, and anything the kernel
-    does not take raises: another dtype, device or shape, a non-contiguous
-    tensor, a negative weight, a ``final_idx`` outside the grid or a grid
-    of 2^31 states or more.
+    does not take raises: another dtype, device or shape, a negative
+    weight or a ``final_idx`` outside the grid (``ValueError`` or
+    ``TypeError``, as on the CPU); a non-contiguous tensor or a grid of
+    2^31 states or more, which only the kernel refuses (`KernelError`).
     """
     _check_inputs(step_values, step_weights, final_idx, levels)
     # The kernel's reads stay inside the state row only for these values.
@@ -368,6 +371,20 @@ def knapsack_dp(
     return best, take
 
 
+def _refusals(step_values, step_weights, final_idx, s_n: int) -> None:
+    """What the kernel refuses and the plain DP takes, raised as
+    `KernelError` (so that no pricing catch-all takes it for a blow-up): a
+    non-contiguous tensor, a grid of `_MAX_STATES` states or more.  A grid
+    whose coordinates do not pack into 64 bits is refused by `_packing`."""
+    for name, t in (("step_values", step_values), ("step_weights", step_weights),
+                    ("final_idx", final_idx)):
+        if not t.is_contiguous():
+            raise KernelError(f"knapsack_dp: {name} must be contiguous")
+    if s_n >= _MAX_STATES:
+        raise KernelError(f"knapsack_dp: the kernel takes grids of fewer than "
+                          f"{_MAX_STATES} states, got {s_n}")
+
+
 def _dispatch(step_values, step_weights, final_idx, levels):
     """`knapsack_dp` after its checks: ``(best, take, taken)``.  On the CPU
     the plain version, with ``taken`` None; on the card the kernel, with
@@ -379,13 +396,7 @@ def _dispatch(step_values, step_weights, final_idx, levels):
     if dev.type == "cpu":
         best, take = knapsack_dp_plain(step_values, step_weights, final_idx, levels)
         return best, take, None
-    for name, t in (("step_values", step_values), ("step_weights", step_weights),
-                    ("final_idx", final_idx)):
-        if not t.is_contiguous():
-            raise ValueError(f"knapsack_dp: {name} must be contiguous")
-    if s_n >= 1 << 31:
-        raise ValueError(f"knapsack_dp: the kernel takes grids of fewer than 2^31 "
-                         f"states, got {s_n}")
+    _refusals(step_values, step_weights, final_idx, s_n)
     b_n, t_n = step_values.shape
     d_n = len(levels)
     variant = _variant(s_n)
@@ -416,7 +427,7 @@ def _dispatch(step_values, step_weights, final_idx, levels):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"knapsack_dp kernel launch failed ({variant}): CUDA error {rc}")
+        raise KernelError(f"knapsack_dp kernel launch failed ({variant}): CUDA error {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
         LAUNCHES_BY_VARIANT[variant] += 1
@@ -560,11 +571,12 @@ def price_knapsacks(
         )
     # pricing_steps checked the weights and capacities on the host, so the
     # DP skips `knapsack_dp`'s check on the card.
-    args = steps.to(dev)
-    _check_inputs(*args)
-    best, take, taken = _dispatch(*args)
-    if taken is None:  # the CPU: the host backtrack walks the plain version's bits
-        counts = steps.counts(unpack_take(take, steps.states).numpy(), e_n)
-        return PricingResult(best.numpy(), counts, steps.states, t_n)
-    best_h, taken_h = _fetch(best, taken)
+    with on_card(dev, "knapsack_dp"):
+        args = steps.to(dev)
+        _check_inputs(*args)
+        best, take, taken = _dispatch(*args)
+        if taken is None:  # the CPU: the host backtrack walks the plain version's bits
+            counts = steps.counts(unpack_take(take, steps.states).numpy(), e_n)
+            return PricingResult(best.numpy(), counts, steps.states, t_n)
+        best_h, taken_h = _fetch(best, taken)
     return PricingResult(best_h, steps.counts_from_taken(taken_h, e_n), steps.states, t_n)

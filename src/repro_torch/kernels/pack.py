@@ -32,7 +32,9 @@ Two implementations, bit-identical:
   where a fleet's ``2 n dim`` doubles outgrow it.
 
 `pack_scan` dispatches by the device of its tensors: CPU tensors go to the
-plain version, CUDA tensors launch the kernel (or raise).
+plain version, CUDA tensors launch the kernel (or raise).  `pack_scan_host`
+is the packers' call: host arrays in, host arrays out, with every error of
+its device section on the card raised as `KernelError`.
 """
 from __future__ import annotations
 
@@ -40,9 +42,12 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "pack_scan", "pack_scan_plain"]
+from ..device import KernelError, on_card
+
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "pack_scan", "pack_scan_host", "pack_scan_plain"]
 
 #: Number of CUDA kernel launches made by `pack_scan` in this process.
 LAUNCHES = 0
@@ -189,6 +194,26 @@ def pack_scan(req, mask, open_score, order, caps, costs, *, best_fit: bool):
     return _dispatch(req, mask, open_score, order, caps, costs, best_fit)
 
 
+def pack_scan_host(req, mask, open_score, order, caps, costs, *, best_fit: bool, device):
+    """`pack_scan` on host arrays, run on ``device``: ``(records (3, B, n),
+    n_open (B,), total_cost (B,))`` as numpy arrays, the records and the
+    bins opened copied back with the costs in one copy.  On the card every
+    error of the device section (copies in, launch, copy back) is a
+    `KernelError` (`device.on_card`)."""
+    if order.size and (order.min() < 0 or order.max() >= req.shape[1]):
+        raise ValueError("pack orders must lie in [0, n)")
+    b_n = req.shape[0]
+    with on_card(device, "pack_scan"):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (req, mask, open_score, order, caps, costs)]
+        _check_inputs(*args)
+        recs, n_open, total = _dispatch(*args, bool(best_fit))
+        host = torch.cat([torch.stack(recs).reshape(-1), n_open,
+                          total.view(torch.int64)]).cpu().numpy()
+    return (host[: -2 * b_n].reshape(3, b_n, -1), host[-2 * b_n: -b_n],
+            host[-b_n:].view(np.float64))
+
+
 def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
     """`pack_scan` after its checks: the plain version or the kernel."""
     global LAUNCHES
@@ -198,7 +223,7 @@ def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
     for name, t in (("req", req), ("mask", mask), ("open_score", open_score),
                     ("order", order), ("caps", caps), ("costs", costs)):
         if not t.is_contiguous():
-            raise ValueError(f"pack_scan: {name} must be contiguous on CUDA")
+            raise KernelError(f"pack_scan: {name} must be contiguous on CUDA")
     b_n, n, c_n, dim = req.shape
     n_bt = caps.shape[0]
     variant = _variant(n, c_n, dim)
@@ -219,7 +244,7 @@ def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"pack_scan kernel launch failed ({variant}): CUDA error {rc}")
+        raise KernelError(f"pack_scan kernel launch failed ({variant}): CUDA error {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
         LAUNCHES_BY_VARIANT[variant] += 1

@@ -14,9 +14,11 @@ Two implementations, bit-identical with it:
 * the CUDA kernel in ``csrc/placement.cu``: one thread an output.
 
 `placement_scores` dispatches by the device of its tensors: CPU tensors go
-to the plain version, CUDA tensors launch the kernel (or raise).  Which
-candidate matrices go to the card at all is the caller's size rule
-(`core.binpack.heuristics.placement_scores`).
+to the plain version, CUDA tensors launch the kernel (or raise).
+`placement_scores_host` is the controller's call: host arrays in, a host
+array out, with every error of its device section on the card raised as
+`KernelError`.  Which candidate matrices go to the card at all is the
+caller's size rule (`core.binpack.heuristics.placement_scores`).
 """
 from __future__ import annotations
 
@@ -24,9 +26,12 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "placement_scores", "placement_scores_plain"]
+from ..device import KernelError, on_card
+
+__all__ = ["LAUNCHES", "placement_scores", "placement_scores_host", "placement_scores_plain"]
 
 #: Number of CUDA kernel launches made by `placement_scores` in this process.
 LAUNCHES = 0
@@ -90,6 +95,17 @@ def placement_scores(req, mask, resid):
     return _dispatch(req, mask, resid)
 
 
+def placement_scores_host(req, mask, resid, *, device) -> np.ndarray:
+    """`placement_scores` on host arrays, run on ``device``: a writable
+    ``(k, C, P)`` numpy array.  On the card every error of the device
+    section (copies in, launch, copy back) is a `KernelError`
+    (`device.on_card`)."""
+    with on_card(device, "placement_scores"):
+        args = [torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+                for a, dtype in ((req, np.float64), (mask, bool), (resid, np.float64))]
+        return placement_scores(*args).cpu().numpy()
+
+
 def _dispatch(req, mask, resid):
     """`placement_scores` after its checks: the plain version or the kernel."""
     global LAUNCHES
@@ -98,7 +114,7 @@ def _dispatch(req, mask, resid):
         return placement_scores_plain(req, mask, resid)
     for name, t in (("req", req), ("mask", mask), ("resid", resid)):
         if not t.is_contiguous():
-            raise ValueError(f"placement_scores: {name} must be contiguous on CUDA")
+            raise KernelError(f"placement_scores: {name} must be contiguous on CUDA")
     k, c, dim = req.shape
     p_n = resid.shape[0]
     fn = _kernel_fn()
@@ -107,7 +123,7 @@ def _dispatch(req, mask, resid):
         rc = fn(req.data_ptr(), mask.data_ptr(), resid.data_ptr(), k, c, p_n, dim,
                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"placement_scores kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"placement_scores kernel launch failed: CUDA error {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
     return out

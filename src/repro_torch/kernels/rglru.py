@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..device import sm_count
+from ..device import KernelError, sm_count
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "boxes", "rglru_scan", "rglru_scan_plain"]
 
@@ -141,7 +141,7 @@ def _dispatch(a, b, h0):
                 0 if h0 is None else h0.data_ptr(), h.data_ptr(), bsz, s, w,
                 torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed ({variant}): CUDA error {rc}")
+        raise KernelError(f"rglru_scan kernel launch failed ({variant}): CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return h

@@ -47,6 +47,8 @@ import ctypes
 
 import torch
 
+from ..device import KernelError
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "ssd_scan", "ssd_scan_plain"]
 
 #: Number of CUDA kernel launches made by `ssd_scan` in this process (one
@@ -221,7 +223,7 @@ def _dispatch(x, dt, A, Bm, Cm, h0, chunk, *, mid_event=None):
         else:
             rc = fn(*pointers, *strides, b, s, h, p, n, chunk, mid, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan {variant} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"ssd_scan {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return y, h_out

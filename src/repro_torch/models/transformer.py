@@ -17,7 +17,7 @@ Entry points:
   * ``forward_decode(params, cfg, tokens, cur_pos, caches) -> (logits, caches)``
 
 ``forward_train`` and ``loss_fn`` wait for the training slice (ROADMAP
-queue A item 16).
+queue A).
 """
 from __future__ import annotations
 

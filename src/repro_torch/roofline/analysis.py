@@ -4,7 +4,7 @@ The analytic half of `repro/roofline/analysis.py` (its lines 30-38 and
 112-139): the hardware record and the per-token model FLOPs, KV-cache and
 HBM byte counts that the serving launcher's profile is built from.  The
 reference's `parse_collectives` and `roofline_terms` read XLA HLO and wait
-for the launch-and-sharding slice (ROADMAP queue A item 17).
+for the launch-and-sharding slice (ROADMAP queue A).
 
 `HW` is the reference's default hardware record, a TPU v5e, kept because
 the launcher's profile (and so the manager's plan) is defined against it;

@@ -35,7 +35,6 @@ from repro_torch.core import calibration as cal
 from repro_torch.core import catalog
 from repro_torch.core import manager
 from repro_torch.core import profiler
-from repro_torch.core import simulator
 from repro_torch.core import strategies
 from repro_torch.core import streams
 from repro_torch.core.binpack import heuristics as h
@@ -48,6 +47,7 @@ from repro_torch.interop import (
     plan_to_plain,
     replan_result_to_plain,
 )
+from repro_torch.device import KernelError
 from repro_torch.kernels import knapsack, pack
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -378,17 +378,6 @@ def test_allocate_goes_through_the_controller():
     assert mgr.controller(ST3).plan is plan
 
 
-def test_sharded_entry_points_still_raise():
-    mgr = _small_manager(PORT)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        mgr.sharded_controller(ST3)
-    for kw in ({"cell_key": lambda s: 0}, {"policy_factory": object},
-               {"rebalance_every": 2}, {"reset_pack": "ffd"}):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            simulator.simulate_churn(mgr, _streams(PORT, 3), [], profiler.paper_profile_table(),
-                                     **kw)
-
-
 def test_kernel_failure_is_not_a_pricing_blow_up(monkeypatch):
     """A failed kernel launch inside the lower bound's pricing surfaces;
     the reference's catch-all keeps only pricing blow-ups."""
@@ -399,8 +388,30 @@ def test_kernel_failure_is_not_a_pricing_blow_up(monkeypatch):
     ctrl.reset([streams.StreamSpec(f"k{i}", *kinds[i]) for i in range(10)])  # 10 classes
 
     def fail(*args, **kwargs):
-        raise RuntimeError("knapsack_dp kernel launch failed: CUDA error 700")
+        raise KernelError("knapsack_dp kernel launch failed: CUDA error 700")
 
     monkeypatch.setattr(knapsack, "_dispatch", fail)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ctrl.refresh_prices()
+
+
+def test_a_grid_the_kernel_refuses_surfaces_from_pricing(monkeypatch):
+    """A knapsack that only the kernel refuses (here its grid passes a
+    lowered `_MAX_STATES`) raises `KernelError` out of the lower bound's
+    pricing rather than pricing nothing.  On the CPU `_dispatch` runs the
+    plain DP, so the card's refusals are put in front of it."""
+    art = cal.CalibrationArtifact.load(CALIBRATION)
+    mgr = manager.ResourceManager(catalog.paper_ec2_catalog(), calibration=art, device="cpu")
+    ctrl = mgr.controller()
+    kinds = _kinds(PORT) + [(p, f * 2) for p, f in _kinds(PORT)]
+    ctrl.reset([streams.StreamSpec(f"k{i}", *kinds[i]) for i in range(10)])  # 10 classes
+    plain = knapsack._dispatch
+
+    def card_dispatch(sv, sw, fi, levels):
+        knapsack._refusals(sv, sw, fi, int(np.prod(levels)))
+        return plain(sv, sw, fi, levels)
+
+    monkeypatch.setattr(knapsack, "_dispatch", card_dispatch)
+    monkeypatch.setattr(knapsack, "_MAX_STATES", 16)
+    with pytest.raises(KernelError, match="fewer than 16 states"):
         ctrl.refresh_prices()

@@ -32,6 +32,7 @@ from repro_torch.core.catalog import paper_ec2_catalog
 from repro_torch.core.manager import ResourceManager
 from repro_torch.core.profiler import paper_profile_table
 from repro_torch.core.streams import AnalysisProgram, StreamSpec
+from repro_torch.device import KernelError
 from repro_torch.interop import plan_to_plain
 from repro_torch.kernels import attention as flash
 from repro_torch.kernels import decode_attention as decode
@@ -173,7 +174,7 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     sv, sw, fi, levels = steps.to(cuda)
     assert min(sv.shape) > 1  # so that a transposed copy is not contiguous
     before = knapsack.LAUNCHES
-    with pytest.raises(ValueError):
+    with pytest.raises(KernelError):  # only the kernel refuses it
         knapsack.knapsack_dp(sv.t().contiguous().t(), sw, fi, levels)
     with pytest.raises(ValueError):
         knapsack.knapsack_dp(sv, sw.cpu(), fi, levels)
@@ -1008,11 +1009,11 @@ def test_live_kernel_wrappers_raise_instead_of_falling_back(cuda):
         pack.pack_scan(args[0].float(), *args[1:], best_fit=False)
     with pytest.raises(ValueError):
         pack.pack_scan(args[0], args[1].cpu(), *args[2:], best_fit=False)
-    with pytest.raises(ValueError):
+    with pytest.raises(KernelError):  # only the kernel refuses it
         pack.pack_scan(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:],
                        best_fit=False)
     req = args[0][0]
-    with pytest.raises(ValueError):
+    with pytest.raises(KernelError):  # only the kernel refuses it
         placement.placement_scores(req.transpose(0, 1).contiguous().transpose(0, 1),
                                    args[1][0], args[4])
     assert (pack.LAUNCHES, placement.LAUNCHES) == before

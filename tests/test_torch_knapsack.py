@@ -27,6 +27,7 @@ from repro.core.profiler import paper_profile_table as ref_table
 from repro.core.streams import AnalysisProgram, StreamSpec
 from repro.kernels import knapsack as ref_knap
 
+from repro_torch.device import KernelError
 from repro_torch.kernels import knapsack
 
 
@@ -344,6 +345,24 @@ def test_packing_fits_its_word_and_tests_fit(levels):
         x = guards + sum(int(c) << o for c, o in zip(coord, offsets))
         need = sum(int(v) << o for v, o in zip(w, offsets))
         assert (((x - need) & guards) == guards) == bool((coord >= w).all())
+
+
+def test_what_only_the_kernel_refuses_is_a_kernel_error():
+    """The kernel's refusals of input the plain DP takes — a grid of
+    `_MAX_STATES` states or more, a non-contiguous tensor, coordinates past
+    64 bits — raise `KernelError`, the type no pricing catch-all swallows,
+    not ``ValueError``."""
+    steps = knapsack.pricing_steps(*_random_pricing(np.random.RandomState(0), 3, 4, 2,
+                                                    np.float64))
+    sv, sw, fi, levels = steps.to("cpu")
+    knapsack._refusals(sv, sw, fi, steps.states)  # the fleet's grid: taken
+    with pytest.raises(KernelError, match="fewer than"):
+        knapsack._refusals(sv, sw, fi, knapsack._MAX_STATES)
+    with pytest.raises(KernelError, match="contiguous"):
+        knapsack._refusals(sv.t().contiguous().t(), sw, fi, steps.states)
+    with pytest.raises(KernelError, match="bits of packed coordinates"):
+        knapsack._packing((1 << 40, 1 << 40))
+    assert issubclass(KernelError, RuntimeError) and not issubclass(KernelError, ValueError)
 
 
 @pytest.mark.parametrize("b_n,s_n,want", [

@@ -23,8 +23,10 @@ from repro.core.streams import StreamSpec as RefStream
 
 from repro_torch.core.binpack import BinType, InfeasibleError
 from repro_torch.core.catalog import paper_ec2_catalog
+from repro_torch.core import manager as manager_module
 from repro_torch.core.manager import ResourceManager
 from repro_torch.core.profiler import paper_profile_table
+from repro_torch.core.shard import ShardedController
 from repro_torch.core.simulator import simulate_plan
 from repro_torch.core.strategies import ALL_STRATEGIES, ST1, ST2, ST3
 from repro_torch.core.streams import AnalysisProgram, StreamSpec
@@ -180,13 +182,20 @@ def test_colgen_fleet_plan_identical_to_reference(monkeypatch):
 
 
 def test_unported_entry_points_raise(managers):
-    """Only the sharded controller is still to be ported; `allocate` plans
-    through the live controller, which `replan` folds events into."""
+    """No entry point of the reference's manager is left unported:
+    `sharded_controller` gives the sharded controller (one per strategy,
+    apart from the flat ones; at one cell it plans as the flat controller
+    does), `allocate` plans through the live controller, which `replan`
+    folds events into."""
     port, _ref = managers
     streams = _streams(SCENARIOS[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 3"):
-        port.sharded_controller(ST3)
+    assert not hasattr(manager_module, "_NOT_PORTED")
+    sharded = port.sharded_controller(ST3)
+    assert isinstance(sharded, ShardedController)
+    assert port.sharded_controller(ST3) is sharded
+    assert sharded.reset(streams).plan.hourly_cost == pytest.approx(0.650)
     plan = port.allocate(streams, ST3)
+    assert port.controller(ST3) is not sharded
     assert plan.hourly_cost == pytest.approx(0.650)
     assert port.controller(ST3).plan is plan
     assert port.replan([], ST3) == []
