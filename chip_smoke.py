@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
-Drives the port's two paths — the paper's resource manager, with
-branch-and-price pricing on the card, and the serving path of the analysis
+Drives the port's three paths — the paper's resource manager, with
+branch-and-price pricing on the card, the serving path of the analysis
 programs at the full width of gemma2-2b, mamba2-1.3b, recurrentgemma-9b
-and qwen3-moe-30b-a3b — and holds every CUDA kernel of those paths against
-its plain torch version.  Phases, each raising on failure:
+and qwen3-moe-30b-a3b, and training at the full width and depth of
+internlm2-1.8b — and holds every CUDA kernel of those paths against its
+plain torch version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
@@ -173,7 +174,26 @@ its plain torch version.  Phases, each raising on failure:
    take 122 GB).  Routing is a discontinuous function of float32 sums, so
    the plain run takes the kernel run's expert choices (its own
    probabilities at them) and counts the choices it would have made
-   otherwise.
+   otherwise;
+9. training: (a) the flash backward kernel (`flash_attention_bwd.cu`,
+   three passes) against `flash_attention_backward_plain` on the same q,
+   k, v, o, lse and dO, and the forward's lse against the plain
+   logsumexp, in bf16 and float32 at internlm2-1.8b's attention (B=2,
+   S=4096, H=16, KV=8, D=128) and gemma2-2b's local (window 4096, softcap
+   50) and global layers (B=1, S=8192, H=8, KV=4, D=256), limits in
+   `BWD_TOLERANCE`; each timed cold beside its bound, its plain version
+   and, at internlm2-1.8b's bf16 shape, SDPA's backward; (b) one float32
+   train step of internlm2-1.8b at full width cut to 2 layers (B=1,
+   S=256) on the card and on the CPU: loss, grad norm and every updated
+   weight within 1e-3; (c) internlm2-1.8b at full width and depth in
+   bf16 with remat, B=2, S=4096, 4 AdamW steps on one fixed batch, kernel
+   counts set to 0 just before: the loss must fall, each step's wall ms
+   split by CUDA events into forward, backward and optimizer, the last
+   step traced with `torch.profiler` for the card's busy share, one
+   backward launch (three passes) and two forward launches (remat) per
+   layer a step, peak memory against the card's; (d) the launcher
+   `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
+   process of its own, its checkpoint restored.
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Every kernel time is taken with a cold L2 by `time_cold_ms`,
@@ -186,15 +206,18 @@ CUDA card:
 
     python3 chip_smoke.py [--json PATH] [--kernel-only]
 
-``--kernel-only`` runs phases 1-3 and 6.  ``--cells-parity PATH`` is how
-phase 4c starts its 8-cell replay in a process of its own.
+``--kernel-only`` runs phases 1-3 and 6.
+``--cells-parity PATH`` is how phase 4c starts its 8-cell replay in a
+process of its own.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -210,7 +233,7 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config  # noqa: E402
+from repro_torch.configs import DEFAULT_TOKENS_PER_FRAME, get_config, smoke_variant  # noqa: E402
 from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import shard  # noqa: E402
 from repro_torch.core import streams as port_streams  # noqa: E402
@@ -239,6 +262,11 @@ from repro_torch.models import analysis_programs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.data import BatchSpec, make_batch  # noqa: E402
+from repro_torch.interop import param_leaves  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.train.train_loop import batch_to_device, make_train_step, train  # noqa: E402
 
 #: The JAX reference's result for the 500-camera fleet on a CPU, for the
 #: reader: $/h and instance count (repro.core.manager, numpy pricing).
@@ -462,7 +490,8 @@ def check_flash_wgmma_spills() -> dict:
 #: ``ssd_cb`` per (N, chunk), the knapsack's ``knapsack_cluster`` per value
 #: type and states a thread (1, 2, 4, 8) and ``knapsack_global`` per value
 #: type, the RG-LRU scan's ``rglru_tma`` and ``rglru_cp_async`` per CTA
-#: width (64, 128 lanes).
+#: width (64, 128 lanes), flash attention's backward ``flash_bwd_dkdv`` and
+#: ``flash_bwd_dq`` per type and head_dim.
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -472,6 +501,8 @@ SPILL_CHECKED = {
     ("knapsack", "knapsack_global"): 2,
     ("rglru", "rglru_tma"): 2,
     ("rglru", "rglru_cp_async"): 2,
+    ("flash_attention_bwd", "flash_bwd_dkdv"): 2 * len(flash.HEAD_DIMS),
+    ("flash_attention_bwd", "flash_bwd_dq"): 2 * len(flash.HEAD_DIMS),
 }
 
 
@@ -3542,6 +3573,399 @@ def phase_model_vs_plain(arch: str) -> dict:
             "decode_max_abs_err": max(errs[1:]), "atol": atol, "kernel_path_s": kern_s,
             "plain_path_s": plain_s, "routing_flips": routing.flips}
 
+# --------------------------------------------------------------- phase 9
+
+#: (a) the backward kernel against its plain version: (label, B, S, H, KV,
+#: D, window, softcap): internlm2-1.8b's attention at `TRAIN_SEQ`, gemma2-2b's
+#: local layer (window 4096, softcap 50) and its global layer at 8192 tokens.
+BWD_CASES = [
+    ("internlm2-1.8b", 2, 4096, 16, 8, 128, None, None),
+    ("gemma2-2b local", 1, 8192, 8, 4, 256, 4096, 50.0),
+    ("gemma2-2b global", 1, 8192, 8, 4, 256, None, 50.0),
+]
+#: The backward against its plain version, relative to the largest |grad|
+#: of dq, dk and dv: (atol as a share of it, rtol).  The forward's
+#: limits: float32 2e-5 (the two sum in other orders); bf16 one bf16 ulp
+#: (both round one float32 result) plus 1e-4.  The forward's lse against
+#: the plain logsumexp: float32 2e-5 absolute and relative, both dtypes
+#: (the scores are float32 sums of the same products).
+BWD_TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
+LSE_TOLERANCE = (2e-5, 2e-5)
+#: (b) internlm2-1.8b at full width cut to `TRAIN_PARITY_LAYERS` layers,
+#: float32, on the card and on the CPU: every gradient leaf within
+#: `TRAIN_ATOL` of its largest |grad| on the CPU, then one train step's
+#: loss, grad norm and every updated weight within `TRAIN_ATOL` absolute
+#: (the float32 model limit).  Adam's first step moves a weight by about
+#: lr (1e-3), so the weights alone cannot tell a wrong gradient from a
+#: right one of the same sign: the gradients are what hold the backward.
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_SEQ = 256
+TRAIN_ATOL = 1e-3
+#: (c) full width and depth in bf16 with remat: `TRAIN_BATCH` x `TRAIN_SEQ`
+#: (train_4k's sequence, the batch cut from 256 to fit one card), `TRAIN_STEPS`
+#: AdamW steps on one fixed batch (make_batch seed 0).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 4, 1e-3
+#: (d) the launcher's smoke run.
+LAUNCH_TRAIN_STEPS = 3
+
+
+def _bwd_reset() -> None:
+    flash.BWD_LAUNCHES = 0
+    for k in flash.BWD_PASSES:
+        flash.BWD_PASSES[k] = 0
+
+
+def bwd_bound(q, k, window) -> dict:
+    """Five products of 2 operations a multiply-add over the visible (query,
+    key) pairs of each (b, h); q, k, v, o, dO, dq, dk, dv and lse moved once."""
+    b, s, h, d = q.shape
+    item = q.element_size()
+    i = np.arange(s)
+    pairs = int(np.minimum(i + 1, window).sum() if window else (i + 1).sum())
+    ops = 10 * b * h * d * pairs
+    bytes_moved = 4 * q.numel() * item + 4 * k.numel() * item + b * h * s * 4
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else SIMT_OPS_PER_S
+    return _bound(bytes_moved, ops, peak)
+
+
+def _compare_grads(label, dtype, got, want) -> dict:
+    """dq, dk, dv against the plain backward, each within `BWD_TOLERANCE`
+    relative to the largest |grad| of the three."""
+    torch.cuda.synchronize()
+    share, rtol = BWD_TOLERANCE[dtype]
+    errs = {}
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {dtype} {name}: non-finite kernel gradient")
+        err = float((g.float() - w.float()).abs().max())
+        if not torch.allclose(g.float(), w.float(), atol=share * scale, rtol=rtol):
+            raise AssertionError(f"{label} {dtype} {name}: kernel vs plain max abs err "
+                                 f"{err:.3g} outside {share} x {scale:.3g} + rtol {rtol}")
+        errs[name] = {"max_abs_err": err, "max_abs_want": float(w.float().abs().max())}
+    return {"label": label, "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "grads": errs}
+
+
+def _sdpa_backward(q, k, v, do):
+    """One library call's backward (SDPA, causal GQA) on (B, S, H, D), for
+    timing: returns a function computing dq, dk, dv of a kept graph."""
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+    out = _sdpa_causal(qt, kt, vt)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do, retain_graph=True)
+
+
+def phase_backward_vs_plain() -> tuple[list, dict]:
+    """(a): at each `BWD_CASES` shape in bf16 and float32, the forward's lse
+    against the plain logsumexp and the backward kernel against
+    `flash_attention_backward_plain` on the same q, k, v, o, lse, dO; each
+    timed cold beside its bound and its plain version, and beside SDPA's
+    backward where one call computes the same function (no window, no
+    softcap: internlm2-1.8b's shape, in both types)."""
+    rng = np.random.RandomState(9)
+    checks, timing = [], {}
+    for label, b, s, h, kv, d, window, cap in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (_normal(rng, (b, s, n, d), dtype) for n in (h, kv, kv, h))
+            out, lse = flash._dispatch(q, k, v, window, cap, with_lse=True)
+            want_o, want_lse = flash.flash_attention_plain(q, k, v, window=window,
+                                                           logit_softcap=cap, return_lse=True)
+            checks.append({"kernel": "flash_attention", **_compare(
+                f"flash forward {label}", dtype, out, want_o)})
+            checks.append({"kernel": "flash_attention_lse", **_compare(
+                f"flash lse {label}", dtype, lse, want_lse, tol=LSE_TOLERANCE)})
+            del want_o, want_lse
+            before = (flash.BWD_LAUNCHES, dict(flash.BWD_PASSES))
+            got = flash._dispatch_bwd(q, k, v, out, lse, do, window, cap)
+            if flash.BWD_LAUNCHES != before[0] + 1 or any(
+                    flash.BWD_PASSES[n] != before[1][n] + 1 for n in flash.BWD_PASSES):
+                raise AssertionError(f"backward {label}: launches not counted")
+            want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=window,
+                                                        logit_softcap=cap)
+            check = {"kernel": "flash_attention_bwd",
+                     **_compare_grads(f"flash backward {label}", dtype, got, want)}
+            del got, want
+            args = (q, k, v, out, lse, do, window, cap)
+            t = {"shape": [b, s, h, d], "kv_heads": kv, "window": window, "softcap": cap,
+                 **bwd_bound(q, k, window)}
+            t["ms"], t["dot_dkdv_ms"], t["dq_ms"] = time_cold_parts_ms(
+                lambda mid: flash._dispatch_bwd(*args, events=(None, mid)), reps=5)
+            t["plain_ms"] = time_cold_ms(lambda: flash.flash_attention_backward_plain(
+                q, k, v, out, lse, do, window=window, logit_softcap=cap), reps=2)
+            t["library_ms"] = None
+            if window is None and cap is None:
+                t["library_ms"] = time_cold_ms(_sdpa_backward(q, k, v, do), reps=5)
+            key = f"{label} {str(dtype).replace('torch.', '')}"
+            timing[key] = t
+            check["timing"] = key
+            checks.append(check)
+            log(f"  {key}: lse err {checks[-2]['max_abs_err']:.3g}, grads err "
+                f"{check['max_abs_err']:.3g} (largest |grad| "
+                f"{max(g['max_abs_want'] for g in check['grads'].values()):.3g}); "
+                f"{t['ms']:.3f} ms (D+dk/dv {t['dot_dkdv_ms']:.3f}, dq {t['dq_ms']:.3f}), "
+                f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} ({t['bound_by']})"
+                + ("" if t["library_ms"] is None else f", SDPA backward {t['library_ms']:.3f}"))
+            del q, k, v, do, out, lse, args
+            torch.cuda.empty_cache()
+    return checks, timing
+
+
+def _train_cfg(**updates):
+    return dataclasses.replace(get_config(TRAIN_ARCH), **updates)
+
+
+def _one_step(cfg, model, batch, opt_cfg, device) -> dict:
+    """One `train` step of ``model`` (updated in place) on ``device``: its
+    history row."""
+    state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+    _, history = train(cfg, iter([batch]), steps=1, opt_cfg=opt_cfg, log_fn=lambda line: None,
+                       device=device, state=state)
+    return history[-1]
+
+
+def _leaf_grads(cfg, model, batch, device) -> dict:
+    """``{reference path: [gradient, ...]}`` of `loss_fn` at ``model`` on
+    ``batch``; the model's gradients are cleared after."""
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    total, _ = tfm.loss_fn(model, cfg, batch_to_device(batch, device))
+    total.backward()
+    grads = {path: [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                    for p in ([leaf] if isinstance(leaf, torch.Tensor) else leaf)]
+             for path, leaf in param_leaves(cfg, model).items()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def train_card_vs_cpu() -> dict:
+    """(b): internlm2-1.8b at full width, cut to `TRAIN_PARITY_LAYERS`
+    layers, float32, on the card and on the CPU from the same weights and
+    batch: every gradient leaf of `loss_fn`, then one `train` step's loss,
+    grad norm and every updated weight."""
+    cfg = _train_cfg(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    cpu_model = tfm.init_params(cfg, seed=0, device="cpu")
+    card_model = tfm.init_params(cfg, seed=0, device="cpu").to("cuda")
+    batch = make_batch(cfg, BatchSpec(1, TRAIN_PARITY_SEQ), seed=0)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+
+    card_grads = _leaf_grads(cfg, card_model, batch, "cuda")
+    cpu_grads = _leaf_grads(cfg, cpu_model, batch, "cpu")
+    grad_errs = {}
+    for path, wants in cpu_grads.items():
+        for got, want in zip(card_grads[path], wants):
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
+            if not err <= TRAIN_ATOL:
+                raise AssertionError(f"(b) gradient {path}: card vs CPU {err:.3g} of its "
+                                     f"largest |grad| {scale:.3g}")
+            grad_errs[path] = max(grad_errs.get(path, 0.0), err)
+    del card_grads, cpu_grads
+    worst_grad_path = max(grad_errs, key=grad_errs.get)
+
+    _bwd_reset()
+    t0 = time.perf_counter()
+    card = _one_step(cfg, card_model, batch, opt_cfg, "cuda")
+    card_s = time.perf_counter() - t0
+    if flash.BWD_LAUNCHES != TRAIN_PARITY_LAYERS:
+        raise AssertionError(f"(b): {flash.BWD_LAUNCHES} backward launches for "
+                             f"{TRAIN_PARITY_LAYERS} layers")
+    init = [p.detach().clone() for p in cpu_model.parameters()]
+    t0 = time.perf_counter()
+    cpu = _one_step(cfg, cpu_model, batch, opt_cfg, "cpu")
+    cpu_s = time.perf_counter() - t0
+    # What the weights check would read had the card left every weight as it was.
+    unchanged = max(float((p.detach() - w).abs().max())
+                    for p, w in zip(cpu_model.parameters(), init))
+    del init
+    for key in ("loss", "grad_norm"):
+        if abs(card[key] - cpu[key]) > TRAIN_ATOL:
+            raise AssertionError(f"(b) {key}: card {card[key]} vs CPU {cpu[key]}")
+    worst, worst_path = 0.0, ""
+    cpu_leaves = param_leaves(cfg, cpu_model)
+    for path, leaf in param_leaves(cfg, card_model).items():
+        pairs = ([(leaf, cpu_leaves[path])] if isinstance(leaf, torch.Tensor)
+                 else zip(leaf, cpu_leaves[path]))
+        for a, b_ in pairs:
+            err = float((a.detach().cpu() - b_.detach()).abs().max())
+            if err > worst:
+                worst, worst_path = err, path
+    if worst > TRAIN_ATOL:
+        raise AssertionError(f"(b) updated weight {worst_path}: card vs CPU {worst:.3g}")
+    log(f"  (b) {cfg.num_layers} layers float32, B 1 x S {TRAIN_PARITY_SEQ}: largest gradient "
+        f"difference {grad_errs[worst_grad_path]:.3g} of its leaf's largest |grad| "
+        f"({worst_grad_path}, {len(grad_errs)} leaves); loss card {card['loss']:.6f} CPU "
+        f"{cpu['loss']:.6f}, grad norm {card['grad_norm']:.6f} / {cpu['grad_norm']:.6f}, "
+        f"largest weight difference {worst:.3g} ({worst_path}; unchanged weights would read "
+        f"{unchanged:.3g}); card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    return {"layers": cfg.num_layers, "seq": TRAIN_PARITY_SEQ, "card": card, "cpu": cpu,
+            "grad_errs": grad_errs, "max_grad_err": grad_errs[worst_grad_path],
+            "max_grad_err_leaf": worst_grad_path,
+            "max_weight_err": worst, "max_weight_err_leaf": worst_path,
+            "unchanged_weight_reading": unchanged, "atol": TRAIN_ATOL,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def split_trace(trace_path: pathlib.Path, annotation: str) -> dict:
+    """`scripts/torch_profile_wave.py`'s host/card split of the annotated
+    span of a Chrome trace: the card's busy and idle share (the union of
+    its kernel, copy and memset intervals), device ms by kernel group,
+    host launches and waits."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_wave", ROOT / "scripts" / "torch_profile_wave.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.split_trace(json.loads(trace_path.read_text()), annotation)
+
+
+def train_full_width() -> dict:
+    """(c): internlm2-1.8b at full width and depth, bf16, remat, `TRAIN_STEPS`
+    AdamW steps on one fixed batch, kernel counts set to 0 just before and
+    read just after; each step's wall time split by CUDA events into
+    forward, backward and optimizer; the last step traced for the card's
+    busy share; peak memory."""
+    cfg = get_config(TRAIN_ARCH)
+    model = tfm.init_params(cfg, seed=0)
+    state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+    batch = batch_to_device(make_batch(cfg, BatchSpec(TRAIN_BATCH, TRAIN_SEQ), seed=0), "cuda")
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                               total_steps=TRAIN_STEPS), remat=True)
+    trace = ROOT / "build" / "profile" / "train-step-trace.json"
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.LAUNCHES = 0
+    for k in flash.LAUNCHES_BY_VARIANT:
+        flash.LAUNCHES_BY_VARIANT[k] = 0
+    _bwd_reset()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        profiled = i == TRAIN_STEPS - 1
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        if profiled:
+            prof.start()
+        with torch.profiler.record_function(f"train step {i}"):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, events=events)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if profiled:
+            prof.stop()
+        row = {"step": i, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]), "wall_ms": wall_ms, "traced": profiled,
+               "forward_ms": events[0].elapsed_time(events[1]),
+               "backward_ms": events[1].elapsed_time(events[2]),
+               "optimizer_ms": events[2].elapsed_time(events[3])}
+        steps.append(row)
+        log(f"  (c) step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
+            f"lr {row['lr']:.2e}; wall {wall_ms:.1f} ms = forward {row['forward_ms']:.1f} + "
+            f"backward {row['backward_ms']:.1f} + optimizer {row['optimizer_ms']:.1f}"
+            + (" (traced)" if profiled else ""))
+    launches = {"flash_attention": flash.LAUNCHES,
+                "flash_attention_by_variant": dict(flash.LAUNCHES_BY_VARIANT),
+                "flash_attention_bwd": flash.BWD_LAUNCHES,
+                "flash_attention_bwd_passes": dict(flash.BWD_PASSES)}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    traced = split_trace(trace, f"train step {TRAIN_STEPS - 1}")
+    if not all(np.isfinite(r["loss"]) for r in steps) or steps[-1]["loss"] >= steps[0]["loss"]:
+        raise AssertionError(f"(c) losses {[r['loss'] for r in steps]}: the last is not "
+                             "below the first")
+    # remat: each layer's forward runs twice a step (forward, then recomputed
+    # in the backward); its backward once.
+    n = cfg.num_layers * TRAIN_STEPS
+    if (launches["flash_attention_bwd"] != n or launches["flash_attention"] != 2 * n
+            or any(v != n for v in flash.BWD_PASSES.values())):
+        raise AssertionError(f"(c) launches {launches} for {cfg.num_layers} layers x "
+                             f"{TRAIN_STEPS} steps with remat")
+    busy = ("not measured (the trace holds no device work)" if not traced["device_ops"] else
+            f"{1 - traced['device_idle_share']:.4f} of {traced['wave_ms']:.1f} ms, by group "
+            + ", ".join(f"{g} {ms:.1f}" for g, ms in traced["device_ms_by_group"].items()))
+    log(f"  (c) launches {launches}; peak memory {peak / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f} GiB; traced step: card busy {busy}; "
+        f"{traced['host_launch_calls']} host launch calls")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": True,
+            "dtype": cfg.dtype, "steps": steps, "launches": launches,
+            "peak_memory_bytes": peak, "card_memory_bytes": total, "traced_step": traced}
+
+
+def train_launcher(workdir: pathlib.Path) -> dict:
+    """(d): ``python -m repro_torch.launch.train --arch internlm2-1.8b
+    --smoke --steps 3 --ckpt ...`` in a process of its own, then its
+    checkpoint restored into the smoke model."""
+    path = workdir / "launch-train"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                            else "")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+           "--steps", str(LAUNCH_TRAIN_STEPS), "--ckpt", str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"    | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) launcher exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    cfg = smoke_variant(get_config(TRAIN_ARCH))
+    like = tfm.init_params(cfg, seed=0)
+    restored = ckpt.restore(str(path), like, cfg=cfg)
+    manifest = json.loads(path.with_suffix(".manifest.json").read_text())
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(like.parameters(),
+                                                           restored.parameters()))
+    if manifest["metadata"] != {"arch": cfg.name} or moved == 0 or not all(
+            bool(torch.isfinite(p).all()) for p in restored.parameters()):
+        raise AssertionError(f"(d) checkpoint: metadata {manifest['metadata']}, "
+                             f"{moved} tensors moved from the seed-0 init")
+    log(f"  (d) launcher {wall_s:.1f} s; checkpoint restored: "
+        f"{len(list(restored.parameters()))} tensors, {moved} trained away from the init")
+    return {"wall_s": wall_s, "tensors": len(list(restored.parameters())), "trained": moved}
+
+
+def phase_training() -> dict:
+    out = {}
+    out["kernel_checks"], out["timing"] = phase_backward_vs_plain()
+    out["card_vs_cpu"] = train_card_vs_cpu()
+    torch.cuda.empty_cache()
+    out["full_width"] = train_full_width()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out["launcher"] = train_launcher(pathlib.Path(tmp))
+    return out
+
+
+def backward_kernel_entry(training: dict) -> dict:
+    """The backward kernel's entry of the kernels line: launches in (c),
+    the largest error of (a), and its times at internlm2-1.8b's bf16 shape."""
+    t = training["timing"]["internlm2-1.8b bfloat16"]
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:75",
+        "replaces_note": "no Pallas kernel: jax.grad of attention_train, whose loop the "
+                         "Pallas flash kernel computes",
+        "launches": training["full_width"]["launches"]["flash_attention_bwd"],
+        "passes": training["full_width"]["launches"]["flash_attention_bwd_passes"],
+        "max_abs_err": max(c["max_abs_err"] for c in training["kernel_checks"]
+                           if c["kernel"] == "flash_attention_bwd"),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "dot_dkdv_ms": t["dot_dkdv_ms"],
+        "dq_ms": t["dq_ms"],
+        "by_shape": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "dot_dkdv_ms", "dq_ms")}
+                     for k, v in training["timing"].items()},
+    }
+
+
 
 class PhaseTimer:
     """Prints each phase's title as it begins and its seconds as it ends."""
@@ -3603,16 +4027,18 @@ def main(argv=None) -> int:
     flash_wgmma_ptxas = check_flash_wgmma_spills()
     spill_checks = check_instance_spills()
 
+    result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
+              "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
+              "flash_wgmma_ptxas": flash_wgmma_ptxas, "ptxas": spill_checks,
+              "flash_bwd_ptxas": {f: r for f, r in ptxas_report(
+                  _build.BUILD_INFO["flash_attention_bwd"]["log"]).items()}}
     timer.begin("phase 3", "knapsack kernel vs plain on the card")
     fleet_problem = ResourceManager(
         paper_ec2_catalog(), paper_profile_table()
     ).formulate(camera_fleet(N_CAMERAS), ST3)
     checks = phase_kernel_vs_plain(fleet_problem)
     log(f"  {len(checks)} comparisons exact")
-    result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
-              "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-              "flash_wgmma_ptxas": flash_wgmma_ptxas, "ptxas": spill_checks,
-              "checks": checks}
+    result["checks"] = checks
 
     if not args.kernel_only:
         timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras)")
@@ -3680,6 +4106,10 @@ def main(argv=None) -> int:
         for arch in SERVE_ARCHS:
             result["model_vs_plain"][arch] = phase_model_vs_plain(arch)
             torch.cuda.empty_cache()
+        timer.begin("phase 9", "training: the flash backward kernel, card vs CPU, "
+                    f"full-width {TRAIN_ARCH}, the launcher")
+        training = result["training"] = phase_training()
+        kernel_checks += [c for c in training["kernel_checks"] if c["kernel"] == "flash_attention"]
 
         timing = result["timing"]
         result["kernels"] = [{
@@ -3782,6 +4212,9 @@ def main(argv=None) -> int:
                     entry[row] = {k: t[row][k] for k in (
                         "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             result["kernels"].append(entry)
+        flash_entry = next(e for e in result["kernels"] if e["name"] == "flash_attention")
+        flash_entry["training_launches"] = training["full_width"]["launches"]["flash_attention"]
+        result["kernels"].append(backward_kernel_entry(training))
         result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()
     result["seconds"] = time.perf_counter() - t_start

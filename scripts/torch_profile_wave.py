@@ -67,6 +67,7 @@ TRACE = pathlib.Path(__file__).resolve().parents[1] / "build" / "profile" / "wav
 #: (``flash_kernel`` is the SIMT flash kernel's name in earlier commits, so
 #: that a parent checkout can be traced beside this one).
 GROUPS = (("flash attention", ("flash_wgmma", "flash_simt", "flash_kernel")),
+          ("flash backward", ("flash_bwd",)),
           ("flash-decode", ("decode_mma", "decode_simt", "decode_combine")),
           ("SSD scan", ("ssd_mma", "ssd_cb", "ssd_simt", "ssd_kernel")),
           ("grouped GEMM", ("grouped_gemm",)),

@@ -3,12 +3,20 @@
 The manager's state is the catalog, the profile table and the problem; the
 live controller's adds the fleet, its churn trace and its billing
 contracts; the serving path's and the analysis programs' are their
-weights.  These helpers convert between the port's objects and plain
+weights, the training path's its weights and optimizer moments.  These
+helpers convert between the port's objects and plain
 tuples and numpy arrays — names, capacities, costs, requirement vectors,
 streams, events, assignments, weight arrays — so that any producer of the
 same plain form (a file, another implementation of the manager or the
 model) can feed the port identical inputs, and results can be compared
 value for value.
+
+A model's plain form is the reference's parameter pytree: nested dicts
+and, under ``blocks``, a tuple of one dict per pattern slot, whose leaves
+are stacked over layer groups.  A leaf's path is its keys joined by
+``/``, a tuple index written ``[i]`` (``blocks/[0]/attn/wq``), and leaves
+are ordered as jax flattens the tree: dict keys sorted, tuples in order
+(`flatten_plain`).
 
 The ``*_to_plain`` functions read attributes only, so they accept any
 object with the port's field names.
@@ -51,6 +59,13 @@ __all__ = [
     "profile_table_from_plain",
     "plan_to_plain",
     "params_from_plain",
+    "params_to_plain",
+    "param_leaves",
+    "plain_shapes",
+    "flatten_plain",
+    "unflatten_plain",
+    "opt_state_to_plain",
+    "opt_state_from_plain",
     "analysis_params_from_plain",
 ]
 
@@ -356,6 +371,111 @@ def params_from_plain(cfg, tree: dict, *, device=None) -> tfm.Transformer:
                                 MLP(put(m["up"][grp]), put(m["down"][grp]), opt(m, "gate", grp))))
     return tfm.Transformer(put(tree["embed"]), put(tree["final_norm"]), blocks,
                            unembed=opt(tree, "unembed"), vision_proj=opt(tree, "vision_proj"))
+
+
+def flatten_plain(tree, prefix: str = "") -> dict:
+    """``{path: leaf}`` of a plain tree in jax's leaf order: dicts by sorted
+    key, tuples by index (``[i]``); anything else (an array, a tensor, a
+    list) is a leaf."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: tree}
+    flat = {}
+    for key, value in items:
+        flat.update(flatten_plain(value, f"{prefix}/{key}" if prefix else key))
+    return flat
+
+
+def unflatten_plain(flat: dict):
+    """The tree `flatten_plain` flattened: a path component ``[i]`` is a
+    tuple index, any other a dict key."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("[") and k.endswith("]") for k in node):
+            return tuple(fix(node[f"[{i}]"]) for i in range(len(node)))
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+def param_leaves(cfg, model: tfm.Transformer) -> dict:
+    """``{path: parameters}`` in the reference's leaf order: a top-level
+    leaf's value is its tensor, a block leaf's the list of the
+    ``num_groups`` layer tensors it stacks (group ``g`` at index ``g``).
+    The tensors are the model's own parameters, not copies."""
+    tree = {}
+    for name in ("embed", "final_norm", "unembed", "vision_proj"):
+        if getattr(model, name) is not None:
+            tree[name] = getattr(model, name)
+    n = len(cfg.layer_pattern)
+    blocks = []
+    for slot in range(n):
+        layers = list(model.blocks[slot::n])
+        names = [name for name, _ in layers[0].named_parameters()]
+        blocks.append(unflatten_plain({
+            name.replace(".", "/"): [layer.get_parameter(name) for layer in layers]
+            for name in names}))
+    tree["blocks"] = tuple(blocks)
+    return flatten_plain(tree)
+
+
+def plain_shapes(cfg, model: tfm.Transformer) -> dict:
+    """``{path: shape}`` of `params_to_plain`'s leaves, without copying."""
+    return {path: tuple(leaf.shape) if isinstance(leaf, torch.Tensor)
+            else (len(leaf),) + tuple(leaf[0].shape)
+            for path, leaf in param_leaves(cfg, model).items()}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def params_to_plain(cfg, model: tfm.Transformer) -> dict:
+    """The reference's parameter pytree from the port's `Transformer`: the
+    inverse of `params_from_plain`, every leaf a float32 numpy array, block
+    leaves stacked over layer groups.  A bf16 weight widens exactly."""
+    return unflatten_plain({
+        path: _to_numpy(leaf) if isinstance(leaf, torch.Tensor)
+        else np.stack([_to_numpy(t) for t in leaf])
+        for path, leaf in param_leaves(cfg, model).items()})
+
+
+def opt_state_to_plain(state: dict) -> dict:
+    """The reference's optimizer state (``{"mu", "nu", "step"}``, moments
+    shaped like its parameter pytree) from the port's, whose ``mu`` and
+    ``nu`` are ``{path: float32 tensor}`` (`repro_torch.train.optimizer`)."""
+    return {
+        "mu": unflatten_plain({k: _to_numpy(v) for k, v in state["mu"].items()}),
+        "nu": unflatten_plain({k: _to_numpy(v) for k, v in state["nu"].items()}),
+        "step": np.asarray(int(state["step"]), dtype=np.int32),
+    }
+
+
+def opt_state_from_plain(plain: dict, *, device=None) -> dict:
+    """The port's optimizer state from the reference's, on ``device``
+    (default: the card); the moments float32, ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+
+    def put(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return {
+        "mu": {k: put(v) for k, v in flatten_plain(plain["mu"]).items()},
+        "nu": {k: put(v) for k, v in flatten_plain(plain["nu"]).items()},
+        "step": torch.tensor(int(np.asarray(plain["step"])), dtype=torch.int32, device=dev),
+    }
 
 
 def analysis_params_from_plain(program_id: str, tree: dict, *, device=None) -> dict:

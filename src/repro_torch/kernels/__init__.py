@@ -4,6 +4,8 @@
     (``csrc/knapsack.cu``)
   * attention — causal flash attention with GQA, sliding window and logit
     softcap, the serving path's prefill (``csrc/flash_attention.cu``)
+    and its backward, the training step's attention gradient
+    (``csrc/flash_attention_bwd.cu``)
   * decode_attention — flash-decode over a (ring) KV cache, the serving
     path's decode step (``csrc/decode_attention.cu``)
   * ssd — the Mamba-2 SSD chunked scan, the ``"ssd"`` block's prefill

@@ -35,15 +35,16 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: The attention, SSD, RG-LRU and grouped GEMM kernels need no
-#: bit-identity with their plain versions, so they let the compiler fuse
-#: multiply-adds.
+#: The attention (both directions), SSD, RG-LRU and grouped GEMM kernels
+#: need no bit-identity with their plain versions, so they let the compiler
+#: fuse multiply-adds.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
 SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "knapsack": (NVCC_FLAGS, ()),
     "flash_attention": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
+    "flash_attention_bwd": (FMAD_FLAGS, ("attention_common.cuh",)),
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),

@@ -68,6 +68,14 @@
 //    64 floats at D=256) stays in registers and only the K/V tile loads
 //    need the whole CTA to synchronise.  Keys and queries past S (a ragged
 //    tail) are zero-filled and masked.
+//
+// Both kernels optionally write each row's logsumexp, float32 (B, H, S), for
+// the backward (flash_attention_bwd.cu): lse = m + log(l), the natural log
+// of the sum of exp over the row's masked, capped, scaled scores.  The
+// wgmma kernel runs its softmax in base 2 (m in units of log2 e times the
+// score), so it stores (m + log2 l) * ln 2, converted once a row; the simt
+// kernel's softmax is in base e and stores m + log l.  A null pointer
+// writes nothing, which is what serving passes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +101,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int S, int H, int KV, float scale, float softcap, int window) {
+               T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, float scale,
+               float softcap, int window) {
   constexpr int BK = tile_rows<T>();
   constexpr int LDS = D + kPad;        // tile row stride (elements)
   constexpr int LDP = BK + 4;          // p row stride (floats)
@@ -233,6 +242,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + warp + kWarps * r;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], kMinDenom);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * H + h) * S + qpos] = m[r] + logf(l[r]);
     T* o_row = o + static_cast<size_t>(b) * S * q_stride + qpos * q_stride +
                static_cast<size_t>(h) * D + lane * VEC;
 #pragma unroll
@@ -243,8 +254,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int KV, float scale, float softcap, int window, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int H, int KV, float scale, float softcap, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   auto kernel = flash_simt<T, D>;
   cudaError_t err =
@@ -253,7 +264,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KV, scale, softcap, window);
+      static_cast<T*>(o), lse, S, H, KV, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
@@ -265,6 +276,7 @@ constexpr int BQ = 128;                      // query rows a CTA
 constexpr int kWarpgroups = 2;               // of 64 query rows each
 constexpr int kThreads = kWarpgroups * 128;  // thread 0 also issues every load
 __device__ constexpr float kLog2e = 1.4426950408889634f;
+__device__ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Tile {
@@ -311,8 +323,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int S,
-                int H, int KV, float scale, float softcap, int window) {
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int S, int H, int KV, float scale, float softcap,
+                int window) {
   using namespace hopper;
   using T = Tile<D>;
   constexpr int BK = T::BK, STAGES = T::STAGES, kNO = T::kNO, kNH = T::kNH;
@@ -491,6 +504,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = row0 + 8 * hh;
     if (row >= S) continue;
     const float denom = fmaxf(l[hh], kMinDenom);
+    if (lse != nullptr && lane % 4 == 0)  // base 2 -> natural log, once a row
+      lse[(static_cast<size_t>(b) * H + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
     __nv_bfloat16* out = o + (static_cast<size_t>(b) * S + row) * H * D +
                          static_cast<size_t>(h) * D + col_in;
 #pragma unroll
@@ -505,8 +520,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace wg
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                 int KV, float scale, float softcap, int window, cudaStream_t st) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                 int H, int KV, float scale, float softcap, int window, cudaStream_t st) {
   using T = wg::Tile<D>;
   const long long ctas = (static_cast<long long>(S) + wg::BQ - 1) / wg::BQ * H * B;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -531,7 +546,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (rc != 0) return rc;
   kernel<<<static_cast<unsigned>(ctas), wg::kThreads, T::kSmem, st>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, H, KV, scale, softcap, window);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, S, H, KV, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
@@ -540,32 +555,36 @@ bool bad_shape(int B, int S, int H, int KV) { return B < 1 || S < 1 || KV < 1 ||
 }  // namespace
 
 // q (B, S, H, D), k and v (B, S, KV, D), o (B, S, H, D), all contiguous
-// and 16-byte aligned; D in {64, 128, 256}.  softcap <= 0 means none,
-// window <= 0 means none.  float32 runs the simt kernel, bf16 the wgmma
+// and 16-byte aligned; D in {64, 128, 256}.  lse, when not null, receives
+// each row's natural-log logsumexp, float32 (B, H, S).  softcap <= 0 means
+// none, window <= 0 means none.  float32 runs the simt kernel, bf16 the wgmma
 // kernel.  Returns the CUDA error code of the launch (0 on success;
 // cudaErrorInvalidValue for a shape the kernel does not take).
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
-                                   int S, int H, int KV, int D, float scale, float softcap,
-                                   int window, void* stream) {
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int S, int H, int KV, int D, float scale,
+                                   float softcap, int window, void* stream) {
   if (bad_shape(B, S, H, KV)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_simt<float, 64>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
-    case 128: return launch_simt<float, 128>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
-    case 256: return launch_simt<float, 256>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
+    case 64:
+      return launch_simt<float, 64>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
+    case 128:
+      return launch_simt<float, 128>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
+    case 256:
+      return launch_simt<float, 256>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                    int S, int H, int KV, int D, float scale, float softcap,
-                                    int window, void* stream) {
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int B, int S, int H, int KV, int D, float scale,
+                                    float softcap, int window, void* stream) {
   if (bad_shape(B, S, H, KV)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
-    case 256: return launch_wgmma<256>(q, k, v, o, B, S, H, KV, scale, softcap, window, st);
+    case 64: return launch_wgmma<64>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
+    case 128: return launch_wgmma<128>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
+    case 256: return launch_wgmma<256>(q, k, v, o, lse, B, S, H, KV, scale, softcap, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

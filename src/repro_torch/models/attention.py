@@ -107,7 +107,11 @@ def attention_train(
 
     ``positions`` are ``arange(S)`` plus any offset: the rope angles read
     them, and the causal and window masks, which depend on differences of
-    positions only, are the kernel's own over ``0..S-1``.
+    positions only, are the kernel's own over ``0..S-1``.  Differentiable:
+    with grad enabled the kernel runs under `FlashAttentionFn`, and nothing
+    here writes in place.  The reference's ``block_kv`` and ``unroll`` are
+    XLA-only knobs (its loop's block size, analysis unrolling) and have no
+    counterpart: the kernel picks its own tiles.
     """
     out, _, _ = _attend_prefill(
         params, x, positions, num_heads=num_heads, num_kv_heads=num_kv_heads,

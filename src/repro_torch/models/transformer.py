@@ -1,4 +1,4 @@
-"""Decoder-only model assembled from a ModelConfig: the serving path.
+"""Decoder-only model assembled from a ModelConfig: serving and training.
 
 Mirrors `repro/models/transformer.py` for every config: ``"attention"``
 blocks (gemma2-2b, internlm2-1.8b, yi-34b, nemotron, llava's backbone,
@@ -12,16 +12,28 @@ reference's group ``i // len(pattern)``, slot ``i % len(pattern)``.
 
 Entry points:
   * ``init_params(cfg, *, seed, device)   -> Transformer``
+  * ``forward_train(params, cfg, batch, *, remat) -> (logits, aux)``
+  * ``loss_fn(params, cfg, batch, *, remat) -> (total, parts)``
   * ``init_serve_cache(cfg, batch, cache_len, *, device) -> [cache per layer]``
   * ``forward_prefill(params, cfg, batch, caches) -> (logits, caches)``
   * ``forward_decode(params, cfg, tokens, cur_pos, caches) -> (logits, caches)``
 
-``forward_train`` and ``loss_fn`` wait for the training slice (ROADMAP
-queue A).
+Parameters are created frozen (``requires_grad=False``), as serving wants
+them; training (`repro_torch.train`) turns ``requires_grad`` on.
+Training runs the attention-only configs: the flash kernel has a
+backward (`kernels.attention.FlashAttentionFn`), while the SSD scan, the
+RG-LRU scan and the grouped GEMM do not yet, so ``"ssd"``,
+``"recurrent"`` and ``"moe"`` layers raise `NotImplementedError` in
+`forward_train` (ROADMAP queue A item 3's next slices).  The reference's
+``unroll`` and ``act_spec`` are XLA knobs (analysis unrolling, a mesh
+sharding constraint) with no counterpart on one card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -29,6 +41,8 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
+from torch.utils.checkpoint import checkpoint
+
 from .config import ModelConfig
 from .layers import MLP, init_dense, init_mlp, init_rms_norm, mlp, rms_norm
 
@@ -38,6 +52,8 @@ __all__ = [
     "init_params",
     "embed_inputs",
     "unembed",
+    "forward_train",
+    "loss_fn",
     "init_serve_cache",
     "forward_prefill",
     "forward_decode",
@@ -170,13 +186,106 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
             x.shape[0], x.shape[1], cfg.num_codebooks, cfg.vocab_size)
     logits = logits.float()
     if cfg.final_logit_softcap is not None:
-        # cap * tanh(logits / cap), in place: at a 256k vocabulary the
-        # logits of a 4 x 2048-token prefill are 8.4 GB.
+        # cap * tanh(logits / cap), in place where nothing keeps the logits
+        # for a backward: at a 256k vocabulary the logits of a 4 x
+        # 2048-token prefill are 8.4 GB.
         cap = cfg.final_logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
+        if logits.requires_grad:
+            logits = cap * torch.tanh(logits / cap)
+        else:
+            logits.div_(cap).tanh_().mul_(cap)
     if cfg.num_codebooks == 1:
         logits = logits[:, :, 0, :]
     return logits
+
+
+# ---- training -----------------------------------------------------------------
+
+#: The layer kinds `forward_train` runs: every kernel they launch has a
+#: backward.  The others wait for backward kernels of their own (ROADMAP
+#: queue A item 3: the SSD and RG-LRU scans', the grouped GEMM's dX/dW).
+TRAINABLE_KINDS = ("attention",)
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    untrained = sorted(set(cfg.layer_pattern) - set(TRAINABLE_KINDS))
+    if untrained:
+        raise NotImplementedError(
+            f"{cfg.name}: training {untrained} layers needs backward kernels the port "
+            "does not have yet (ROADMAP queue A item 3: mamba2 and recurrentgemma "
+            "training with the SSD and RG-LRU scans' backward, MoE training with the "
+            "grouped GEMM's dX/dW)")
+
+
+def _apply_slot_train(cfg: ModelConfig, window: int | None, layer: Block, x: torch.Tensor,
+                      positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual application of an ``"attention"`` block (training / no
+    cache). Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    h = attn_lib.attention_train(
+        layer.attn, h, positions,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=window, logit_softcap=cfg.attn_logit_softcap,
+        norm_eps=cfg.norm_eps,
+    )
+    x = x + h
+    h = rms_norm(x, layer.ln2, cfg.norm_eps)
+    h = mlp(layer.mlp, h, cfg.mlp_activation)
+    return x + h, aux
+
+
+def _apply_group_train(cfg: ModelConfig, layers: list, positions: torch.Tensor,
+                       x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer group (the pattern's slots, in order): (x, summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for slot, layer in enumerate(layers):
+        x, a = _apply_slot_train(cfg, cfg.window_for_slot(slot), layer, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def forward_train(params: Transformer, cfg: ModelConfig, batch: dict, *,
+                  remat: bool = False):
+    """Returns (logits (B,S,[K,]V) float32, aux losses dict).
+
+    ``batch`` holds tensors on the model's device.  ``remat=True``
+    activation-checkpoints each layer group (`torch.utils.checkpoint`,
+    non-reentrant), as the reference's ``jax.checkpoint`` does: the
+    backward recomputes within a group and keeps the residual stream
+    between groups.
+    """
+    _check_trainable(cfg)
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = len(cfg.layer_pattern)
+    for grp in range(cfg.num_groups):
+        group = functools.partial(_apply_group_train, cfg,
+                                  list(params.blocks[grp * n:(grp + 1) * n]), positions)
+        if remat:
+            x, a = checkpoint(group, x, use_reentrant=False)
+        else:
+            x, a = group(x)
+        aux = aux + a
+    logits = unembed(params, cfg, x)
+    return logits, {"router_aux": aux / max(cfg.num_layers, 1)}
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (+ MoE aux). batch needs "tokens" and "labels"."""
+    logits, aux = forward_train(params, cfg, batch, remat=remat)
+    labels = batch["labels"].long()
+    if cfg.num_codebooks > 1 and labels.dim() != 3:
+        raise ValueError(f"{cfg.name} takes (B, S, K) labels, got {tuple(labels.shape)}")
+    if cfg.modality == "vision_prefix" and "vision_embeds" in batch:
+        # Logits cover [vision prefix + text]; score text positions only.
+        logits = logits[:, batch["vision_embeds"].shape[1]:]
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    total = loss + cfg.router_aux_loss_coef * aux["router_aux"]
+    return total, {"ce": loss, **aux}
 
 
 # ---- serving ------------------------------------------------------------------

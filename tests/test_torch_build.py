@@ -31,6 +31,16 @@ def test_every_source_is_in_the_table():
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
 
 
+def test_the_table_holds_the_port_kernels():
+    """The nine sources, flash attention's backward among them, built with
+    fused multiply-adds like the forward (no bit-identity with its plain
+    version is asked)."""
+    assert set(_build.SOURCES) == {
+        "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
+        "rglru", "grouped_gemm", "pack", "placement"}
+    assert _build.SOURCES["flash_attention_bwd"] == (_build.FMAD_FLAGS, ("attention_common.cuh",))
+
+
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
 def test_every_include_is_listed_with_its_source(name):
     """Every ``#include "..."`` of ``csrc/<name>.cu`` (and of the headers it

@@ -1053,3 +1053,134 @@ def test_short_replay_on_card_equals_the_cpu_replay(cuda):
             billing=BillingModel(boot_hours=2.0 / 60.0, quantum_hours=1.0)))
         assert (pack.LAUNCHES > before) == (device is None)
     assert outs[0] == outs[1]
+
+
+# ---- the flash backward kernel and the training step -------------------------
+
+
+def _grads_close(got, want, dtype):
+    """dq, dk, dv within the forward's limits relative to the largest |grad|
+    of the three (chip_smoke.py's `BWD_TOLERANCE`): at S = 1 dq is zero
+    but for rounding, which no scale of its own can judge."""
+    share, rtol = (1e-4, 2.0 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=share * scale,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,window,softcap", [
+    (1, 512, 8, 4, 256, None, 50.0),
+    (1, 700, 8, 4, 256, 256, 50.0),
+    (2, 300, 16, 8, 128, None, None),
+    (2, 77, 4, 2, 64, 16, 30.0),
+    (1, 1, 2, 1, 64, None, None),
+    (2, 129, 4, 1, 128, 1, None),
+])
+def test_flash_backward_kernel_matches_plain(cuda, b, s, h, kv, d, window, softcap, dtype):
+    """The forward's lse against the plain logsumexp, and the backward's
+    three passes (counted) against `flash_attention_backward_plain` on the
+    same inputs: ragged S, GQA 1-4, windows binding and not, softcaps."""
+    q, k, v, do = (_normal(i, (b, s, n, d), dtype, cuda) for i, n in enumerate((h, kv, kv, h)))
+    out, lse = flash._dispatch(q, k, v, window, softcap, with_lse=True)
+    _, want_lse = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=softcap,
+                                              return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    before, passes = flash.BWD_LAUNCHES, dict(flash.BWD_PASSES)
+    got = flash.flash_attention_backward(q, k, v, out, lse, do, window=window,
+                                         logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash.BWD_LAUNCHES == before + 1
+    assert all(flash.BWD_PASSES[n] == passes[n] + 1 for n in passes)
+    want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=window,
+                                                logit_softcap=softcap)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_backward_tiles_follow_the_library(cuda, d):
+    """Ranges written for other tiles than the kernel's own are refused."""
+    q = _normal(0, (1, 96, 2, d), torch.float32, cuda)
+    out, lse = flash._dispatch(q, q, q, None, None, with_lse=True)
+    flash.flash_attention_backward(q, q, q, out, lse, q)
+    bq, bk = flash.BWD_TILES[d]
+    flash.BWD_TILES[d] = (2 * bq, bk)
+    try:
+        with pytest.raises(KernelError):
+            flash.flash_attention_backward(q, q, q, out, lse, q)
+    finally:
+        flash.BWD_TILES[d] = (bq, bk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_on_card_launches_both_kernels(cuda, dtype):
+    """With grad, `flash_attention` runs the forward kernel with lse and its
+    backward kernel once; under no_grad it writes no lse (the serving
+    route) and gives the same output."""
+    q, k, v = (_normal(i, (2, 96, 4, 64), dtype, cuda).requires_grad_()
+               for i in range(3))
+    do = _normal(3, (2, 96, 4, 64), dtype, cuda)
+    before = (flash.LAUNCHES, flash.BWD_LAUNCHES)
+    out = flash.flash_attention(q, k, v, window=40, logit_softcap=50.0)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        assert torch.equal(flash.flash_attention(q, k, v, window=40, logit_softcap=50.0), out)
+        _, lse = flash._dispatch(q, k, v, 40, 50.0, with_lse=True)
+        want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=40,
+                                                    logit_softcap=50.0)
+    _grads_close((q.grad, k.grad, v.grad), want, dtype)
+
+
+def test_flash_backward_wrapper_raises_instead_of_falling_back(cuda):
+    q = _normal(0, (1, 64, 4, 64), torch.float32, cuda)
+    k = _normal(1, (1, 64, 2, 64), torch.float32, cuda)
+    out, lse = flash._dispatch(q, k, k, None, None, with_lse=True)
+    before = flash.BWD_LAUNCHES
+    with pytest.raises(ValueError):  # lse of the wrong type
+        flash.flash_attention_backward(q, k, k, out, lse.double(), q)
+    with pytest.raises(ValueError):  # lse on another device
+        flash.flash_attention_backward(q, k, k, out, lse.cpu(), q)
+    with pytest.raises(ValueError):  # not contiguous
+        flash.flash_attention_backward(q.transpose(1, 2).contiguous().transpose(1, 2), k, k,
+                                       out, lse, q)
+    with pytest.raises(ValueError):  # a head_dim the kernel is not built for
+        flash.flash_attention_backward(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                       k[..., :48].contiguous(), out[..., :48].contiguous(),
+                                       lse, q[..., :48].contiguous())
+    assert flash.BWD_LAUNCHES == before
+
+
+def test_train_step_on_card_equals_the_cpu_step(cuda):
+    """Smoke internlm2-1.8b with GQA in float32: two train steps on the card
+    (both flash kernels) and on the CPU (plain versions), from the same
+    weights and batches: losses, grad norms and weights within 1e-4."""
+    from repro_torch.data import BatchSpec, make_batch
+    from repro_torch.interop import param_leaves
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import batch_to_device, make_train_step
+
+    cfg = dataclasses.replace(smoke_variant(get_config("internlm2-1.8b")), num_kv_heads=2,
+                              dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tfm.init_params(cfg, seed=0, device="cpu").to(dev)
+        state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+        step = make_train_step(cfg, opt, remat=dev != "cpu")
+        before = flash.BWD_LAUNCHES
+        hist = []
+        for i in range(2):
+            state, m = step(state, batch_to_device(make_batch(cfg, BatchSpec(2, 64), seed=i),
+                                                   dev))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = (hist, [p.detach().cpu() for p in model.parameters()],
+                         flash.BWD_LAUNCHES - before)
+    (cpu_hist, cpu_w, cpu_bwd), (card_hist, card_w, card_bwd) = out["cpu"], out[str(cuda)]
+    assert cpu_bwd == 0 and card_bwd == 2 * cfg.num_layers
+    np.testing.assert_allclose(card_hist, cpu_hist, rtol=1e-4)
+    for a, b in zip(card_w, cpu_w):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

@@ -1,8 +1,9 @@
 """The port stands alone: no jax, no `repro`, and no silent CPU fallback.
 
-`repro_torch` and `chip_smoke.py` must import with `jax`, `repro` and the
-reference's `benchmarks` blocked, and an entry point given no device must
-insist on the card.  The sharded controller (`core/shard.py`) and
+`repro_torch`, `chip_smoke.py` and the port's example must import with
+`jax`, `repro` and the reference's `benchmarks` blocked, and an entry
+point given no device must insist on the card.  The training launcher and
+`examples/torch_train_small.py` run on the CPU with the three blocked.  The sharded controller (`core/shard.py`) and
 `chip_smoke.py`'s phase 4c, which runs `benchmarks/shard.py`'s scenarios
 from its own copy of their builders, run with the three blocked.  Of the
 port's scripts only the two that compute `chip_smoke.py`'s goldens import
@@ -73,7 +74,7 @@ print("ok", len({PORT_MODULES!r}))
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "examples/torch_train_small.py"],
 )
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -138,6 +139,49 @@ print("ok", big["cells"], rep["mode"], churn["events"])
     proc = _run_blocked(body, timeout=600)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok 2")
+
+
+def test_training_entry_points_run_with_the_reference_blocked(tmp_path):
+    """`python -m repro_torch.launch.train` and the port's training example,
+    a few steps each on the CPU, both writing their checkpoints."""
+    body = f"""
+import runpy
+sys.argv = ["train", "--arch", "internlm2-1.8b", "--smoke", "--steps", "2", "--batch", "2",
+            "--seq-len", "32", "--device", "cpu", "--ckpt", {str(tmp_path / "launch")!r}]
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
+sys.argv = ["torch_train_small.py", "--steps", "2", "--batch", "2", "--seq-len", "32",
+            "--device", "cpu", "--ckpt", {str(tmp_path / "example")!r}]
+runpy.run_path({str(ROOT / "examples" / "torch_train_small.py")!r}, run_name="__main__")
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+    proc = _run_blocked(body)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ok")
+    assert "checkpoint -> " in proc.stdout and "checkpoint written to " in proc.stdout
+    for name in ("launch", "example"):
+        assert (tmp_path / f"{name}.npz").is_file()
+        assert (tmp_path / f"{name}.manifest.json").is_file()
+
+
+def test_training_launcher_without_device_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    body = """
+from repro_torch.device import KernelError
+from repro_torch.launch import train
+try:
+    train.main(["--arch", "internlm2-1.8b", "--smoke", "--steps", "1"])
+except KernelError as exc:
+    print("raised:", exc)
+else:
+    raise SystemExit("no error without a CUDA device")
+"""
+    proc = _run_blocked(body)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert "raised: device cuda:0 requested" in proc.stdout
 
 
 def test_manager_without_device_needs_the_card():
