@@ -14,8 +14,9 @@ plain torch version.  Phases, each raising on failure:
    registers and spills is logged, and a spill store in a tensor-core
    instantiation (``flash_wgmma``, ``decode_mma``, ``ssd_mma``,
    ``ssd_cb``), a knapsack instantiation (``knapsack_cluster``,
-   ``knapsack_global``) or an RG-LRU one (``rglru_tma``,
-   ``rglru_cp_async``) fails the phase;
+   ``knapsack_global``), an RG-LRU one (``rglru_tma``,
+   ``rglru_cp_async``) or one of flash attention's backward
+   (``flash_bwd_{dkdv,dq}_{wgmma,simt}``) fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    packed take bits, the kernel's mask of steps taken (against the plain
    walk over the same bits) and the counts from it (against the host
@@ -153,11 +154,14 @@ plain torch version.  Phases, each raising on failure:
    forced), the grouped GEMM
    qwen3-moe-30b-a3b's first gate and down products and first decode
    step's gate product), then timed there beside its plain version, its
-   bound (gemma2-2b's flash call also in float32, on ``simt``) and a
+   bound (gemma2-2b's flash call also in float32, on ``simt``, with its
+   own flex_attention yardstick) and a
    library yardstick where one PyTorch call computes the same
    function (``scaled_dot_product_attention`` at recurrentgemma-9b's
    attention, whose window does not bind, at qwen3-moe-30b-a3b's
-   attention and at internlm2-1.8b's shapes; ``torch._grouped_mm`` where
+   attention and at internlm2-1.8b's shapes; at gemma2-2b's, whose
+   softcap SDPA cannot apply, `torch.compile` of flex_attention with the
+   softcap as its score_mod (`flex_attention_call`); ``torch._grouped_mm`` where
    the card's PyTorch runs it, else, at
    prefill, one ``torch.bmm`` over the reference's capacity buffer), the
    decode product also with L2 flushed by reads only and not flushed;
@@ -181,17 +185,22 @@ plain torch version.  Phases, each raising on failure:
    logsumexp, in bf16 and float32 at internlm2-1.8b's attention (B=2,
    S=4096, H=16, KV=8, D=128) and gemma2-2b's local (window 4096, softcap
    50) and global layers (B=1, S=8192, H=8, KV=4, D=256), limits in
-   `BWD_TOLERANCE`; each timed cold beside its bound, its plain version
-   and, at internlm2-1.8b's bf16 shape, SDPA's backward; (b) one float32
-   train step of internlm2-1.8b at full width cut to 2 layers (B=1,
-   S=256) on the card and on the CPU: loss, grad norm and every updated
-   weight within 1e-3; (c) internlm2-1.8b at full width and depth in
-   bf16 with remat, B=2, S=4096, 4 AdamW steps on one fixed batch, kernel
-   counts set to 0 just before: the loss must fall, each step's wall ms
-   split by CUDA events into forward, backward and optimizer, the last
-   step traced with `torch.profiler` for the card's busy share, one
-   backward launch (three passes) and two forward launches (remat) per
-   layer a step, peak memory against the card's; (d) the launcher
+   `BWD_TOLERANCE`, each bf16 case counted on the ``wgmma`` variant and
+   each float32 one on ``simt``; each timed cold, whole and by pass (D
+   and dk/dv, then dq), beside its bound, its plain version and a
+   library yardstick: SDPA's backward at internlm2-1.8b's shape, and at
+   gemma2-2b's, whose softcap SDPA cannot apply, `torch.compile` of
+   flex_attention with the softcap as its score_mod (both types; the
+   error it raises where it refuses the shape); (b) one float32 train step of
+   internlm2-1.8b at full width cut to 2 layers (B=1, S=256) on the card
+   and on the CPU: loss, grad norm and every updated weight within 1e-3,
+   the backward on ``simt``; (c) internlm2-1.8b at full width and depth
+   in bf16 with remat, B=2, S=4096, 4 AdamW steps on one fixed batch,
+   kernel counts set to 0 just before: the loss must fall, each step's
+   wall ms split by CUDA events into forward, backward and optimizer,
+   the last step traced with `torch.profiler` for the card's busy share,
+   one backward launch (three passes, ``wgmma``) and two forward launches
+   (remat) per layer a step, peak memory against the card's; (d) the launcher
    `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
    process of its own, its checkpoint restored.
 
@@ -490,8 +499,9 @@ def check_flash_wgmma_spills() -> dict:
 #: ``ssd_cb`` per (N, chunk), the knapsack's ``knapsack_cluster`` per value
 #: type and states a thread (1, 2, 4, 8) and ``knapsack_global`` per value
 #: type, the RG-LRU scan's ``rglru_tma`` and ``rglru_cp_async`` per CTA
-#: width (64, 128 lanes), flash attention's backward ``flash_bwd_dkdv`` and
-#: ``flash_bwd_dq`` per type and head_dim.
+#: width (64, 128 lanes), flash attention's backward ``flash_bwd_dkdv_*`` and
+#: ``flash_bwd_dq_*`` per variant (``wgmma`` bf16, ``simt`` float32) and
+#: head_dim.
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -501,8 +511,10 @@ SPILL_CHECKED = {
     ("knapsack", "knapsack_global"): 2,
     ("rglru", "rglru_tma"): 2,
     ("rglru", "rglru_cp_async"): 2,
-    ("flash_attention_bwd", "flash_bwd_dkdv"): 2 * len(flash.HEAD_DIMS),
-    ("flash_attention_bwd", "flash_bwd_dq"): 2 * len(flash.HEAD_DIMS),
+    ("flash_attention_bwd", "flash_bwd_dkdv_wgmma"): len(flash.HEAD_DIMS),
+    ("flash_attention_bwd", "flash_bwd_dq_wgmma"): len(flash.HEAD_DIMS),
+    ("flash_attention_bwd", "flash_bwd_dkdv_simt"): len(flash.HEAD_DIMS),
+    ("flash_attention_bwd", "flash_bwd_dq_simt"): len(flash.HEAD_DIMS),
 }
 
 
@@ -3068,6 +3080,63 @@ def _sdpa_decode(q, k, v, mask):
     return out.reshape(b, kv, r, d)
 
 
+def flex_attention_call(s: int, window, cap):
+    """One library call as a yardstick where SDPA cannot apply a softcap:
+    `torch.compile` of PyTorch's flex_attention with ``cap tanh(x / cap)``
+    as its score_mod and the causal (and window) mask as a block mask, on
+    (B, S, H, D) tensors (GQA).  Timed here and used nowhere in the port.
+    Its compiled code is cached under the checkout's ``build/``."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    inductor_config.compile_threads = 1  # no pool of compile worker processes
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = kv_idx <= q_idx
+        if window is not None:
+            keep = keep & (kv_idx > q_idx - window)
+        return keep
+
+    block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call(q, k, v):
+        out = compiled(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+        return out.transpose(1, 2)
+
+    return call
+
+
+def flex_yardstick(make, window, cap, s: int, want, reps: int = 5) -> dict:
+    """``library_ms``: the call ``make(fn)`` returns (the forward of
+    `flex_attention_call` ``fn``, or a backward of a graph it kept) timed
+    cold, with its largest difference from ``want`` (the plain version's
+    result, or a tuple of them); where flex_attention cannot compile or
+    run the shape, ``library_ms`` is None and ``library_error`` says what
+    it raised."""
+    out = {"library": "torch.compile(flex_attention), softcap score_mod"}
+    try:
+        call = make(flex_attention_call(s, window, cap))
+        got = call()
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        out["library_max_abs_err"] = max(float((g.float() - w.float()).abs().max())
+                                         for g, w in pairs)
+        del got
+        out["library_ms"] = time_cold_ms(call, reps=reps)
+    except Exception as e:  # a yardstick's refusal is a reading, not a failure of the port
+        out["library_ms"] = None
+        out["library_error"] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+        log(f"    flex_attention refused: {out['library_error']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_attention_timing(flash_args, decode_args) -> dict:
     before = (flash.LAUNCHES, decode.LAUNCHES)
     flash_variants = dict(flash.LAUNCHES_BY_VARIANT)
@@ -3091,7 +3160,11 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     f["plain_ms"] = time_cold_ms(lambda: flash.flash_attention_plain(
         q, k, v, window=window, logit_softcap=cap), reps=5)
     f.update(flash_bound(q, k, window))
-    f["library_ms"] = None  # the softcap: no single library call computes it
+    # The softcap: SDPA cannot apply it; flex_attention with it as its
+    # score_mod can, compiled.
+    f.update(flex_yardstick(lambda fn: lambda: fn(q, k, v), window, cap, q.shape[1],
+                            flash.flash_attention_plain(q, k, v, window=window,
+                                                        logit_softcap=cap)))
     # The same call in float32, on the `simt` variant that phase 8's
     # float32 models run: held against its plain version, then timed.
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -3103,6 +3176,9 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     f["float32"] = {"variant": variant32, **flash_bound(q32, k32, window),
                     "ms": time_cold_ms(lambda: flash._dispatch(q32, k32, v32, window, cap),
                                        reps=5)}
+    f["float32"].update(flex_yardstick(
+        lambda fn: lambda: fn(q32, k32, v32), window, cap, q.shape[1],
+        flash.flash_attention_plain(q32, k32, v32, window=window, logit_softcap=cap)))
 
     dd = {"shape": list(dq.shape), "cache_len": dk.shape[1], "cur": cur, "window": dwin,
           "softcap": dcap, "dtype": str(dq.dtype).replace("torch.", ""),
@@ -3158,9 +3234,11 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
     }
     flash.LAUNCHES, decode.LAUNCHES = before  # timing launches are not the path's
     flash.LAUNCHES_BY_VARIANT.update(flash_variants)
-    log(f"  flash_attention at {f['shape']} float32 [{f['float32']['variant']}]: kernel "
-        f"{f['float32']['ms']:.4f} ms, bound {f['float32']['bound_ms']:.4f} ms "
-        f"({f['float32']['bound_by']})")
+    f32 = f["float32"]
+    log(f"  flash_attention at {f['shape']} float32 [{f32['variant']}]: kernel "
+        f"{f32['ms']:.4f} ms, bound {f32['bound_ms']:.4f} ms ({f32['bound_by']}), flex "
+        + (f"{f32['library_ms']:.4f} ms" if f32["library_ms"] is not None
+           else f32["library_error"]))
     log(f"  decode_attention at {dd['shape']} float32 [{dd['float32']['variant']}]: kernel "
         f"{dd['float32']['ms']:.4f} ms{_passes(dd['float32'])}, bound "
         f"{dd['float32']['bound_ms']:.4f} ms; bf16{_passes(dd)}")
@@ -3584,12 +3662,11 @@ BWD_CASES = [
     ("gemma2-2b global", 1, 8192, 8, 4, 256, None, 50.0),
 ]
 #: The backward against its plain version, relative to the largest |grad|
-#: of dq, dk and dv: (atol as a share of it, rtol).  The forward's
-#: limits: float32 2e-5 (the two sum in other orders); bf16 one bf16 ulp
-#: (both round one float32 result) plus 1e-4.  The forward's lse against
-#: the plain logsumexp: float32 2e-5 absolute and relative, both dtypes
-#: (the scores are float32 sums of the same products).
-BWD_TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
+#: of dq, dk and dv: (atol as a share of it, rtol), the forward's limits
+#: (defined beside the kernel, where the card tests read them too).  The
+#: forward's lse against the plain logsumexp: float32 2e-5 absolute and
+#: relative, both dtypes (the scores are float32 sums of the same products).
+BWD_TOLERANCE = flash.BWD_TOLERANCE
 LSE_TOLERANCE = (2e-5, 2e-5)
 #: (b) internlm2-1.8b at full width cut to `TRAIN_PARITY_LAYERS` layers,
 #: float32, on the card and on the CPU: every gradient leaf within
@@ -3612,8 +3689,9 @@ LAUNCH_TRAIN_STEPS = 3
 
 def _bwd_reset() -> None:
     flash.BWD_LAUNCHES = 0
-    for k in flash.BWD_PASSES:
-        flash.BWD_PASSES[k] = 0
+    for counts in (flash.BWD_PASSES, flash.BWD_LAUNCHES_BY_VARIANT):
+        for k in counts:
+            counts[k] = 0
 
 
 def bwd_bound(q, k, window) -> dict:
@@ -3648,11 +3726,12 @@ def _compare_grads(label, dtype, got, want) -> dict:
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "grads": errs}
 
 
-def _sdpa_backward(q, k, v, do):
-    """One library call's backward (SDPA, causal GQA) on (B, S, H, D), for
-    timing: returns a function computing dq, dk, dv of a kept graph."""
+def _sdpa_backward(q, k, v, do, forward=_sdpa_causal):
+    """One library call's backward (``forward``: SDPA, causal GQA) on (B, S,
+    H, D), for timing: returns a function computing dq, dk, dv of a kept
+    graph."""
     qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
-    out = _sdpa_causal(qt, kt, vt)
+    out = forward(qt, kt, vt)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), do, retain_graph=True)
 
 
@@ -3660,9 +3739,12 @@ def phase_backward_vs_plain() -> tuple[list, dict]:
     """(a): at each `BWD_CASES` shape in bf16 and float32, the forward's lse
     against the plain logsumexp and the backward kernel against
     `flash_attention_backward_plain` on the same q, k, v, o, lse, dO; each
-    timed cold beside its bound and its plain version, and beside SDPA's
-    backward where one call computes the same function (no window, no
-    softcap: internlm2-1.8b's shape, in both types)."""
+    timed cold, whole and by pass, beside its bound and its plain version,
+    and beside a library call's backward: SDPA's where it computes the
+    same function (no window, no softcap: internlm2-1.8b's shape),
+    compiled flex_attention's with the softcap (gemma2-2b's shapes), in
+    both types.  Each call is counted on the variant `_variant` picks for
+    its type."""
     rng = np.random.RandomState(9)
     checks, timing = [], {}
     for label, b, s, h, kv, d, window, cap in BWD_CASES:
@@ -3676,36 +3758,47 @@ def phase_backward_vs_plain() -> tuple[list, dict]:
             checks.append({"kernel": "flash_attention_lse", **_compare(
                 f"flash lse {label}", dtype, lse, want_lse, tol=LSE_TOLERANCE)})
             del want_o, want_lse
-            before = (flash.BWD_LAUNCHES, dict(flash.BWD_PASSES))
+            variant = flash._variant(dtype)
+            before = (flash.BWD_LAUNCHES, dict(flash.BWD_PASSES),
+                      dict(flash.BWD_LAUNCHES_BY_VARIANT))
             got = flash._dispatch_bwd(q, k, v, out, lse, do, window, cap)
             if flash.BWD_LAUNCHES != before[0] + 1 or any(
                     flash.BWD_PASSES[n] != before[1][n] + 1 for n in flash.BWD_PASSES):
                 raise AssertionError(f"backward {label}: launches not counted")
+            if flash.BWD_LAUNCHES_BY_VARIANT != {**before[2], variant: before[2][variant] + 1}:
+                raise AssertionError(f"backward {label} {dtype}: not one {variant} launch: "
+                                     f"{before[2]} -> {flash.BWD_LAUNCHES_BY_VARIANT}")
             want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=window,
                                                         logit_softcap=cap)
-            check = {"kernel": "flash_attention_bwd",
+            check = {"kernel": "flash_attention_bwd", "variant": variant,
                      **_compare_grads(f"flash backward {label}", dtype, got, want)}
-            del got, want
+            del got
             args = (q, k, v, out, lse, do, window, cap)
             t = {"shape": [b, s, h, d], "kv_heads": kv, "window": window, "softcap": cap,
-                 **bwd_bound(q, k, window)}
+                 "variant": variant, **bwd_bound(q, k, window)}
             t["ms"], t["dot_dkdv_ms"], t["dq_ms"] = time_cold_parts_ms(
                 lambda mid: flash._dispatch_bwd(*args, events=(None, mid)), reps=5)
             t["plain_ms"] = time_cold_ms(lambda: flash.flash_attention_backward_plain(
                 q, k, v, out, lse, do, window=window, logit_softcap=cap), reps=2)
-            t["library_ms"] = None
             if window is None and cap is None:
+                t["library"] = "scaled_dot_product_attention"
                 t["library_ms"] = time_cold_ms(_sdpa_backward(q, k, v, do), reps=5)
+            else:
+                t.update(flex_yardstick(lambda fn: _sdpa_backward(q, k, v, do, fn), window,
+                                        cap, s, want))
+            del want
             key = f"{label} {str(dtype).replace('torch.', '')}"
             timing[key] = t
             check["timing"] = key
             checks.append(check)
-            log(f"  {key}: lse err {checks[-2]['max_abs_err']:.3g}, grads err "
+            log(f"  {key} [{variant}]: lse err {checks[-2]['max_abs_err']:.3g}, grads err "
                 f"{check['max_abs_err']:.3g} (largest |grad| "
                 f"{max(g['max_abs_want'] for g in check['grads'].values()):.3g}); "
                 f"{t['ms']:.3f} ms (D+dk/dv {t['dot_dkdv_ms']:.3f}, dq {t['dq_ms']:.3f}), "
                 f"plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} ({t['bound_by']})"
-                + ("" if t["library_ms"] is None else f", SDPA backward {t['library_ms']:.3f}"))
+                + ("" if t["library_ms"] is None else
+                   f", {t['library']} backward {t['library_ms']:.3f}")
+                + (f", {t['library_error']}" if "library_error" in t else ""))
             del q, k, v, do, out, lse, args
             torch.cuda.empty_cache()
     return checks, timing
@@ -3767,9 +3860,9 @@ def train_card_vs_cpu() -> dict:
     t0 = time.perf_counter()
     card = _one_step(cfg, card_model, batch, opt_cfg, "cuda")
     card_s = time.perf_counter() - t0
-    if flash.BWD_LAUNCHES != TRAIN_PARITY_LAYERS:
-        raise AssertionError(f"(b): {flash.BWD_LAUNCHES} backward launches for "
-                             f"{TRAIN_PARITY_LAYERS} layers")
+    if flash.BWD_LAUNCHES_BY_VARIANT != {"wgmma": 0, "simt": TRAIN_PARITY_LAYERS}:
+        raise AssertionError(f"(b): backward launches {flash.BWD_LAUNCHES_BY_VARIANT} for "
+                             f"{TRAIN_PARITY_LAYERS} float32 layers")
     init = [p.detach().clone() for p in cpu_model.parameters()]
     t0 = time.perf_counter()
     cpu = _one_step(cfg, cpu_model, batch, opt_cfg, "cpu")
@@ -3841,6 +3934,7 @@ def train_full_width() -> dict:
     _bwd_reset()
     steps = []
     for i in range(TRAIN_STEPS):
+        bwd_before = dict(flash.BWD_LAUNCHES_BY_VARIANT)
         profiled = i == TRAIN_STEPS - 1
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
@@ -3857,7 +3951,13 @@ def train_full_width() -> dict:
                "lr": float(metrics["lr"]), "wall_ms": wall_ms, "traced": profiled,
                "forward_ms": events[0].elapsed_time(events[1]),
                "backward_ms": events[1].elapsed_time(events[2]),
-               "optimizer_ms": events[2].elapsed_time(events[3])}
+               "optimizer_ms": events[2].elapsed_time(events[3]),
+               "bwd_launches_by_variant": {k: flash.BWD_LAUNCHES_BY_VARIANT[k] - bwd_before[k]
+                                           for k in bwd_before}}
+        if row["bwd_launches_by_variant"] != {"wgmma": cfg.num_layers, "simt": 0}:
+            raise AssertionError(f"(c) step {i}: backward launches "
+                                 f"{row['bwd_launches_by_variant']}, expected "
+                                 f"{cfg.num_layers} on wgmma")
         steps.append(row)
         log(f"  (c) step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
             f"lr {row['lr']:.2e}; wall {wall_ms:.1f} ms = forward {row['forward_ms']:.1f} + "
@@ -3866,6 +3966,7 @@ def train_full_width() -> dict:
     launches = {"flash_attention": flash.LAUNCHES,
                 "flash_attention_by_variant": dict(flash.LAUNCHES_BY_VARIANT),
                 "flash_attention_bwd": flash.BWD_LAUNCHES,
+                "flash_attention_bwd_by_variant": dict(flash.BWD_LAUNCHES_BY_VARIANT),
                 "flash_attention_bwd_passes": dict(flash.BWD_PASSES)}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -3939,9 +4040,21 @@ def phase_training() -> dict:
 
 
 def backward_kernel_entry(training: dict) -> dict:
-    """The backward kernel's entry of the kernels line: launches in (c),
-    the largest error of (a), and its times at internlm2-1.8b's bf16 shape."""
+    """The backward kernel's entry of the kernels line: launches in (c) (all
+    on ``wgmma``), the largest error of (a), its times at internlm2-1.8b's
+    bf16 shape, and under ``variants`` each variant's times at every (a)
+    shape of its type, by pass, beside bound, plain and library times."""
     t = training["timing"]["internlm2-1.8b bfloat16"]
+    launches = training["full_width"]["launches"]
+    fields = ("ms", "dot_dkdv_ms", "dq_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "library", "library_error", "library_max_abs_err")
+    variants = {}
+    for key, row in training["timing"].items():
+        variants.setdefault(row["variant"], {})[key] = {f: row[f] for f in fields if f in row}
+    for c in training["kernel_checks"]:
+        if c["kernel"] == "flash_attention_bwd":
+            by = variants[c["variant"]][c["timing"]]
+            by["max_abs_err"] = c["max_abs_err"]
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3949,8 +4062,10 @@ def backward_kernel_entry(training: dict) -> dict:
         "replaces": "src/repro/models/attention.py:75",
         "replaces_note": "no Pallas kernel: jax.grad of attention_train, whose loop the "
                          "Pallas flash kernel computes",
-        "launches": training["full_width"]["launches"]["flash_attention_bwd"],
-        "passes": training["full_width"]["launches"]["flash_attention_bwd_passes"],
+        "launches": launches["flash_attention_bwd"],
+        "launches_by_variant": launches["flash_attention_bwd_by_variant"],
+        "passes": launches["flash_attention_bwd_passes"],
+        "variant": t["variant"],
         "max_abs_err": max(c["max_abs_err"] for c in training["kernel_checks"]
                            if c["kernel"] == "flash_attention_bwd"),
         "ms": t["ms"],
@@ -3960,11 +4075,8 @@ def backward_kernel_entry(training: dict) -> dict:
         "library_ms": t["library_ms"],
         "dot_dkdv_ms": t["dot_dkdv_ms"],
         "dq_ms": t["dq_ms"],
-        "by_shape": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "dot_dkdv_ms", "dq_ms")}
-                     for k, v in training["timing"].items()},
+        "variants": variants,
     }
-
 
 
 class PhaseTimer:
@@ -4199,7 +4311,8 @@ def main(argv=None) -> int:
                         "ms", "plain_ms", "bound_ms", "library_ms") + parts if k in t[shapes]}
             if "float32" in t:
                 entry["float32"] = {k: t["float32"][k] for k in (
-                    "variant", "ms", "bound_ms", "bound_by") + parts if k in t["float32"]}
+                    "variant", "ms", "bound_ms", "bound_by", "library_ms", "library_error")
+                    + parts if k in t["float32"]}
             if kname in VARIANT_KERNELS:
                 entry["variant"] = t["variant"]
                 entry["launches_by_variant"] = {

@@ -44,7 +44,7 @@ FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "knapsack": (NVCC_FLAGS, ()),
     "flash_attention": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
-    "flash_attention_bwd": (FMAD_FLAGS, ("attention_common.cuh",)),
+    "flash_attention_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),

@@ -36,8 +36,10 @@ The gradient.  When grad is enabled and q, k or v requires it,
 dispatch, asking the kernel (or the plain version) for each row's
 logsumexp too (``lse``, natural log, float32 (B, H, S)), and its backward
 is `flash_attention_backward`: on CUDA tensors the three passes of
-``csrc/flash_attention_bwd.cu`` (D = rowsum(dO o), then dk/dv and dq), on
-the CPU `flash_attention_backward_plain`, the explicit formulas (p
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO o), then dk/dv and dq), in
+the variant `_variant` picks (``"wgmma"`` for bf16: tensor cores fed by
+TMA, p and dS split into bf16 hi + lo; ``"simt"`` for float32), on the
+CPU `flash_attention_backward_plain`, the explicit formulas (p
 recomputed from ``lse``, dS = p (dP - D), times 1 - tanh^2 under a
 softcap).  Under `torch.no_grad` — every serving call — nothing changes:
 the kernel launches as before and writes no ``lse``.  The backward kernel
@@ -54,8 +56,8 @@ import torch
 
 from ..device import KernelError
 
-__all__ = ["BWD_LAUNCHES", "BWD_PASSES", "FlashAttentionFn", "LAUNCHES",
-           "LAUNCHES_BY_VARIANT", "flash_attention", "flash_attention_backward",
+__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_VARIANT", "BWD_PASSES", "FlashAttentionFn",
+           "LAUNCHES", "LAUNCHES_BY_VARIANT", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_plain", "flash_attention_plain"]
 
 #: Number of CUDA kernel launches made by `flash_attention` in this process.
@@ -64,13 +66,27 @@ LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
 #: Number of backward calls that launched the backward kernel's passes.
 BWD_LAUNCHES = 0
+#: The same backward calls by variant (`_variant`).
+BWD_LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
 #: The backward's launches by pass.
 BWD_PASSES = {"dot": 0, "dkdv": 0, "dq": 0}
-#: (query rows, key rows) of the backward kernel's tiles by head_dim, the
-#: tiles `_bwd_ranges` writes the kernel's block ranges for; a launch
-#: naming other tiles than ``Tiles<D>`` in ``csrc/flash_attention_bwd.cu``
-#: is refused.
-BWD_TILES = {64: (64, 64), 128: (64, 64), 256: (32, 32)}
+#: (query rows, key rows) of the backward kernel's tiles by variant,
+#: head_dim and pass, the tiles `_bwd_ranges` writes each pass's block
+#: ranges for; a launch naming other tiles than the variant's ``Tiles<D>``
+#: in ``csrc/flash_attention_bwd.cu`` is refused.  The ``wgmma`` passes
+#: differ below D = 256: each of its two warpgroups owns 64 rows of what it
+#: sums, keys in dkdv and queries in dq.
+BWD_TILES = {
+    "wgmma": {64: {"dkdv": (64, 128), "dq": (128, 64)},
+              128: {"dkdv": (64, 128), "dq": (128, 64)},
+              256: {"dkdv": (64, 64), "dq": (64, 64)}},
+    "simt": {d: {"dkdv": (t, t), "dq": (t, t)} for d, t in ((64, 64), (128, 64), (256, 32))},
+}
+#: The backward kernel against `flash_attention_backward_plain` on the
+#: same inputs, by dtype: (atol as a share of the largest |grad| of dq, dk
+#: and dv, rtol).  float32 2e-5 (the two sum in other orders); bf16 one
+#: bf16 ulp (both round one float32 result) plus 1e-4.
+BWD_TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (64, 128, 256)  # the head_dims the CUDA kernel is built for
@@ -78,9 +94,9 @@ _DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _variant(dtype: torch.dtype) -> str:
-    """The kernel for inputs of ``dtype``: ``"wgmma"`` for bf16 (TMA takes
-    every head_dim the kernels are built for, since a row of H * D bf16 is
-    a multiple of 16 bytes), ``"simt"`` for float32."""
+    """The kernel, forward and backward, for inputs of ``dtype``: ``"wgmma"``
+    for bf16 (TMA takes every head_dim the kernels are built for, since a
+    row of H * D bf16 is a multiple of 16 bytes), ``"simt"`` for float32."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -332,7 +348,8 @@ _BWD_ARGTYPES = {
 
 
 def _bwd_fns(dtype: torch.dtype) -> dict:
-    """The backward kernel's three C functions for inputs of ``dtype``."""
+    """The backward kernel's three C functions for inputs of ``dtype`` (the
+    ``_bf16`` ones launch the ``wgmma`` variant, the ``_f32`` ones ``simt``)."""
     from ._build import load_library
 
     lib = load_library("flash_attention_bwd")
@@ -349,7 +366,7 @@ def _bwd_fns(dtype: torch.dtype) -> dict:
 def _dispatch_bwd(q, k, v, o, lse, do, window, logit_softcap, events=None):
     """The backward kernel's passes after `flash_attention_backward`'s
     checks: D = rowsum(dO o), then dk/dv, then dq, the last two over the
-    block ranges of `_bwd_ranges`.  ``events[i]``, a CUDA
+    block ranges `_bwd_ranges` writes for each pass's tiles.  ``events[i]``, a CUDA
     event or None, is recorded after pass ``i`` (for timing the passes
     apart)."""
     global BWD_LAUNCHES
@@ -361,13 +378,15 @@ def _dispatch_bwd(q, k, v, o, lse, do, window, logit_softcap, events=None):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention_backward: {name} must be contiguous and 16-byte aligned")
+    variant = _variant(q.dtype)
     fns = _bwd_fns(q.dtype)
     scale = d ** -0.5
     cap = 0.0 if logit_softcap is None else float(logit_softcap)
     win = 0 if window is None else int(window)
-    bq, bk = BWD_TILES[d]
+    tiles = BWD_TILES[variant][d]
     with torch.cuda.device(q.device):
-        q_ranges, k_ranges = _bwd_ranges_on(q.device, s, bq, bk, window)
+        q_ranges = _bwd_ranges_on(q.device, s, *tiles["dkdv"], window)[0]
+        k_ranges = _bwd_ranges_on(q.device, s, *tiles["dq"], window)[1]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -377,19 +396,20 @@ def _dispatch_bwd(q, k, v, o, lse, do, window, logit_softcap, events=None):
             ("dkdv", lambda: fns["dkdv"](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), q_ranges.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
-                kv, d, bq, bk, scale, cap, win, stream)),
+                kv, d, *tiles["dkdv"], scale, cap, win, stream)),
             ("dq", lambda: fns["dq"](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), k_ranges.data_ptr(), dq.data_ptr(), b, s, h, kv, d, bq, bk,
-                scale, cap, win, stream)),
+                delta.data_ptr(), k_ranges.data_ptr(), dq.data_ptr(), b, s, h, kv, d,
+                *tiles["dq"], scale, cap, win, stream)),
         )
         for i, (name, launch) in enumerate(passes):
             rc = launch()
             if rc != 0:
-                raise KernelError(
-                    f"flash_attention_backward {name} pass launch failed: CUDA error {rc}")
+                raise KernelError(f"flash_attention_backward {name} pass ({variant}) launch "
+                                  f"failed: CUDA error {rc}")
             BWD_PASSES[name] += 1
             if events is not None and i < len(events) and events[i] is not None:
                 events[i].record()
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_VARIANT[variant] += 1
     return dq, dk, dv

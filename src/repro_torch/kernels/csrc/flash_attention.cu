@@ -306,10 +306,6 @@ __device__ __forceinline__ void mma_pv(float (&o)[64], const uint32_t (&p)[4], u
   hopper::wgmma_m64n128k16_rs_mnmaj(o, p, b);
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
 // Over the four lanes that hold one row of a fragment.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -456,9 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int idx = 8 * t + 2 * a, hh = a % 2;
         const float p0 = exp2f(sc[idx] - m[hh]), p1 = exp2f(sc[idx + 1] - m[hh]);
         sum[hh] += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        p_hi[t][a] = bits(hi);
-        p_lo[t][a] = bits(__floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi)));
+        split_bf16x2(p0, p1, p_hi[t][a], p_lo[t][a]);
       }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + quad_sum(sum[hh]);

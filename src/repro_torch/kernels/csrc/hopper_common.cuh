@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; nothing of libcuda is linked)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,6 +94,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 
 // ---- wgmma --------------------------------------------------------------------
 
+// After a thread's own st.shared to a tile that a wgmma (or TMA store) will
+// read: makes the generic-proxy writes visible to the async proxy.  Goes
+// before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+
 // Shared-memory matrix descriptor for a 128-byte-swizzled tile (layout type
 // 1) whose swizzle atoms (8 rows of 128 bytes) start 1024-byte aligned.
 // Offsets in bytes.  K-major operand: SBO = 1024 (the next 8 rows), LBO
@@ -149,6 +158,17 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_kmaj_mnmaj(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// Two floats as the halves of a register A operand word (bf16x2), split
+// so that hi + lo keeps some 16 of their 24 bits: hi = bf16(x), lo =
+// bf16(x - hi).  Multiplying both into a float32 accumulator costs two
+// wgmma where one bf16 rounding of x would leave the bf16 card limit.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
 // An empty asm that reads and writes every register of a wgmma fragment:
 // the compiler's own accesses of the fragment stay on their side of it.
 // wgmma reads and writes these registers asynchronously, so they go right
@@ -163,6 +183,26 @@ template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 32 float32, 16 floats a thread) = (scale_d ? d : 0) + A (64 x 16
+// bf16, K-major) @ B (16 x 32 bf16, K-major: tnspB = 0), both in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16_ss_kmaj(float (&d)[16], uint64_t desc_a,
+                                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x 64 float32, 32 floats a thread) = (scale_d ? d : 0) + A (64 x 16

@@ -165,7 +165,9 @@ def test_calls_without_grad_take_the_old_route(monkeypatch):
     assert calls == [False, False, True]
 
 
-@pytest.mark.parametrize("bq,bk", sorted(set(flash.BWD_TILES.values())) + [(32, 64), (64, 32)])
+@pytest.mark.parametrize("bq,bk", sorted({t for tiles in flash.BWD_TILES.values()
+                                           for passes in tiles.values()
+                                           for t in passes.values()}) + [(32, 64), (64, 32)])
 @pytest.mark.parametrize("s", [1, 31, 64, 65, 200])
 @pytest.mark.parametrize("window", [None, 1, 16, 40, 300])
 def test_visible_block_ranges_match_the_mask(s, window, bq, bk):
@@ -192,18 +194,42 @@ def test_visible_block_ranges_match_the_mask(s, window, bq, bk):
         assert list(range(first, end)) == list(np.flatnonzero(seen[qb])), qb
 
 
+#: The namespace of each backward variant's ``Tiles<D>`` in the source.
+_TILE_NAMESPACES = {"simt": "simt", "wgmma": "wg"}
+
+
+def _source_tiles(src, namespace, d):
+    """``{pass: (query rows, key rows)}`` of ``Tiles<d>`` in ``namespace`` of
+    the kernel source: dkdv's ``BQ``, ``BK``, and dq's ``DQ_BQ``, ``DQ_BK``
+    where the struct has them (else dkdv's), each a constant or ``D == x ?
+    y : z``."""
+    body = src[src.index(f"namespace {namespace} {{"):]
+    body = body[body.index("struct Tiles {"):]
+    body = body[:body.index("};")]
+
+    def const(name):
+        m = re.search(rf"static constexpr int {name} = (?:D == (\d+) \? (\d+) : (\d+)|(\d+));",
+                      body)
+        if m is None:
+            return None
+        when, yes, no, value = m.groups()
+        return int(value) if value else int(yes) if d == int(when) else int(no)
+
+    dkdv = (const("BQ"), const("BK"))
+    assert None not in dkdv, namespace
+    dq = (const("DQ_BQ"), const("DQ_BK"))
+    return {"dkdv": dkdv, "dq": dkdv if dq == (None, None) else dq}
+
+
 def test_tile_sizes_match_the_kernel_source():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    found = {}
-    for name in ("BQ", "BK"):
-        m = re.search(rf"static constexpr int {name} = D == (\d+) \? (\d+) : (\d+);", src)
-        assert m, name
-        found[name] = tuple(int(x) for x in m.groups())
-    for d, (bq, bk) in flash.BWD_TILES.items():
-        for name, got in (("BQ", bq), ("BK", bk)):
-            when, yes, no = found[name]
-            assert got == (yes if d == when else no), (d, name)
+    assert set(flash.BWD_TILES) == set(_TILE_NAMESPACES) == set(flash.LAUNCHES_BY_VARIANT)
+    for variant, tiles in flash.BWD_TILES.items():
+        assert set(tiles) == set(flash.HEAD_DIMS), variant
+        for d, passes in tiles.items():
+            assert _source_tiles(src, _TILE_NAMESPACES[variant], d) == passes, (variant, d)
     assert "flash_attention_bwd" in _build.SOURCES
+    assert "hopper_common.cuh" in _build.SOURCES["flash_attention_bwd"][1]
 
 
 def _kernel_walk(q, k, v, o, lse, do, window, cap, bq, bk):
@@ -265,11 +291,11 @@ def _kernel_walk(q, k, v, o, lse, do, window, cap, bq, bk):
 
 
 @pytest.mark.parametrize("rep,window,softcap", [(2, None, None), (4, 16, 50.0), (1, 70, None)])
-@pytest.mark.parametrize("bq,bk", [(64, 64), (32, 32)])
+@pytest.mark.parametrize("bq,bk", [(64, 64), (32, 32), (64, 128), (128, 64)])
 def test_kernel_tile_walk_matches_plain_backward(rep, window, softcap, bq, bk):
-    """A ragged S = 100 (two and four partial tiles), tiles of both sizes
-    the kernel uses: the walk over the visible ranges misses no pair and
-    counts none twice."""
+    """A ragged S = 100 (two, four, or one partial tiles), tiles of every
+    size the two variants' passes use: the walk over the visible ranges
+    misses no pair and counts none twice."""
     q, k, v, do = _inputs(50 + rep, rep, s=100)
     t = [torch.from_numpy(a) for a in (q, k, v, do)]
     with torch.no_grad():
@@ -279,3 +305,73 @@ def test_kernel_tile_walk_matches_plain_backward(rep, window, softcap, bq, bk):
                                                     logit_softcap=softcap)
     got = _kernel_walk(q, k, v, o.numpy(), lse.numpy(), do, window, softcap, bq, bk)
     _assert_grads_close(got, want, 1e-5)
+
+
+# ---- the wgmma variant's arithmetic ---------------------------------------------
+
+def _hi_lo(x):
+    """x as the kernel multiplies it: bf16 hi, and bf16 of what hi left out."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()]
+
+
+def _rounded(x):
+    return [x.to(torch.bfloat16).float()]
+
+
+def _backward_emulated(q, k, v, o, lse, do, window, cap, operand):
+    """`flash_attention_backward_plain`'s function with the arithmetic of the
+    ``wgmma`` variant: bf16 operands, float32 sums, p and dS handed to the
+    products by them as the bf16 parts ``operand`` gives (one product a
+    part), each gradient rounded once to bf16."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep, scale = h // kv, d ** -0.5
+    scores, th = flash._scores(q, k, window, cap)
+    p = torch.exp(scores - lse.float().reshape(b, kv, rep, s)[..., None])
+    dor = do.float().reshape(b, s, kv, rep, d)
+    dp = torch.einsum("bsgrd,btgd->bgrst", dor, v.float())
+    delta = (do.float() * o.float()).sum(-1).reshape(b, s, kv, rep).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+
+    def product(eq, x, y):
+        return sum(torch.einsum(eq, part, y) for part in operand(x))
+
+    dv = product("bgrst,bsgrd->btgd", p, dor)
+    dk = product("bgrst,bsgrd->btgd", ds, q.float().reshape(b, s, kv, rep, d)) * scale
+    dq = product("bgrst,btgd->bsgrd", ds, k.float()).reshape(b, s, h, d) * scale
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+def _outside(got, want):
+    """Per gradient, the elements outside the card's bf16 limits
+    (`BWD_TOLERANCE`)."""
+    share, rtol = flash.BWD_TOLERANCE[torch.bfloat16]
+    scale = max(float(w.float().abs().max()) for w in want)
+    return [int(((g.float() - w.float()).abs() > share * scale + rtol * w.float().abs()).sum())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("d,window,softcap", [(64, None, None), (128, None, None),
+                                              (256, None, None), (256, 100, 50.0)])
+def test_wgmma_split_of_p_and_ds_holds_the_card_limit(d, window, softcap):
+    """Why the ``wgmma`` backward splits p and dS into bf16 hi + lo (two
+    products each): at S = 256 with bf16 inputs, one bf16 rounding of p
+    and dS puts elements of every gradient outside the card's limit
+    against the plain backward, and the split puts none there."""
+    rng = np.random.RandomState(60 + d + (window or 0))
+    b, s, h, kv = 1, 256, 4, 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(np.float32))
+                   .to(torch.bfloat16) for n in (h, kv, kv, h))
+    with torch.no_grad():
+        o, lse = flash.flash_attention_plain(q, k, v, window=window, logit_softcap=softcap,
+                                             return_lse=True)
+        want = flash.flash_attention_backward_plain(q, k, v, o, lse, do, window=window,
+                                                    logit_softcap=softcap)
+        rounded = _outside(_backward_emulated(q, k, v, o, lse, do, window, softcap, _rounded),
+                           want)
+        split = _outside(_backward_emulated(q, k, v, o, lse, do, window, softcap, _hi_lo), want)
+    assert all(n > 0 for n in rounded), rounded
+    assert split == [0, 0, 0], split

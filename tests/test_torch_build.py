@@ -34,11 +34,13 @@ def test_every_source_is_in_the_table():
 def test_the_table_holds_the_port_kernels():
     """The nine sources, flash attention's backward among them, built with
     fused multiply-adds like the forward (no bit-identity with its plain
-    version is asked)."""
+    version is asked) and, for its ``wgmma`` variant, on the Hopper
+    helpers the forward uses."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
         "rglru", "grouped_gemm", "pack", "placement"}
-    assert _build.SOURCES["flash_attention_bwd"] == (_build.FMAD_FLAGS, ("attention_common.cuh",))
+    assert _build.SOURCES["flash_attention_bwd"] == (
+        _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh"))
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

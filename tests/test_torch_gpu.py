@@ -1059,10 +1059,10 @@ def test_short_replay_on_card_equals_the_cpu_replay(cuda):
 
 
 def _grads_close(got, want, dtype):
-    """dq, dk, dv within the forward's limits relative to the largest |grad|
-    of the three (chip_smoke.py's `BWD_TOLERANCE`): at S = 1 dq is zero
-    but for rounding, which no scale of its own can judge."""
-    share, rtol = (1e-4, 2.0 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    """dq, dk, dv within `BWD_TOLERANCE` relative to the largest |grad| of
+    the three: at S = 1 dq is zero but for rounding, which no scale of its
+    own can judge."""
+    share, rtol = flash.BWD_TOLERANCE[dtype]
     scale = max(float(w.float().abs().max()) for w in want)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(g).all(), name
@@ -1089,29 +1089,81 @@ def test_flash_backward_kernel_matches_plain(cuda, b, s, h, kv, d, window, softc
                                               return_lse=True)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
     before, passes = flash.BWD_LAUNCHES, dict(flash.BWD_PASSES)
+    variants = dict(flash.BWD_LAUNCHES_BY_VARIANT)
     got = flash.flash_attention_backward(q, k, v, out, lse, do, window=window,
                                          logit_softcap=softcap)
     torch.cuda.synchronize()
     assert flash.BWD_LAUNCHES == before + 1
     assert all(flash.BWD_PASSES[n] == passes[n] + 1 for n in passes)
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash.BWD_LAUNCHES_BY_VARIANT == {**variants, variant: variants[variant] + 1}
     want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=window,
                                                 logit_softcap=softcap)
     _grads_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_backward_wgmma_matches_plain_over_seeds(cuda, d):
+    """The ``wgmma`` backward over 12 seeds, each with its own ragged S,
+    GQA group, window and softcap: a result within the limits at one seed
+    and outside them at another points at a fault that depends on the
+    data or on where S cuts a tile (the ring, the exchange tiles, a
+    skipped warpgroup), not on the shape."""
+    for seed in range(12):
+        rng = np.random.RandomState(7000 + 10 * d + seed)
+        s = int(rng.randint(1, 400))
+        kv, rep = int(rng.choice([1, 2])), int(rng.choice([1, 2, 4]))
+        window = [None, int(rng.randint(1, 200))][seed % 2]
+        softcap = [None, 30.0][seed // 2 % 2]
+        q, k, v, do = (_normal(100 * seed + i, (1, s, n, d), torch.bfloat16, cuda)
+                       for i, n in enumerate((kv * rep, kv, kv, kv * rep)))
+        out, lse = flash._dispatch(q, k, v, window, softcap, with_lse=True)
+        before = flash.BWD_LAUNCHES_BY_VARIANT["wgmma"]
+        got = flash.flash_attention_backward(q, k, v, out, lse, do, window=window,
+                                             logit_softcap=softcap)
+        torch.cuda.synchronize()
+        assert flash.BWD_LAUNCHES_BY_VARIANT["wgmma"] == before + 1
+        want = flash.flash_attention_backward_plain(q, k, v, out, lse, do, window=window,
+                                                    logit_softcap=softcap)
+        try:
+            _grads_close(got, want, torch.bfloat16)
+        except AssertionError as e:
+            raise AssertionError(f"seed {seed}: S {s}, KV {kv} x {rep}, window {window}, "
+                                 f"softcap {softcap}: {e}") from None
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_backward_wgmma_repeats_bit_for_bit(cuda, d):
+    """No atomics: every sum runs in a fixed order, so the same inputs
+    give the same bits on every call; a race in a ring or on the exchange
+    tiles shows as a call that differs from the first."""
+    q, k, v, do = (_normal(d + i, (2, 333, n, d), torch.bfloat16, cuda)
+                   for i, n in enumerate((4, 2, 2, 4)))
+    out, lse = flash._dispatch(q, k, v, 100, 50.0, with_lse=True)
+    first = flash.flash_attention_backward(q, k, v, out, lse, do, window=100, logit_softcap=50.0)
+    for _ in range(20):
+        got = flash.flash_attention_backward(q, k, v, out, lse, do, window=100,
+                                             logit_softcap=50.0)
+        assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_backward_tiles_follow_the_library(cuda, d):
-    """Ranges written for other tiles than the kernel's own are refused."""
-    q = _normal(0, (1, 96, 2, d), torch.float32, cuda)
-    out, lse = flash._dispatch(q, q, q, None, None, with_lse=True)
-    flash.flash_attention_backward(q, q, q, out, lse, q)
-    bq, bk = flash.BWD_TILES[d]
-    flash.BWD_TILES[d] = (2 * bq, bk)
-    try:
-        with pytest.raises(KernelError):
-            flash.flash_attention_backward(q, q, q, out, lse, q)
-    finally:
-        flash.BWD_TILES[d] = (bq, bk)
+    """Ranges written for other tiles than the variant's own are refused,
+    by each pass of both variants (float32 runs ``simt``, bf16 ``wgmma``)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tiles = flash.BWD_TILES[flash._variant(dtype)]
+        q = _normal(0, (1, 96, 2, d), dtype, cuda)
+        out, lse = flash._dispatch(q, q, q, None, None, with_lse=True)
+        flash.flash_attention_backward(q, q, q, out, lse, q)
+        own = tiles[d]
+        for name, (bq, bk) in own.items():
+            tiles[d] = {**own, name: (2 * bq, bk)}
+            try:
+                with pytest.raises(KernelError, match=f"{name} pass"):
+                    flash.flash_attention_backward(q, q, q, out, lse, q)
+            finally:
+                tiles[d] = own
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

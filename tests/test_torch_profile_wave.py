@@ -49,6 +49,8 @@ def test_split_counts_the_card_busy_once_and_clips_to_the_wave(tpw):
     ("void (anonymous namespace)::flash_kernel<__nv_bfloat16, 128>(...)", "flash attention"),
     ("void (anonymous namespace)::simt::flash_simt<float, 256>(...)", "flash attention"),
     ("void (anonymous namespace)::flash_bwd_dkdv<__nv_bfloat16, 128>(...)", "flash backward"),
+    ("void (anonymous namespace)::wg::flash_bwd_dq_wgmma<256>(CUtensorMap_st, ...)",
+     "flash backward"),
     ("(anonymous namespace)::grouped_gemm_simt<float>(...)", "grouped GEMM"),
     ("void gemv2N_kernel<int, int, float, float>(...)", "library GEMM"),
     ("void (anonymous namespace)::split_kernel<__nv_bfloat16, 256>(...)", "the rest"),
