@@ -5,8 +5,9 @@ Drives the port's three paths — the paper's resource manager, with
 branch-and-price pricing on the card, the serving path of the analysis
 programs at the full width of gemma2-2b, mamba2-1.3b, recurrentgemma-9b
 and qwen3-moe-30b-a3b, and training at the full width and depth of
-internlm2-1.8b — and holds every CUDA kernel of those paths against its
-plain torch version.  Phases, each raising on failure:
+internlm2-1.8b and mamba2-1.3b and at the full width of recurrentgemma-9b
+— and holds every CUDA kernel of those paths against its plain torch
+version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
@@ -15,8 +16,10 @@ plain torch version.  Phases, each raising on failure:
    instantiation (``flash_wgmma``, ``decode_mma``, ``ssd_mma``,
    ``ssd_cb``), a knapsack instantiation (``knapsack_cluster``,
    ``knapsack_global``), an RG-LRU one (``rglru_tma``,
-   ``rglru_cp_async``) or one of flash attention's backward
-   (``flash_bwd_{dkdv,dq}_{wgmma,simt}``) fails the phase;
+   ``rglru_cp_async``) or one of a backward (flash attention's
+   ``flash_bwd_{dkdv,dq}_{wgmma,simt}``, the SSD scan's
+   ``ssd_bwd_{mma,simt}``, the RG-LRU scan's ``rglru_bwd_cp_async``)
+   fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    packed take bits, the kernel's mask of steps taken (against the plain
    walk over the same bits) and the counts from it (against the host
@@ -183,24 +186,39 @@ plain torch version.  Phases, each raising on failure:
    three passes) against `flash_attention_backward_plain` on the same q,
    k, v, o, lse and dO, and the forward's lse against the plain
    logsumexp, in bf16 and float32 at internlm2-1.8b's attention (B=2,
-   S=4096, H=16, KV=8, D=128) and gemma2-2b's local (window 4096, softcap
-   50) and global layers (B=1, S=8192, H=8, KV=4, D=256), limits in
-   `BWD_TOLERANCE`, each bf16 case counted on the ``wgmma`` variant and
-   each float32 one on ``simt``; each timed cold, whole and by pass (D
-   and dk/dv, then dq), beside its bound, its plain version and a
-   library yardstick: SDPA's backward at internlm2-1.8b's shape, and at
-   gemma2-2b's, whose softcap SDPA cannot apply, `torch.compile` of
-   flex_attention with the softcap as its score_mod (both types; the
-   error it raises where it refuses the shape); (b) one float32 train step of
-   internlm2-1.8b at full width cut to 2 layers (B=1, S=256) on the card
-   and on the CPU: loss, grad norm and every updated weight within 1e-3,
-   the backward on ``simt``; (c) internlm2-1.8b at full width and depth
-   in bf16 with remat, B=2, S=4096, 4 AdamW steps on one fixed batch,
-   kernel counts set to 0 just before: the loss must fall, each step's
-   wall ms split by CUDA events into forward, backward and optimizer,
-   the last step traced with `torch.profiler` for the card's busy share,
-   one backward launch (three passes, ``wgmma``) and two forward launches
-   (remat) per layer a step, peak memory against the card's; (d) the launcher
+   S=4096, H=16, KV=8, D=128), gemma2-2b's local (window 4096, softcap
+   50) and global layers (B=1, S=8192, H=8, KV=4, D=256) and
+   recurrentgemma-9b's local layer (B=1, S=4096, H=16, KV=1, D=256,
+   window 2048), limits in `BWD_TOLERANCE`, each bf16 case counted on
+   the ``wgmma`` variant and each float32 one on ``simt``; each timed
+   cold, whole and by pass (D and dk/dv, then dq), beside its bound, its
+   plain version and a library yardstick: SDPA's backward at
+   internlm2-1.8b's shape, SDPA's with the window as a boolean mask at
+   recurrentgemma-9b's, and at gemma2-2b's, whose softcap SDPA cannot
+   apply, `torch.compile` of flex_attention with the softcap as its
+   score_mod (both types; the error it raises where it refuses the
+   shape); the SSD scan's backward (`ssd_bwd.cu`) at mamba2-1.3b's
+   training call (B=2, S=4096, H=64, P=64, N=128, chunk 128) in bf16
+   (``mma``) and float32 (``simt``) and the RG-LRU scan's
+   (`rglru_bwd.cu`) at recurrentgemma-9b's (B=1, S=4096, W=4096),
+   against their plain versions within `ssd.BWD_TOLERANCE` and
+   `rglru.BWD_TOLERANCE`, bit for bit over a repeat, timed cold beside
+   their bounds and plain versions (no PyTorch call computes either);
+   (b) float32 at full width on the card and on the CPU from the same
+   weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b and mamba2-1.3b
+   at 2 layers, recurrentgemma-9b at 3): every gradient leaf within
+   1e-3 of its largest |grad|, then one train step's loss, grad norm and
+   every updated weight within 1e-3, every backward on ``simt`` (RG-LRU's
+   one variant); (c) bf16 with remat at S=4096, AdamW steps on one fixed
+   batch (`TRAIN_RUNS`): internlm2-1.8b and mamba2-1.3b at full width
+   and depth, B=2, 4 steps; recurrentgemma-9b at full width, its depth
+   cut to 6 layers (the cut printed), B=1, 3 steps; every kernel count
+   set to 0 just before and held after to `expected_train_counts` (one
+   backward launch and two forward launches (remat) per layer a step,
+   on the bf16 variants): the loss must fall, each step's wall ms split
+   by CUDA events into forward, backward and optimizer, tokens/s, the
+   last step traced with `torch.profiler` for the card's busy share,
+   peak memory against the card's; (d) the launcher
    `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
    process of its own, its checkpoint restored.
 
@@ -222,6 +240,7 @@ process of its own.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import hashlib
 import importlib.util
@@ -501,7 +520,8 @@ def check_flash_wgmma_spills() -> dict:
 #: type, the RG-LRU scan's ``rglru_tma`` and ``rglru_cp_async`` per CTA
 #: width (64, 128 lanes), flash attention's backward ``flash_bwd_dkdv_*`` and
 #: ``flash_bwd_dq_*`` per variant (``wgmma`` bf16, ``simt`` float32) and
-#: head_dim.
+#: head_dim, the SSD scan's backward ``ssd_bwd_mma`` and ``ssd_bwd_simt`` per
+#: (P, N, chunk) and the RG-LRU scan's ``rglru_bwd_cp_async`` per CTA width.
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -515,6 +535,9 @@ SPILL_CHECKED = {
     ("flash_attention_bwd", "flash_bwd_dq_wgmma"): len(flash.HEAD_DIMS),
     ("flash_attention_bwd", "flash_bwd_dkdv_simt"): len(flash.HEAD_DIMS),
     ("flash_attention_bwd", "flash_bwd_dq_simt"): len(flash.HEAD_DIMS),
+    ("ssd_bwd", "ssd_bwd_mma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("ssd_bwd", "ssd_bwd_simt"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("rglru_bwd", "rglru_bwd_cp_async"): 2,
 }
 
 
@@ -3660,7 +3683,16 @@ BWD_CASES = [
     ("internlm2-1.8b", 2, 4096, 16, 8, 128, None, None),
     ("gemma2-2b local", 1, 8192, 8, 4, 256, 4096, 50.0),
     ("gemma2-2b global", 1, 8192, 8, 4, 256, None, 50.0),
+    ("recurrentgemma-9b local", 1, 4096, 16, 1, 256, 2048, None),
 ]
+#: (a) the scans' backward kernels against their plain versions at the
+#: training shapes: the SSD scan at mamba2-1.3b's (B, S, H, P, N, chunk),
+#: bf16 (``mma``) and float32 (``simt``); the RG-LRU scan at
+#: recurrentgemma-9b's (B, S, W), float32.  Their limits are defined beside
+#: the kernels (`ssd.BWD_TOLERANCE`, `rglru.BWD_TOLERANCE`), where the card
+#: tests read them too.
+SSD_BWD_CASE = (2, 4096, 64, 64, 128, 128)
+RGLRU_BWD_CASE = (1, 4096, 4096)
 #: The backward against its plain version, relative to the largest |grad|
 #: of dq, dk and dv: (atol as a share of it, rtol), the forward's limits
 #: (defined beside the kernel, where the card tests read them too).  The
@@ -3679,10 +3711,33 @@ TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_PARITY_LAYERS = 2
 TRAIN_PARITY_SEQ = 256
 TRAIN_ATOL = 1e-3
-#: (c) full width and depth in bf16 with remat: `TRAIN_BATCH` x `TRAIN_SEQ`
-#: (train_4k's sequence, the batch cut from 256 to fit one card), `TRAIN_STEPS`
-#: AdamW steps on one fixed batch (make_batch seed 0).
+#: recurrentgemma-9b cut in depth for training on one card: its 8.5 B
+#: parameters with AdamW's float32 moments take some 100 GB before
+#: activations, so it trains at full width with the paper's 2:1 mix of
+#: RG-LRU and local-attention layers kept, (recurrent, recurrent, attention)
+#: a group.
+RG_TRAIN_CUT = dict(layer_pattern=("recurrent", "recurrent", "attention"),
+                    window_pattern=(None, None, 2048))
+#: (b) the configs held card against CPU, each at full width: (arch, its
+#: cut).  internlm2-1.8b and mamba2-1.3b at `TRAIN_PARITY_LAYERS` layers,
+#: recurrentgemma-9b at one group of `RG_TRAIN_CUT` (3 layers).
+TRAIN_PARITY = {
+    TRAIN_ARCH: dict(num_layers=TRAIN_PARITY_LAYERS),
+    "mamba2-1.3b": dict(num_layers=TRAIN_PARITY_LAYERS),
+    "recurrentgemma-9b": dict(RG_TRAIN_CUT, num_layers=3),
+}
+#: (c) bf16 with remat at `TRAIN_BATCH` x `TRAIN_SEQ` (train_4k's sequence,
+#: the batch cut from 256 to fit one card), AdamW steps on one fixed batch
+#: (make_batch seed 0): (arch, cut, batch, steps).  internlm2-1.8b and
+#: mamba2-1.3b at full width and depth; recurrentgemma-9b at full width, its
+#: depth cut from 38 layers to two groups of `RG_TRAIN_CUT` (6 layers), at
+#: B 1.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 4, 1e-3
+TRAIN_RUNS = {
+    TRAIN_ARCH: (dict(), TRAIN_BATCH, TRAIN_STEPS),
+    "mamba2-1.3b": (dict(), TRAIN_BATCH, TRAIN_STEPS),
+    "recurrentgemma-9b": (dict(RG_TRAIN_CUT, num_layers=6), 1, 3),
+}
 #: (d) the launcher's smoke run.
 LAUNCH_TRAIN_STEPS = 3
 
@@ -3692,6 +3747,61 @@ def _bwd_reset() -> None:
     for counts in (flash.BWD_PASSES, flash.BWD_LAUNCHES_BY_VARIANT):
         for k in counts:
             counts[k] = 0
+
+
+def reset_train_counts() -> None:
+    """Every launch count the training path reads, set to 0."""
+    _bwd_reset()
+    for mod in (flash, ssd, rglru):
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_VARIANT:
+            mod.LAUNCHES_BY_VARIANT[k] = 0
+    ssd.BWD_LAUNCHES = rglru.BWD_LAUNCHES = 0
+    for k in ssd.BWD_LAUNCHES_BY_VARIANT:
+        ssd.BWD_LAUNCHES_BY_VARIANT[k] = 0
+
+
+def train_counts() -> dict:
+    """The training path's launch counts: each forward kernel and each
+    backward kernel, by variant where it has them."""
+    return {"flash_attention": flash.LAUNCHES,
+            "flash_attention_by_variant": dict(flash.LAUNCHES_BY_VARIANT),
+            "flash_attention_bwd": flash.BWD_LAUNCHES,
+            "flash_attention_bwd_by_variant": dict(flash.BWD_LAUNCHES_BY_VARIANT),
+            "flash_attention_bwd_passes": dict(flash.BWD_PASSES),
+            "ssd_scan": ssd.LAUNCHES, "ssd_scan_by_variant": dict(ssd.LAUNCHES_BY_VARIANT),
+            "ssd_scan_backward": ssd.BWD_LAUNCHES,
+            "ssd_scan_backward_by_variant": dict(ssd.BWD_LAUNCHES_BY_VARIANT),
+            "rglru_scan": rglru.LAUNCHES, "rglru_scan_backward": rglru.BWD_LAUNCHES}
+
+
+def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
+    """`train_counts` after ``steps`` train steps of ``cfg``: one launch of
+    each layer's forward kernel a step (two with remat, which recomputes
+    each group in the backward) and one of its backward kernel, on the
+    variant of the model's dtype."""
+    dtype = tfm.torch_dtype(cfg)
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(cfg.num_layers)]
+    n_attn, n_ssd, n_rec = (kinds.count(k) for k in ("attention", "ssd", "recurrent"))
+    fwd = 2 if remat else 1
+
+    def by(variants, want, n):
+        return {v: n if v == want else 0 for v in variants}
+
+    return {"flash_attention": fwd * steps * n_attn,
+            "flash_attention_by_variant": by(flash.LAUNCHES_BY_VARIANT, flash._variant(dtype),
+                                             fwd * steps * n_attn),
+            "flash_attention_bwd": steps * n_attn,
+            "flash_attention_bwd_by_variant": by(flash.BWD_LAUNCHES_BY_VARIANT,
+                                                 flash._variant(dtype), steps * n_attn),
+            "flash_attention_bwd_passes": {k: steps * n_attn for k in flash.BWD_PASSES},
+            "ssd_scan": fwd * steps * n_ssd,
+            "ssd_scan_by_variant": by(ssd.LAUNCHES_BY_VARIANT, ssd._variant(dtype),
+                                      fwd * steps * n_ssd),
+            "ssd_scan_backward": steps * n_ssd,
+            "ssd_scan_backward_by_variant": by(ssd.BWD_LAUNCHES_BY_VARIANT, ssd._variant(dtype),
+                                               steps * n_ssd),
+            "rglru_scan": fwd * steps * n_rec, "rglru_scan_backward": steps * n_rec}
 
 
 def bwd_bound(q, k, window) -> dict:
@@ -3733,6 +3843,34 @@ def _sdpa_backward(q, k, v, do, forward=_sdpa_causal):
     qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
     out = forward(qt, kt, vt)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), do, retain_graph=True)
+
+
+def sdpa_window_yardstick(q, k, v, do, window, want, reps: int = 5) -> dict:
+    """``library_ms`` where a window binds and no softcap applies: the
+    backward of one SDPA call with the causal window as a boolean mask, its
+    largest difference from ``want`` (the plain dq, dk, dv); where SDPA
+    refuses the shape, None and ``library_error``."""
+    out = {"library": "scaled_dot_product_attention, window as a boolean mask"}
+    s = q.shape[1]
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def forward(q_, k_, v_):
+        o = F.scaled_dot_product_attention(q_.transpose(1, 2), k_.transpose(1, 2),
+                                           v_.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        return o.transpose(1, 2)
+
+    try:
+        call = _sdpa_backward(q, k, v, do, forward)
+        out["library_max_abs_err"] = max(float((g.float() - w.float()).abs().max())
+                                         for g, w in zip(call(), want))
+        out["library_ms"] = time_cold_ms(call, reps=reps)
+    except Exception as e:  # a yardstick's refusal is a reading, not a failure of the port
+        out["library_ms"] = None
+        out["library_error"] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+        log(f"    SDPA refused: {out['library_error']}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_backward_vs_plain() -> tuple[list, dict]:
@@ -3783,6 +3921,8 @@ def phase_backward_vs_plain() -> tuple[list, dict]:
             if window is None and cap is None:
                 t["library"] = "scaled_dot_product_attention"
                 t["library_ms"] = time_cold_ms(_sdpa_backward(q, k, v, do), reps=5)
+            elif cap is None:
+                t.update(sdpa_window_yardstick(q, k, v, do, window, want))
             else:
                 t.update(flex_yardstick(lambda fn: _sdpa_backward(q, k, v, do, fn), window,
                                         cap, s, want))
@@ -3804,8 +3944,137 @@ def phase_backward_vs_plain() -> tuple[list, dict]:
     return checks, timing
 
 
-def _train_cfg(**updates):
-    return dataclasses.replace(get_config(TRAIN_ARCH), **updates)
+def ssd_bwd_bound(x, Bm, chunk) -> dict:
+    """Bytes: x, dy and dx; dt and d(dt); A and dA; B, C, dB and dC, each
+    once.  Operations, 2 a multiply-add, for each chunk of L positions: the
+    causal half of C·Bᵀ once a batch row; per head the causal halves of
+    dy·xᵀ, Wᵀ·dy, Mᵀ·C and M·B, and five products of the chunk's L rows
+    with the (P, N) state (the states entering the chunks, recomputed; xᵀG;
+    B·Gᵀ; dy·h_in; G's update)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    item = x.element_size()
+    bytes_moved = (3 * x.numel() * item + 2 * b * s * h * 4 + 2 * h * 4
+                   + 4 * b * s * n * item)
+    q = min(chunk, s)
+    lens = [q] * (s // q) + ([s % q] if s % q else [])
+    tri = sum(ln * (ln + 1) // 2 for ln in lens)
+    ops = 2 * (b * tri * n + b * h * (tri * (2 * p + 2 * n) + 5 * s * p * n))
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else SIMT_OPS_PER_S
+    return _bound(bytes_moved, ops, peak)
+
+
+def rglru_bwd_bound(a) -> dict:
+    """Bytes: a, h and dh read, da and db written, once each; three float32
+    operations a step and lane (g's multiply-add, da's product)."""
+    return _bound(5 * a.numel() * 4, 3 * a.numel(), SIMT_OPS_PER_S)
+
+
+def _compare_scan_grads(label, dtype, names, got, want, tol) -> dict:
+    """Each gradient against the plain version's, within ``tol`` = (atol as
+    a share of that gradient's largest magnitude, rtol)."""
+    torch.cuda.synchronize()
+    share, rtol = tol
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {dtype} {name}: non-finite kernel gradient")
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        if not torch.allclose(g.float(), w.float(), atol=share * scale, rtol=rtol):
+            raise AssertionError(f"{label} {dtype} {name}: kernel vs plain max abs err "
+                                 f"{err:.3g} outside {share} x {scale:.3g} + rtol {rtol}")
+        errs[name] = {"max_abs_err": err, "max_abs_want": scale}
+    return {"label": label, "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "grads": errs}
+
+
+def phase_scan_backward_vs_plain() -> tuple[list, dict]:
+    """(a): the SSD scan's backward at `SSD_BWD_CASE` in bf16 and float32 and
+    the RG-LRU scan's at `RGLRU_BWD_CASE`, each against its plain version
+    on the same inputs (dt and A over mamba2-1.3b's init ranges, a as the
+    gates make it), counted on the variant `_variant` picks, repeated bit
+    for bit, and timed cold beside its bound and its plain version (the
+    SSD's per-head pass and the sum over the heads apart).  No PyTorch call
+    computes either function."""
+    rng = np.random.RandomState(12)
+    checks, timing = [], {}
+    b, s, h, p, n, chunk = SSD_BWD_CASE
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dy = _normal(rng, (b, s, h, p), dtype), _normal(rng, (b, s, h, p), dtype)
+        dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (b, s, h)).astype(np.float32)).cuda()
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        bc = (0.5 * _normal(rng, (b, s, 2 * n), torch.float32)).to(dtype)
+        Bm, Cm = bc[..., :n], bc[..., n:]
+        args = (x, dt, A, Bm, Cm, dy, chunk)
+        variant = ssd._variant(dtype)
+        before = dict(ssd.BWD_LAUNCHES_BY_VARIANT)
+        got = ssd._dispatch_bwd(*args)
+        if ssd.BWD_LAUNCHES_BY_VARIANT != {**before, variant: before[variant] + 1}:
+            raise AssertionError(f"ssd backward {dtype}: not one {variant} launch: {before} -> "
+                                 f"{ssd.BWD_LAUNCHES_BY_VARIANT}")
+        want = ssd.ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
+        check = {"kernel": "ssd_scan_backward", "variant": variant, **_compare_scan_grads(
+            "ssd backward mamba2-1.3b", dtype, ("dx", "ddt", "dA", "dBm", "dCm"), got, want,
+            ssd.BWD_TOLERANCE[dtype])}
+        del want
+        if not all(torch.equal(g, r) for g, r in zip(got, ssd._dispatch_bwd(*args))):
+            raise AssertionError(f"ssd backward {dtype}: a repeat differs")
+        del got
+        t = {"shape": [b, s, h, p], "state": n, "chunk": chunk, "variant": variant,
+             **ssd_bwd_bound(x, Bm, chunk)}
+        t["ms"], t["per_head_ms"], t["reduce_ms"] = time_cold_parts_ms(
+            lambda mid: ssd._dispatch_bwd(*args, mid_event=mid), reps=5)
+        t["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_backward_plain(
+            x, dt, A, Bm, Cm, dy, chunk=chunk), reps=2)
+        t["library_ms"] = None
+        key = f"ssd_scan_backward {str(dtype).replace('torch.', '')}"
+        timing[key] = t
+        check["timing"] = key
+        checks.append(check)
+        log(f"  {key} [{variant}] at {t['shape']} N {n} chunk {chunk}: grads err "
+            + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_abs_want']:.3g}"
+                        for k, e in check["grads"].items())
+            + f"; bit-equal repeat; {t['ms']:.3f} ms (per-head {t['per_head_ms']:.3f}, sum "
+            f"over heads {t['reduce_ms']:.3f}), plain {t['plain_ms']:.3f}, bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']})")
+        del x, dy, dt, A, bc, Bm, Cm, args
+        torch.cuda.empty_cache()
+    b, s, w = RGLRU_BWD_CASE
+    a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32) + 2.0)
+    h_ = rglru._dispatch(0.3 * a, _normal(rng, (b, s, w), torch.float32), None)
+    dh = _normal(rng, (b, s, w), torch.float32)
+    before = rglru.BWD_LAUNCHES
+    got = rglru._dispatch_bwd(a, h_, dh)
+    if rglru.BWD_LAUNCHES != before + 1:
+        raise AssertionError("rglru backward: launch not counted")
+    check = {"kernel": "rglru_scan_backward", **_compare_scan_grads(
+        "rglru backward recurrentgemma-9b", torch.float32, ("da", "db"), got,
+        rglru.rglru_scan_backward_plain(a, h_, dh), rglru.BWD_TOLERANCE)}
+    if not all(torch.equal(g, r) for g, r in zip(got, rglru._dispatch_bwd(a, h_, dh))):
+        raise AssertionError("rglru backward: a repeat differs")
+    del got
+    t = {"shape": [b, s, w], "dtype": "float32",
+         "lanes": rglru._lanes(b, w, torch.cuda.get_device_properties(0).multi_processor_count),
+         **rglru_bwd_bound(a)}
+    t["ms"] = time_cold_ms(lambda: rglru._dispatch_bwd(a, h_, dh), reps=20)
+    t["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_backward_plain(a, h_, dh), reps=2)
+    t["library_ms"] = None
+    timing["rglru_scan_backward"] = t
+    check["timing"] = "rglru_scan_backward"
+    checks.append(check)
+    log(f"  rglru_scan_backward at {t['shape']} ({t['lanes']} lanes a CTA): grads err "
+        + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_abs_want']:.3g}"
+                    for k, e in check["grads"].items())
+        + f"; bit-equal repeat; {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}, bound "
+        f"{t['bound_ms']:.4f} ({t['bound_by']})")
+    del a, h_, dh
+    torch.cuda.empty_cache()
+    return checks, timing
+
+
+def _train_cfg(arch=TRAIN_ARCH, **updates):
+    return dataclasses.replace(get_config(arch), **updates)
 
 
 def _one_step(cfg, model, batch, opt_cfg, device) -> dict:
@@ -3831,14 +4100,14 @@ def _leaf_grads(cfg, model, batch, device) -> dict:
     return grads
 
 
-def train_card_vs_cpu() -> dict:
-    """(b): internlm2-1.8b at full width, cut to `TRAIN_PARITY_LAYERS`
-    layers, float32, on the card and on the CPU from the same weights and
-    batch: every gradient leaf of `loss_fn`, then one `train` step's loss,
-    grad norm and every updated weight."""
-    cfg = _train_cfg(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+def train_card_vs_cpu(arch: str) -> dict:
+    """(b): ``arch`` at full width, cut as `TRAIN_PARITY` says, float32, on
+    the card and on the CPU from the same weights and batch: every gradient
+    leaf of `loss_fn`, then one `train` step's loss, grad norm and every
+    updated weight; the step's launches counted on the ``simt`` variants."""
+    cfg = _train_cfg(arch, dtype="float32", **TRAIN_PARITY[arch])
     cpu_model = tfm.init_params(cfg, seed=0, device="cpu")
-    card_model = tfm.init_params(cfg, seed=0, device="cpu").to("cuda")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
     batch = make_batch(cfg, BatchSpec(1, TRAIN_PARITY_SEQ), seed=0)
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
 
@@ -3850,19 +4119,19 @@ def train_card_vs_cpu() -> dict:
             scale = float(want.abs().max())
             err = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
             if not err <= TRAIN_ATOL:
-                raise AssertionError(f"(b) gradient {path}: card vs CPU {err:.3g} of its "
-                                     f"largest |grad| {scale:.3g}")
+                raise AssertionError(f"(b) {arch} gradient {path}: card vs CPU {err:.3g} of "
+                                     f"its largest |grad| {scale:.3g}")
             grad_errs[path] = max(grad_errs.get(path, 0.0), err)
     del card_grads, cpu_grads
     worst_grad_path = max(grad_errs, key=grad_errs.get)
 
-    _bwd_reset()
+    reset_train_counts()
     t0 = time.perf_counter()
     card = _one_step(cfg, card_model, batch, opt_cfg, "cuda")
     card_s = time.perf_counter() - t0
-    if flash.BWD_LAUNCHES_BY_VARIANT != {"wgmma": 0, "simt": TRAIN_PARITY_LAYERS}:
-        raise AssertionError(f"(b): backward launches {flash.BWD_LAUNCHES_BY_VARIANT} for "
-                             f"{TRAIN_PARITY_LAYERS} float32 layers")
+    counts, expected = train_counts(), expected_train_counts(cfg, 1, remat=False)
+    if counts != expected:
+        raise AssertionError(f"(b) {arch}: launches {counts}, expected {expected}")
     init = [p.detach().clone() for p in cpu_model.parameters()]
     t0 = time.perf_counter()
     cpu = _one_step(cfg, cpu_model, batch, opt_cfg, "cpu")
@@ -3873,7 +4142,7 @@ def train_card_vs_cpu() -> dict:
     del init
     for key in ("loss", "grad_norm"):
         if abs(card[key] - cpu[key]) > TRAIN_ATOL:
-            raise AssertionError(f"(b) {key}: card {card[key]} vs CPU {cpu[key]}")
+            raise AssertionError(f"(b) {arch} {key}: card {card[key]} vs CPU {cpu[key]}")
     worst, worst_path = 0.0, ""
     cpu_leaves = param_leaves(cfg, cpu_model)
     for path, leaf in param_leaves(cfg, card_model).items():
@@ -3884,14 +4153,17 @@ def train_card_vs_cpu() -> dict:
             if err > worst:
                 worst, worst_path = err, path
     if worst > TRAIN_ATOL:
-        raise AssertionError(f"(b) updated weight {worst_path}: card vs CPU {worst:.3g}")
-    log(f"  (b) {cfg.num_layers} layers float32, B 1 x S {TRAIN_PARITY_SEQ}: largest gradient "
-        f"difference {grad_errs[worst_grad_path]:.3g} of its leaf's largest |grad| "
-        f"({worst_grad_path}, {len(grad_errs)} leaves); loss card {card['loss']:.6f} CPU "
-        f"{cpu['loss']:.6f}, grad norm {card['grad_norm']:.6f} / {cpu['grad_norm']:.6f}, "
-        f"largest weight difference {worst:.3g} ({worst_path}; unchanged weights would read "
-        f"{unchanged:.3g}); card {card_s:.2f} s, CPU {cpu_s:.2f} s")
-    return {"layers": cfg.num_layers, "seq": TRAIN_PARITY_SEQ, "card": card, "cpu": cpu,
+        raise AssertionError(f"(b) {arch} updated weight {worst_path}: card vs CPU {worst:.3g}")
+    log(f"  (b) {arch} at full width, {cfg.num_layers} layers {cfg.layer_pattern} float32, B 1 x "
+        f"S {TRAIN_PARITY_SEQ}: largest gradient difference {grad_errs[worst_grad_path]:.3g} of "
+        f"its leaf's largest |grad| ({worst_grad_path}, {len(grad_errs)} leaves); loss card "
+        f"{card['loss']:.6f} CPU {cpu['loss']:.6f}, grad norm {card['grad_norm']:.6f} / "
+        f"{cpu['grad_norm']:.6f}, largest weight difference {worst:.3g} ({worst_path}; "
+        f"unchanged weights would read {unchanged:.3g}); card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.num_layers, "pattern": list(cfg.layer_pattern),
+            "seq": TRAIN_PARITY_SEQ, "card": card, "cpu": cpu, "launches": counts,
             "grad_errs": grad_errs, "max_grad_err": grad_errs[worst_grad_path],
             "max_grad_err_leaf": worst_grad_path,
             "max_weight_err": worst, "max_weight_err_leaf": worst_path,
@@ -3911,31 +4183,36 @@ def split_trace(trace_path: pathlib.Path, annotation: str) -> dict:
     return mod.split_trace(json.loads(trace_path.read_text()), annotation)
 
 
-def train_full_width() -> dict:
-    """(c): internlm2-1.8b at full width and depth, bf16, remat, `TRAIN_STEPS`
-    AdamW steps on one fixed batch, kernel counts set to 0 just before and
-    read just after; each step's wall time split by CUDA events into
-    forward, backward and optimizer; the last step traced for the card's
-    busy share; peak memory."""
-    cfg = get_config(TRAIN_ARCH)
+def train_full_width(arch: str) -> dict:
+    """(c): ``arch`` in bf16 with remat, cut as `TRAIN_RUNS` says, AdamW
+    steps on one fixed batch of S `TRAIN_SEQ`, every kernel count set to 0
+    just before and read just after (one launch of each layer's forward
+    kernel twice a step, remat recomputing it, and one of its backward
+    kernel); each step's wall time split by CUDA events into forward,
+    backward and optimizer; the last step traced for the card's busy
+    share; peak memory."""
+    cut, batch_size, n_steps = TRAIN_RUNS[arch]
+    full = get_config(arch)
+    cfg = _train_cfg(arch, **cut)
+    reduced = ("nothing" if cfg.num_layers == full.num_layers else
+               f"depth {full.num_layers} -> {cfg.num_layers} layers ({cfg.num_groups} groups of "
+               f"{cfg.layer_pattern}, windows {cfg.window_pattern})")
+    log(f"  (c) {arch}: full width (d_model {cfg.d_model}, vocabulary {cfg.vocab_size}), "
+        f"cut: {reduced}; bf16, remat, B {batch_size} x S {TRAIN_SEQ}, {n_steps} steps")
     model = tfm.init_params(cfg, seed=0)
     state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
-    batch = batch_to_device(make_batch(cfg, BatchSpec(TRAIN_BATCH, TRAIN_SEQ), seed=0), "cuda")
+    batch = batch_to_device(make_batch(cfg, BatchSpec(batch_size, TRAIN_SEQ), seed=0), "cuda")
     step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                               total_steps=TRAIN_STEPS), remat=True)
-    trace = ROOT / "build" / "profile" / "train-step-trace.json"
+                                               total_steps=n_steps), remat=True)
+    trace = ROOT / "build" / "profile" / f"train-step-trace-{arch}.json"
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash.LAUNCHES = 0
-    for k in flash.LAUNCHES_BY_VARIANT:
-        flash.LAUNCHES_BY_VARIANT[k] = 0
-    _bwd_reset()
+    reset_train_counts()
     steps = []
-    for i in range(TRAIN_STEPS):
-        bwd_before = dict(flash.BWD_LAUNCHES_BY_VARIANT)
-        profiled = i == TRAIN_STEPS - 1
+    for i in range(n_steps):
+        profiled = i == n_steps - 1
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         if profiled:
@@ -3949,51 +4226,39 @@ def train_full_width() -> dict:
             prof.stop()
         row = {"step": i, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "wall_ms": wall_ms, "traced": profiled,
+               "tokens_per_s": batch_size * TRAIN_SEQ / (wall_ms / 1e3),
                "forward_ms": events[0].elapsed_time(events[1]),
                "backward_ms": events[1].elapsed_time(events[2]),
-               "optimizer_ms": events[2].elapsed_time(events[3]),
-               "bwd_launches_by_variant": {k: flash.BWD_LAUNCHES_BY_VARIANT[k] - bwd_before[k]
-                                           for k in bwd_before}}
-        if row["bwd_launches_by_variant"] != {"wgmma": cfg.num_layers, "simt": 0}:
-            raise AssertionError(f"(c) step {i}: backward launches "
-                                 f"{row['bwd_launches_by_variant']}, expected "
-                                 f"{cfg.num_layers} on wgmma")
+               "optimizer_ms": events[2].elapsed_time(events[3])}
         steps.append(row)
-        log(f"  (c) step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
+        log(f"  (c) {arch} step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
             f"lr {row['lr']:.2e}; wall {wall_ms:.1f} ms = forward {row['forward_ms']:.1f} + "
-            f"backward {row['backward_ms']:.1f} + optimizer {row['optimizer_ms']:.1f}"
-            + (" (traced)" if profiled else ""))
-    launches = {"flash_attention": flash.LAUNCHES,
-                "flash_attention_by_variant": dict(flash.LAUNCHES_BY_VARIANT),
-                "flash_attention_bwd": flash.BWD_LAUNCHES,
-                "flash_attention_bwd_by_variant": dict(flash.BWD_LAUNCHES_BY_VARIANT),
-                "flash_attention_bwd_passes": dict(flash.BWD_PASSES)}
+            f"backward {row['backward_ms']:.1f} + optimizer {row['optimizer_ms']:.1f}; "
+            f"{row['tokens_per_s']:.0f} tokens/s" + (" (traced)" if profiled else ""))
+    launches = train_counts()
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    traced = split_trace(trace, f"train step {TRAIN_STEPS - 1}")
+    traced = split_trace(trace, f"train step {n_steps - 1}")
     if not all(np.isfinite(r["loss"]) for r in steps) or steps[-1]["loss"] >= steps[0]["loss"]:
-        raise AssertionError(f"(c) losses {[r['loss'] for r in steps]}: the last is not "
+        raise AssertionError(f"(c) {arch} losses {[r['loss'] for r in steps]}: the last is not "
                              "below the first")
-    # remat: each layer's forward runs twice a step (forward, then recomputed
-    # in the backward); its backward once.
-    n = cfg.num_layers * TRAIN_STEPS
-    if (launches["flash_attention_bwd"] != n or launches["flash_attention"] != 2 * n
-            or any(v != n for v in flash.BWD_PASSES.values())):
-        raise AssertionError(f"(c) launches {launches} for {cfg.num_layers} layers x "
-                             f"{TRAIN_STEPS} steps with remat")
+    expected = expected_train_counts(cfg, n_steps, remat=True)
+    if launches != expected:
+        raise AssertionError(f"(c) {arch}: launches {launches}, expected {expected}")
     busy = ("not measured (the trace holds no device work)" if not traced["device_ops"] else
             f"{1 - traced['device_idle_share']:.4f} of {traced['wave_ms']:.1f} ms, by group "
             + ", ".join(f"{g} {ms:.1f}" for g, ms in traced["device_ms_by_group"].items()))
-    log(f"  (c) launches {launches}; peak memory {peak / 2**30:.2f} GiB of "
+    log(f"  (c) {arch} launches {launches}; peak memory {peak / 2**30:.2f} GiB of "
         f"{total / 2**30:.2f} GiB; traced step: card busy {busy}; "
         f"{traced['host_launch_calls']} host launch calls")
     del state, model, batch
     torch.cuda.empty_cache()
-    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": True,
-            "dtype": cfg.dtype, "steps": steps, "launches": launches,
-            "peak_memory_bytes": peak, "card_memory_bytes": total, "traced_step": traced}
+    return {"arch": arch, "reduced": reduced, "layers": cfg.num_layers, "batch": batch_size,
+            "seq": TRAIN_SEQ, "remat": True, "dtype": cfg.dtype, "steps": steps,
+            "launches": launches, "peak_memory_bytes": peak, "card_memory_bytes": total,
+            "traced_step": traced}
 
 
 def train_launcher(workdir: pathlib.Path) -> dict:
@@ -4031,9 +4296,10 @@ def train_launcher(workdir: pathlib.Path) -> dict:
 def phase_training() -> dict:
     out = {}
     out["kernel_checks"], out["timing"] = phase_backward_vs_plain()
-    out["card_vs_cpu"] = train_card_vs_cpu()
-    torch.cuda.empty_cache()
-    out["full_width"] = train_full_width()
+    scan_checks, out["scan_timing"] = phase_scan_backward_vs_plain()
+    out["kernel_checks"] += scan_checks
+    out["card_vs_cpu"] = {arch: train_card_vs_cpu(arch) for arch in TRAIN_PARITY}
+    out["full_width"] = {arch: train_full_width(arch) for arch in TRAIN_RUNS}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         out["launcher"] = train_launcher(pathlib.Path(tmp))
     return out
@@ -4045,7 +4311,7 @@ def backward_kernel_entry(training: dict) -> dict:
     bf16 shape, and under ``variants`` each variant's times at every (a)
     shape of its type, by pass, beside bound, plain and library times."""
     t = training["timing"]["internlm2-1.8b bfloat16"]
-    launches = training["full_width"]["launches"]
+    launches = training["full_width"][TRAIN_ARCH]["launches"]
     fields = ("ms", "dot_dkdv_ms", "dq_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "library", "library_error", "library_max_abs_err")
     variants = {}
@@ -4064,6 +4330,8 @@ def backward_kernel_entry(training: dict) -> dict:
                          "Pallas flash kernel computes",
         "launches": launches["flash_attention_bwd"],
         "launches_by_variant": launches["flash_attention_bwd_by_variant"],
+        "launches_by_run": {arch: run["launches"]["flash_attention_bwd"]
+                            for arch, run in training["full_width"].items()},
         "passes": launches["flash_attention_bwd_passes"],
         "variant": t["variant"],
         "max_abs_err": max(c["max_abs_err"] for c in training["kernel_checks"]
@@ -4077,6 +4345,53 @@ def backward_kernel_entry(training: dict) -> dict:
         "dq_ms": t["dq_ms"],
         "variants": variants,
     }
+
+
+def scan_backward_entries(training: dict) -> list[dict]:
+    """The scans' backward kernels' entries of the kernels line: launches in
+    (c) (mamba2-1.3b's for the SSD scan, recurrentgemma-9b's for the RG-LRU
+    scan), the largest error and the times of (a), the SSD's at its bf16
+    shape with float32's beside."""
+    runs = training["full_width"]
+    checks = training["kernel_checks"]
+    out = []
+    for name, source, replaces, note, run, key in (
+        ("ssd_scan_backward", "ssd_bwd.cu", "src/repro/models/ssm.py:34",
+         "no Pallas kernel: jax.grad of ssd_chunked, whose forward the Pallas ssd_scan "
+         "(src/repro/kernels/ssd.py:72) computes", "mamba2-1.3b", "ssd_scan_backward bfloat16"),
+        ("rglru_scan_backward", "rglru_bwd.cu", "src/repro/models/rglru.py:96",
+         "no Pallas kernel: jax.grad of rglru_scan's associative_scan, whose forward the Pallas "
+         "rglru_scan_kernel (src/repro/kernels/rglru.py:41) computes", "recurrentgemma-9b",
+         "rglru_scan_backward"),
+    ):
+        t = training["scan_timing"][key]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces,
+            "replaces_note": note,
+            "launches": runs[run]["launches"][name],
+            "launches_by_run": {arch: r["launches"][name] for arch, r in runs.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in checks if c["kernel"] == name),
+            "grads": {c["dtype"]: c["grads"] for c in checks if c["kernel"] == name},
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        }
+        if name == "ssd_scan_backward":
+            entry.update(variant=t["variant"], per_head_ms=t["per_head_ms"],
+                         reduce_ms=t["reduce_ms"],
+                         launches_by_variant=runs[run]["launches"]["ssd_scan_backward_by_variant"],
+                         float32={k: training["scan_timing"]["ssd_scan_backward float32"][k]
+                                  for k in ("variant", "ms", "per_head_ms", "reduce_ms",
+                                            "plain_ms", "bound_ms", "bound_by")})
+        else:
+            entry["lanes"] = t["lanes"]
+        out.append(entry)
+    return out
 
 
 class PhaseTimer:
@@ -4218,8 +4533,9 @@ def main(argv=None) -> int:
         for arch in SERVE_ARCHS:
             result["model_vs_plain"][arch] = phase_model_vs_plain(arch)
             torch.cuda.empty_cache()
-        timer.begin("phase 9", "training: the flash backward kernel, card vs CPU, "
-                    f"full-width {TRAIN_ARCH}, the launcher")
+        timer.begin("phase 9", "training: the backward kernels (flash attention, SSD scan, "
+                    f"RG-LRU scan), card vs CPU, full-width {', '.join(TRAIN_RUNS)}, the "
+                    "launcher")
         training = result["training"] = phase_training()
         kernel_checks += [c for c in training["kernel_checks"] if c["kernel"] == "flash_attention"]
 
@@ -4325,9 +4641,12 @@ def main(argv=None) -> int:
                     entry[row] = {k: t[row][k] for k in (
                         "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             result["kernels"].append(entry)
-        flash_entry = next(e for e in result["kernels"] if e["name"] == "flash_attention")
-        flash_entry["training_launches"] = training["full_width"]["launches"]["flash_attention"]
+        for entry in result["kernels"]:
+            if entry["name"] in ("flash_attention", "ssd_scan", "rglru_scan"):
+                entry["training_launches"] = {arch: run["launches"][entry["name"]]
+                                              for arch, run in training["full_width"].items()}
         result["kernels"].append(backward_kernel_entry(training))
+        result["kernels"] += scan_backward_entries(training)
         result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()
     result["seconds"] = time.perf_counter() - t_start

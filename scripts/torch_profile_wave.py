@@ -22,9 +22,9 @@ card), and the trace gives:
   (the call ends with a synchronize);
 * the card's busy time in it: the union of its kernel, copy and memset
   intervals, and the idle share ``1 - busy / call``;
-* the card's time by kernel group (flash attention, flash-decode, the SSD
-  scan, grouped GEMM, library GEMMs, the rest) and the kernels that take
-  the most;
+* the card's time by kernel group (flash attention and its backward,
+  flash-decode, the SSD and RG-LRU scans and their backwards, grouped
+  GEMM, library GEMMs, the rest) and the kernels that take the most;
 * the host's kernel launches, its time waiting on the card (synchronizing
   calls and device-to-host copies) and its ops by self time.
 
@@ -69,7 +69,10 @@ TRACE = pathlib.Path(__file__).resolve().parents[1] / "build" / "profile" / "wav
 GROUPS = (("flash attention", ("flash_wgmma", "flash_simt", "flash_kernel")),
           ("flash backward", ("flash_bwd",)),
           ("flash-decode", ("decode_mma", "decode_simt", "decode_combine")),
+          ("SSD backward", ("ssd_bwd",)),
           ("SSD scan", ("ssd_mma", "ssd_cb", "ssd_simt", "ssd_kernel")),
+          ("RG-LRU backward", ("rglru_bwd",)),
+          ("RG-LRU scan", ("rglru_tma", "rglru_cp_async")),
           ("grouped GEMM", ("grouped_gemm",)),
           ("library GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

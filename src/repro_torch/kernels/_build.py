@@ -35,9 +35,9 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: The attention (both directions), SSD, RG-LRU and grouped GEMM kernels
-#: need no bit-identity with their plain versions, so they let the compiler
-#: fuse multiply-adds.
+#: The attention, SSD and RG-LRU kernels (both directions) and the grouped
+#: GEMM need no bit-identity with their plain versions, so they let the
+#: compiler fuse multiply-adds.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: Per source name: its nvcc flags and the headers under ``csrc/`` it includes.
@@ -47,7 +47,9 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "flash_attention_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
+    "ssd_bwd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
+    "rglru_bwd": (FMAD_FLAGS, ("mma_common.cuh",)),
     "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "pack": (NVCC_FLAGS, ()),
     "placement": (NVCC_FLAGS, ()),

@@ -22,6 +22,16 @@ Two implementations:
 `rglru_scan` dispatches by device: CPU tensors go to the plain version,
 CUDA tensors launch the kernel (or raise; nothing falls back to another
 variant).
+
+The gradient.  Training calls `rglru_scan_train(a, b)` (from a zero
+state): when grad is enabled and a or b requires it, the call goes through
+`RglruScanFn`, which keeps a and the output h, and whose backward is
+`rglru_scan_backward`: the reverse recurrence ``g_t = dh_t + a_{t+1}
+g_{t+1}``, ``db_t = g_t``, ``da_t = g_t h_{t-1}`` (``h_{-1} = 0``), on
+CUDA tensors the kernel in ``csrc/rglru_bwd.cu`` (the forward's
+``cp_async`` walk reversed), on the CPU `rglru_scan_backward_plain`.  No
+Pallas kernel computes it: the reference trains through ``jax.grad`` of
+``associative_scan`` (`repro/models/rglru.py:rglru_scan`).
 """
 from __future__ import annotations
 
@@ -31,12 +41,23 @@ import torch
 
 from ..device import KernelError, sm_count
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "boxes", "rglru_scan", "rglru_scan_plain"]
+__all__ = ["BWD_LAUNCHES", "BWD_TOLERANCE", "LAUNCHES", "LAUNCHES_BY_VARIANT", "RglruScanFn",
+           "boxes", "rglru_scan", "rglru_scan_backward", "rglru_scan_backward_plain",
+           "rglru_scan_plain", "rglru_scan_train"]
 
 #: Number of CUDA kernel launches made by `rglru_scan` in this process.
 LAUNCHES = 0
 #: The same launches by variant (`_variant`).
 LAUNCHES_BY_VARIANT = {"tma": 0, "cp_async": 0}
+
+#: Number of CUDA kernel launches made by `rglru_scan_backward`.
+BWD_LAUNCHES = 0
+#: The backward kernel against `rglru_scan_backward_plain` on the same
+#: inputs: (atol as a share of each gradient's largest magnitude, rtol).
+#: Both walk the same float32 steps; the kernel fuses each multiply-add, so
+#: the two drift apart by a few ulps over a long recurrence, as the
+#: forward's limit (2e-5) allows.
+BWD_TOLERANCE = (2e-5, 2e-5)
 
 #: Time steps a box of the kernel's ring (kSteps in csrc/rglru.cu).
 BOX_STEPS = 32
@@ -145,3 +166,92 @@ def _dispatch(a, b, h0):
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return h
+
+
+# ---- the backward ------------------------------------------------------------
+
+
+def rglru_scan_backward_plain(a, h, dh):
+    """``(da, db)`` of `rglru_scan_plain` from a zero state, at ``a`` whose
+    output was ``h``, for the output gradient ``dh``: the reverse loop
+    ``g_t = dh_t + a_{t+1} g_{t+1}``, ``db_t = g_t``, ``da_t = g_t h_{t-1}``
+    with ``h_{-1} = 0``; any device."""
+    s = a.shape[1]
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = torch.zeros_like(a[:, 0])
+    for t in reversed(range(s)):
+        g = dh[:, t] if t == s - 1 else torch.addcmul(dh[:, t], a[:, t + 1], g)
+        db[:, t] = g
+        if t > 0:
+            da[:, t] = g * h[:, t - 1]
+        else:
+            da[:, t] = 0.0
+    return da, db
+
+
+def rglru_scan_backward(a, h, dh):
+    """``(da, db)`` of `rglru_scan` from a zero state, dispatched by device:
+    CPU tensors run `rglru_scan_backward_plain`; CUDA tensors launch the
+    backward kernel on the current stream (``dh`` made contiguous first),
+    and anything it does not take raises."""
+    _check_inputs(a, h, None)
+    if dh.shape != a.shape or dh.dtype != a.dtype or dh.device != a.device:
+        raise ValueError(f"rglru_scan_backward: dh must be like a ({tuple(a.shape)} {a.dtype} "
+                         f"on {a.device}), got {tuple(dh.shape)} {dh.dtype} on {dh.device}")
+    if a.device.type == "cpu":
+        return rglru_scan_backward_plain(a, h, dh)
+    return _dispatch_bwd(a, h, dh.contiguous())
+
+
+_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _dispatch_bwd(a, h, dh):
+    """`rglru_scan_backward` on CUDA tensors after its checks."""
+    global BWD_LAUNCHES
+    from ._build import load_library
+
+    for name, t in (("a", a), ("h", h), ("dh", dh)):
+        if not t.is_contiguous():
+            raise ValueError(f"rglru_scan_backward: {name} must be contiguous on CUDA")
+    bsz, s, w = a.shape
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    lanes = _lanes(bsz, w, sm_count(index))
+    fn = load_library("rglru_bwd").rglru_bwd_f32
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        da, db = torch.empty_like(a), torch.empty_like(a)
+        rc = fn(lanes, a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+                bsz, s, w, torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise KernelError(f"rglru_scan_backward kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    return da, db
+
+
+class RglruScanFn(torch.autograd.Function):
+    """The RG-LRU scan from a zero state with its gradient: the forward
+    keeps a and its output h; the backward is `rglru_scan_backward` (the
+    kernel on CUDA tensors, the plain loop on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _dispatch(a, b, None)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rglru_scan_backward(a, h, dh)
+
+
+def rglru_scan_train(a, b):
+    """``h (B, S, W)`` of `rglru_scan` from a zero state, differentiable in a
+    and b: when grad is enabled and either requires it, the call goes
+    through `RglruScanFn`."""
+    _check_inputs(a, b, None)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return RglruScanFn.apply(a, b)
+    return _dispatch(a, b, None)

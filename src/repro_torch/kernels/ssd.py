@@ -40,6 +40,17 @@ Two implementations:
 `ssd_scan` dispatches by device: CPU tensors go to the plain version,
 CUDA tensors launch the kernels (or raise; nothing falls back to another
 kernel).
+
+The gradient.  Training calls `ssd_scan_train` (no entering state, the
+final one dropped): when grad is enabled and an input requires it, the
+call goes through `SsdScanFn`, whose backward is `ssd_scan_backward`: on
+CUDA tensors the kernels of ``csrc/ssd_bwd.cu`` (a per-head pass that
+walks the chunks forward to store the state entering each, then backwards
+with the state's gradient, in the variant `_variant` picks; then a pass
+that sums the heads' partials of dB and dC, which every head shares), on
+the CPU `ssd_scan_backward_plain`, the explicit formulas.  No Pallas kernel
+computes it: the reference trains through ``jax.grad`` of
+`repro/models/ssm.py:ssd_chunked`.
 """
 from __future__ import annotations
 
@@ -49,13 +60,29 @@ import torch
 
 from ..device import KernelError
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_VARIANT", "BWD_TOLERANCE", "LAUNCHES",
+           "LAUNCHES_BY_VARIANT", "SsdScanFn", "ssd_scan", "ssd_scan_backward",
+           "ssd_scan_backward_plain", "ssd_scan_plain", "ssd_scan_train"]
 
 #: Number of CUDA kernel launches made by `ssd_scan` in this process (one
 #: per call: the ``mma`` variant's C·Bᵀ pass and per-head pass count as one).
 LAUNCHES = 0
 #: The same launches by variant (`_variant`).
 LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
+
+#: Number of backward calls that launched the backward kernels (its per-head
+#: pass and the sum over the heads count as one).
+BWD_LAUNCHES = 0
+#: The same backward calls by variant (`_variant`).
+BWD_LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
+#: The backward kernel against `ssd_scan_backward_plain` on the same inputs,
+#: by dtype: (atol as a share of each gradient's largest magnitude, rtol).
+#: float32 1e-4: the two sum in other orders, and d(dt) is a difference of
+#: sums (Z's row and column sums) that cancel to a small part of each.
+#: bf16: dx, dB and dC come out in bf16, where kernel and plain round two
+#: float32 values to outputs one bf16 ulp apart (rtol 2^-7); the kernel's
+#: float32 operands pass through bf16 hi + lo (some 16 bits), 1e-3.
+BWD_TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2.0 ** -7)}
 
 #: The (head_dim P, state N, chunk) values the CUDA kernel is built for.
 HEAD_DIMS = (32, 64)
@@ -93,7 +120,9 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H) i - j
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
-    w = cb[..., None] * torch.where(causal[:, :, None], torch.exp(seg), 0.0)
+    # Masked before the exponential: above the diagonal cum_i - cum_j > 0
+    # can overflow, and autograd through a where of an infinity gives NaN.
+    w = cb[..., None] * torch.exp(seg.masked_fill(~causal[:, :, None], float("-inf")))
     dx = dtc[..., None] * xc  # (B,nc,Q,H,P)
     y = torch.einsum("bcijh,bcjhp->bcihp", w, dx)
     # Chunk states, then the inter-chunk recurrence over the nc chunks.
@@ -227,3 +256,206 @@ def _dispatch(x, dt, A, Bm, Cm, h0, chunk, *, mid_event=None):
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return y, h_out
+
+
+# ---- the backward ------------------------------------------------------------
+
+
+def ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, *, chunk=128):
+    """``(dx, d(dt), dA, dBm, dCm)`` of `ssd_scan_plain` without an entering
+    state, at x, dt, A, Bm, Cm, for the output gradient ``dy`` (the final
+    state's gradient is zero), from the explicit formulas in float32, each
+    cast to its input's type; any device.
+
+    Chunks as the kernel takes them.  Per chunk, with ``dec_ij = e^{cum_i -
+    cum_j}`` (i >= j), ``s_j = dt_j e^{total - cum_j}``, ``h_in`` the state
+    entering the chunk and ``G`` the gradient of the state leaving it:
+    ``dx_j = Σ_i W_ij dy_i + s_j G B_j`` with ``W = (C Bᵀ) o dec o dt_j``;
+    ``dB_j = Σ_i M_ij C_i + s_j x_jᵀ G`` and ``dC_i = Σ_j M_ij B_j +
+    e^{cum_i} dy_iᵀ h_in``, summed over the heads, with ``M = (dy xᵀ) o dec
+    o dt_j``; the log-decays' gradient ``dcum`` from ``Z = M o C Bᵀ`` (row
+    sums minus column sums), the entering and leaving states' terms, then
+    ``d(dt) = A·da + Σ_i (Z / dt_j) + e^{total - cum} r`` and ``dA = Σ dt·da``
+    with ``da`` the suffix sums of ``dcum`` in the chunk.  Chunk to chunk,
+    backwards: ``G_{c-1} = e^{total_c} G_c + Σ_i e^{cum_i} dy_i C_iᵀ``.
+    """
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    pad = -s % q
+    nc = (s + pad) // q
+
+    def rows(t, *shape):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
+        return t.reshape(b, nc, q, *shape)
+
+    xc, dtc, bc, cc, dyc = rows(x, h, p), rows(dt, h), rows(Bm, n), rows(Cm, n), rows(dy, h, p)
+    af = A.float()
+    cum = torch.cumsum(dtc * af, dim=2)  # (B,nc,Q,H)
+    total = cum[:, :, -1, :]
+    etot = torch.exp(total[:, :, None, :] - cum)  # e^{total - cum_j}
+    sv = dtc * etot
+    ecum = torch.exp(cum)
+    # The states entering and leaving each chunk, and their gradients.
+    chunk_states = torch.einsum("bcjn,bcjhp->bchpn", bc, xc * sv[..., None])
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(total[:, c])[:, :, None, None] + chunk_states[:, c]
+    h_in = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
+    h_out = torch.stack(entering[1:] + [state], dim=1)
+    g_in = torch.einsum("bcihp,bcin->bchpn", dyc * ecum[..., None], cc)
+    grad = torch.zeros_like(state)
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = grad
+        grad = grad * torch.exp(total[:, c])[:, :, None, None] + g_in[:, c]
+    g = torch.stack(leaving, dim=1)  # (B,nc,H,P,N): dL/d(state leaving chunk c)
+    # Inside the chunks.
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q_i,Q_j,H)
+    dec = torch.exp(seg.masked_fill(~causal[:, :, None], float("-inf")))
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None]
+    dw = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    dtj = dtc[:, :, None, :, :]
+    m = dw * dec * dtj
+    w = cb * dec * dtj
+    zp = dw * cb * dec  # Z / dt_j
+    xg = torch.einsum("bcjhp,bchpn->bcjhn", xc, g)
+    r = torch.einsum("bcjhn,bcjn->bcjh", xg, bc)
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", w, dyc)
+          + sv[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bc, g))
+    dbm = (torch.einsum("bcijh,bcin->bcjn", m, cc)
+           + torch.einsum("bcjh,bcjhn->bcjn", sv, xg))
+    dc_inter = torch.einsum("bcihp,bchpn->bcihn", dyc, h_in) * ecum[..., None]
+    dcm = torch.einsum("bcijh,bcjn->bcin", m, bc) + dc_inter.sum(3)
+    u = torch.einsum("bcihn,bcin->bcih", dc_inter, cc)
+    dtotal = torch.einsum("bchpn,bchpn->bch", g, h_out)
+    dcum = (zp * dtj).sum(3) - (zp * dtj).sum(2) + u - sv * r
+    dcum[:, :, -1] += dtotal
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = af * da + zp.sum(2) + etot * r
+    da_h = (dtc * da).sum((0, 1, 2))
+
+    def unpad(t, *shape):
+        return t.reshape(b, s + pad, *shape)[:, :s]
+
+    return (unpad(dx, h, p).to(x.dtype), unpad(ddt, h).to(dt.dtype), da_h.to(A.dtype),
+            unpad(dbm, n).to(Bm.dtype), unpad(dcm, n).to(Cm.dtype))
+
+
+def ssd_scan_backward(x, dt, A, Bm, Cm, dy, *, chunk=128):
+    """``(dx, d(dt), dA, dBm, dCm)`` of `ssd_scan` without an entering
+    state, for the output gradient ``dy`` (like x), dispatched by device.
+
+    CPU tensors run `ssd_scan_backward_plain`; CUDA tensors launch the
+    backward kernels on the current stream (``dy`` made contiguous first),
+    and anything they do not take raises, as `ssd_scan` does.
+    """
+    _check_inputs(x, dt, A, Bm, Cm, None, chunk)
+    if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"ssd_scan_backward: dy must be like x ({tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}), got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
+    return _dispatch_bwd(x, dt, A, Bm, Cm, dy.contiguous(), chunk)
+
+
+_BWD_ARGTYPES = {
+    torch.float32: [ctypes.c_void_p] * 15 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 2,
+    torch.bfloat16: [ctypes.c_void_p] * 15 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 2,
+}
+
+
+def _bwd_fn(dtype: torch.dtype):
+    """The C function that launches ``_variant(dtype)``'s backward kernels."""
+    from ._build import load_library
+
+    lib = load_library("ssd_bwd")
+    fn = lib.ssd_bwd_bf16 if dtype == torch.bfloat16 else lib.ssd_bwd_f32
+    fn.argtypes = _BWD_ARGTYPES[dtype]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _dispatch_bwd(x, dt, A, Bm, Cm, dy, chunk, *, mid_event=None):
+    """`ssd_scan_backward` on CUDA tensors after its checks.  ``mid_event``
+    (a `torch.cuda.Event`) is recorded between the per-head pass and the sum
+    over the heads, for measurements."""
+    global BWD_LAUNCHES
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if p not in HEAD_DIMS or n not in STATES or chunk not in CHUNKS:
+        raise ValueError(f"ssd_scan_backward: (P, N, chunk) = {(p, n, chunk)} not built on "
+                         f"CUDA (P in {HEAD_DIMS}, N in {STATES}, chunk in {CHUNKS})")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan_backward: {name} must be contiguous on CUDA")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if t.stride(2) != 1:
+            raise ValueError(f"ssd_scan_backward: {name} must have stride 1 along N on CUDA")
+    variant = _variant(x.dtype)
+    fn = _bwd_fn(x.dtype)
+    strides = (Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
+    n_chunks = -(-s // chunk)
+    with torch.cuda.device(x.device):
+        if mid_event is not None and not mid_event.cuda_event:
+            mid_event.record()  # creates the event, which the launch records again
+        mid = None if mid_event is None else mid_event.cuda_event
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx, ddt = torch.empty_like(x), torch.empty((b, s, h), **f32)
+        dbm, dcm = (torch.empty((b, s, n), dtype=x.dtype, device=x.device) for _ in range(2))
+        da = torch.empty((h,), **f32)
+        # Scratch: the heads' partials of dB and dC and of dA, and the state
+        # entering every chunk.
+        dbp, dcp = torch.empty((b, h, s, n), **f32), torch.empty((b, h, s, n), **f32)
+        dap = torch.empty((b, h), **f32)
+        hch = torch.empty((b, h, n_chunks, p, n), **f32)
+        pointers = [t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dbp, dcp, dap, hch,
+                                           dbm, dcm, da)]
+        if variant == "mma":
+            aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, Bm, Cm)) and all(
+                st % 8 == 0 for st in strides)
+            rc = fn(*pointers, *strides, b, s, h, p, n, chunk, int(aligned), mid, stream)
+        else:
+            rc = fn(*pointers, *strides, b, s, h, p, n, chunk, mid, stream)
+    if rc != 0:
+        raise KernelError(f"ssd_scan_backward {variant} kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_VARIANT[variant] += 1
+    return dx, ddt, da, dbm, dcm
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan from a zero state with its gradient: the forward keeps
+    its inputs (Bm and Cm as the views they are); the backward is
+    `ssd_scan_backward` (the kernels on CUDA tensors, the plain formulas on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, _ = _dispatch(x, dt, A, Bm, Cm, None, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        return (*ssd_scan_backward(x, dt, A, Bm, Cm, dy, chunk=ctx.chunk), None)
+
+
+def ssd_scan_train(x, dt, A, Bm, Cm, *, chunk=128):
+    """``y (B, S, H, P)`` of `ssd_scan` from a zero state, differentiable in
+    x, dt, A, Bm and Cm: when grad is enabled and one of them requires it,
+    the call goes through `SsdScanFn`.  Takes what `ssd_scan` takes."""
+    _check_inputs(x, dt, A, Bm, Cm, None, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return SsdScanFn.apply(x, dt, A, Bm, Cm, chunk)
+    return _dispatch(x, dt, A, Bm, Cm, None, chunk)[0]

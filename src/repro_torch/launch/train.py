@@ -6,14 +6,17 @@ plus ``--remat`` (activation checkpointing of each layer group, as the
 reference's production step trains) and ``--device``: it runs on the card
 unless ``--device cpu`` is given.  The reference's ``--production-mesh``
 and ``--multi-pod`` build TPU meshes; the port trains on one card and has
-no mesh yet (ROADMAP queue A).  Attention-only configs train; the others
-raise `NotImplementedError` until their layers' backward kernels exist.
+no mesh yet (ROADMAP queue A).  Attention, SSD (mamba2-1.3b) and recurrent
+(recurrentgemma-9b) configs train; MoE configs raise `NotImplementedError`
+until the grouped GEMM's backward exists.
 The checkpoint is written in the reference's format
 (`repro_torch.train.checkpoint`).
 
 Example (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --smoke --steps 10 --batch 4 --seq-len 128 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --smoke --steps 3 --device cpu
 """
 from __future__ import annotations
 

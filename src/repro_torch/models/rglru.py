@@ -10,13 +10,16 @@ linear recurrence:
 
 Prefill runs the recurrence on the hand-written kernel
 `repro_torch.kernels.rglru.rglru_scan` (on the CPU, its plain torch loop),
-where the reference uses an ``associative_scan``; decode is the O(1) step
-in plain torch.  The block wraps the unit in the Griffin layout: dual
-input projections, a short causal conv on the recurrent branch, GeLU (the
-tanh form, as ``jax.nn.gelu``) gating on the linear branch, and an output
-projection.  The gates run in float32; ``b_r``, ``b_i`` and ``lam`` are
-float32 whatever the model's type (`FLOAT32_PARAMS`): in bf16 ``lam``'s
-0.999 would round to 1.0, clip at 1e-6 and change the decay entirely.
+where the reference uses an ``associative_scan``; training
+(`rglru_train`) runs it through `rglru_scan_train`, whose backward is the
+hand-written kernel of ``csrc/rglru_bwd.cu`` on the card; decode is the
+O(1) step in plain torch.  The block wraps the unit in the Griffin
+layout: dual input projections, a short causal conv on the recurrent
+branch, GeLU (the tanh form, as ``jax.nn.gelu``) gating on the linear
+branch, and an output projection.  The gates run in float32; ``b_r``,
+``b_i`` and ``lam`` are float32 whatever the model's type
+(`FLOAT32_PARAMS`): in bf16 ``lam``'s 0.999 would round to 1.0, clip at
+1e-6 and change the decay entirely.
 """
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.rglru import rglru_scan
+from ..kernels.rglru import rglru_scan, rglru_scan_train
 from .layers import activation_fn, init_dense
 
 __all__ = [
     "FLOAT32_PARAMS",
     "RGLRU",
     "init_rglru_block",
+    "rglru_train",
     "rglru_init_cache",
     "rglru_prefill",
     "rglru_decode",
@@ -130,6 +134,19 @@ def _branches(params: RGLRU, x, tail):
     xb, new_tail = _conv(params, x @ params.in_x, tail)
     a, b = _gates(params, xb)
     return a, b, new_tail, gate
+
+
+def rglru_train(params: RGLRU, x):
+    """The block on x (B,S,d) from a zero state and conv tail,
+    differentiable in x and the parameters (reference: `rglru_train`): the
+    gates and the conv stay plain torch ops under autograd, as the
+    reference computes them outside any Pallas kernel."""
+    width = params.conv_w.shape[0]
+    tail = torch.zeros((x.shape[0], width - 1, params.in_x.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    a, b, _, gate = _branches(params, x, tail)
+    h = rglru_scan_train(a, b)  # (B,S,W) float32
+    return (h * gate).to(x.dtype) @ params.out
 
 
 def rglru_init_cache(batch: int, width: int, conv_width: int, dtype=torch.bfloat16,

@@ -4,9 +4,11 @@ Mirrors `repro/models/ssm.py`.  Prefill runs the SSD chunked scan on the
 hand-written kernel `repro_torch.kernels.ssd.ssd_scan` (on the CPU, its
 plain torch version); the reference runs the same algorithm as XLA-level
 einsums (`ssd_chunked`, kept here as the CPU-side function with the
-reference's chunk rule).  Decode is the O(1) recurrent update on the
-(H, P, N) state, in plain torch as in the reference: no TPU kernel
-computes it.
+reference's chunk rule).  Training (`mamba2_train`) runs the scan through
+`ssd_scan_train`, at the reference's chunk rule, whose backward is the
+hand-written kernel of ``csrc/ssd_bwd.cu`` on the card.  Decode is the
+O(1) recurrent update on the (H, P, N) state, in plain torch as in the
+reference: no TPU kernel computes it.
 
 Layout conventions: x (B,S,H,P) with H = d_inner/head_dim heads of size P;
 B/C (B,S,N) shared across heads (ngroups=1); A scalar per head (negative,
@@ -21,16 +23,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.ssd import ssd_scan, ssd_scan_plain
+from ..kernels.ssd import ssd_scan, ssd_scan_plain, ssd_scan_train
 from .layers import init_dense, init_rms_norm, rms_norm
 
 __all__ = [
     "FLOAT32_PARAMS",
     "Mamba2",
     "init_mamba2",
+    "mamba2_train",
     "mamba2_init_cache",
     "mamba2_prefill",
     "mamba2_decode",
+    "reference_chunk",
     "ssd_chunked",
     "ssd_decode_step",
 ]
@@ -45,12 +49,17 @@ FLOAT32_PARAMS = ("A_log", "D", "dt_bias")
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     """The reference's `ssd_chunked`: (y (B,S,H,P), final state (B,H,P,N)).
 
-    Its chunk rule is ``min(chunk, S)``, and one chunk of S when S is not a
-    multiple of that; the arithmetic is `ssd_scan_plain`'s, in float32.
+    Its chunk rule is `reference_chunk`'s; the arithmetic is
+    `ssd_scan_plain`'s, in float32.
     """
-    s = x.shape[1]
+    return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=reference_chunk(x.shape[1], chunk))
+
+
+def reference_chunk(s: int, chunk: int) -> int:
+    """The reference's chunk for S positions: ``min(chunk, S)``, and one
+    chunk of S when S is not a multiple of that."""
     q = min(chunk, s)
-    return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=s if s % q else q)
+    return s if s % q else q
 
 
 def ssd_decode_step(h, x, dt, A, Bm, Cm):
@@ -148,6 +157,20 @@ def _gate_and_project(params: Mamba2, y, xh, z, x_dtype, norm_eps):
     y = y.reshape(z.shape).to(x_dtype)
     y = y * F.silu(z.float()).to(x_dtype)
     return rms_norm(y, params.norm, norm_eps) @ params.out_proj
+
+
+def mamba2_train(params: Mamba2, x, *, d_inner: int, d_state: int, head_dim: int,
+                 chunk: int, norm_eps: float):
+    """The block on x (B,S,d_model) from a zero state and conv tail,
+    differentiable in x and the parameters (reference: `mamba2_train`).  The
+    scan takes the reference's chunk rule (`reference_chunk`)."""
+    b, s, _ = x.shape
+    width = params.conv_x_w.shape[0]
+    tail = torch.zeros((b, width - 1, d_inner + 2 * d_state), dtype=x.dtype, device=x.device)
+    z, xs, Bm, Cm, dt, A, _ = _ssd_io(params, x, d_inner, d_state, tail)
+    xh = xs.reshape(b, s, d_inner // head_dim, head_dim)
+    y = ssd_scan_train(xh, dt, A, Bm, Cm, chunk=reference_chunk(s, chunk))
+    return _gate_and_project(params, y, xh, z, x.dtype, norm_eps)
 
 
 def mamba2_init_cache(batch: int, d_inner: int, d_state: int, head_dim: int,

@@ -20,11 +20,13 @@ Entry points:
 
 Parameters are created frozen (``requires_grad=False``), as serving wants
 them; training (`repro_torch.train`) turns ``requires_grad`` on.
-Training runs the attention-only configs: the flash kernel has a
-backward (`kernels.attention.FlashAttentionFn`), while the SSD scan, the
-RG-LRU scan and the grouped GEMM do not yet, so ``"ssd"``,
-``"recurrent"`` and ``"moe"`` layers raise `NotImplementedError` in
-`forward_train` (ROADMAP queue A item 3's next slices).  The reference's
+Training runs ``"attention"``, ``"ssd"`` and ``"recurrent"`` layers, each
+of whose kernels has a backward: flash attention's
+(`kernels.attention.FlashAttentionFn`), the SSD scan's
+(`kernels.ssd.SsdScanFn`) and the RG-LRU scan's
+(`kernels.rglru.RglruScanFn`).  The grouped GEMM has none yet, so
+``"moe"`` layers raise `NotImplementedError` in `forward_train` (ROADMAP
+queue A item 3.2).  The reference's
 ``unroll`` and ``act_spec`` are XLA knobs (analysis unrolling, a mesh
 sharding constraint) with no counterpart on one card.
 """
@@ -202,9 +204,9 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 # ---- training -----------------------------------------------------------------
 
 #: The layer kinds `forward_train` runs: every kernel they launch has a
-#: backward.  The others wait for backward kernels of their own (ROADMAP
-#: queue A item 3: the SSD and RG-LRU scans', the grouped GEMM's dX/dW).
-TRAINABLE_KINDS = ("attention",)
+#: backward.  ``"moe"`` waits for the grouped GEMM's dX/dW (ROADMAP queue A
+#: item 3.2).
+TRAINABLE_KINDS = ("attention", "ssd", "recurrent")
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
@@ -212,17 +214,29 @@ def _check_trainable(cfg: ModelConfig) -> None:
     if untrained:
         raise NotImplementedError(
             f"{cfg.name}: training {untrained} layers needs backward kernels the port "
-            "does not have yet (ROADMAP queue A item 3: mamba2 and recurrentgemma "
-            "training with the SSD and RG-LRU scans' backward, MoE training with the "
-            "grouped GEMM's dX/dW)")
+            "does not have yet (ROADMAP queue A item 3.2: MoE training with the grouped "
+            "GEMM's dX/dW)")
 
 
-def _apply_slot_train(cfg: ModelConfig, window: int | None, layer: Block, x: torch.Tensor,
-                      positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Residual application of an ``"attention"`` block (training / no
-    cache). Returns (x, aux)."""
+def _apply_slot_train(cfg: ModelConfig, kind: str, window: int | None, layer: Block,
+                      x: torch.Tensor, positions: torch.Tensor) -> tuple[torch.Tensor,
+                                                                         torch.Tensor]:
+    """Residual application of an ``"attention"``, ``"ssd"`` or
+    ``"recurrent"`` block (training / no cache), as the reference's
+    `_apply_slot_train`. Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    if kind == "ssd":
+        h = ssm_lib.mamba2_train(
+            layer.mamba, h, d_inner=cfg.ssm_d_inner, d_state=cfg.ssm_state,
+            head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
+        return x + h, aux
+    if kind == "recurrent":
+        h = rglru_lib.rglru_train(layer.rec, h)
+        x = x + h
+        h = rms_norm(x, layer.ln2, cfg.norm_eps)
+        h = mlp(layer.mlp, h, cfg.mlp_activation)
+        return x + h, aux
     h = attn_lib.attention_train(
         layer.attn, h, positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -241,7 +255,8 @@ def _apply_group_train(cfg: ModelConfig, layers: list, positions: torch.Tensor,
     """One layer group (the pattern's slots, in order): (x, summed aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for slot, layer in enumerate(layers):
-        x, a = _apply_slot_train(cfg, cfg.window_for_slot(slot), layer, x, positions)
+        x, a = _apply_slot_train(cfg, cfg.layer_pattern[slot], cfg.window_for_slot(slot), layer,
+                                 x, positions)
         aux = aux + a
     return x, aux
 

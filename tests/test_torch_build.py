@@ -32,15 +32,19 @@ def test_every_source_is_in_the_table():
 
 
 def test_the_table_holds_the_port_kernels():
-    """The nine sources, flash attention's backward among them, built with
-    fused multiply-adds like the forward (no bit-identity with its plain
-    version is asked) and, for its ``wgmma`` variant, on the Hopper
-    helpers the forward uses."""
+    """The eleven sources, the backward of flash attention, of the SSD scan
+    and of the RG-LRU scan among them, built with fused multiply-adds like
+    their forwards (no bit-identity with their plain versions is asked):
+    flash's ``wgmma`` variant on the Hopper helpers its forward uses, the
+    SSD's ``mma`` variant on the warp-level ones."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
-        "rglru", "grouped_gemm", "pack", "placement"}
+        "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "pack", "placement"}
     assert _build.SOURCES["flash_attention_bwd"] == (
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh"))
+    assert _build.SOURCES["ssd_bwd"] == (
+        _build.FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh"))
+    assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS, ("mma_common.cuh",))
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

@@ -1236,3 +1236,255 @@ def test_train_step_on_card_equals_the_cpu_step(cuda):
     np.testing.assert_allclose(card_hist, cpu_hist, rtol=1e-4)
     for a, b in zip(card_w, cpu_w):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+# ---- the scans' backward kernels ------------------------------------------------
+#
+# Each against its plain version on the same inputs, every gradient within
+# `ssd.BWD_TOLERANCE` / `rglru.BWD_TOLERANCE` (atol as a share of that
+# gradient's largest magnitude, rtol), the limits `chip_smoke.py` holds them
+# to at the training shapes.
+
+SSD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def _ssd_bwd_inputs(b, s, h, p, n, dtype, device, seed=0, offset=0):
+    """x, dt, A, Bm, Cm, dy as mamba2's training call passes them: dt over
+    its init's range, A = -exp(A_log) over its span, Bm and Cm column views
+    of one tensor (starting ``offset`` elements in)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).to(device, dtype)
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (b, s, h)).astype(np.float32)).to(device)
+    A = -torch.linspace(1.0, 16.0, h, device=device)
+    bc = torch.from_numpy((rng.standard_normal((b, s, 2 * n + 2 * offset)) * 0.5).astype(
+        np.float32)).to(device, dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).to(device, dtype)
+    return x, dt, A, bc[..., offset:offset + n], bc[..., n + 2 * offset:2 * n + 2 * offset], dy
+
+
+def _ssd_grads_close(got, want, dtype):
+    share, rtol = ssd.BWD_TOLERANCE[dtype]
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=share * scale, msg=name)
+
+
+def _ssd_backward_counted(args, chunk, dtype):
+    before = dict(ssd.BWD_LAUNCHES_BY_VARIANT)
+    got = ssd.ssd_scan_backward(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    variant = ssd._variant(dtype)
+    assert {v: c - before[v] for v, c in ssd.BWD_LAUNCHES_BY_VARIANT.items()} == {
+        v: int(v == variant) for v in before}
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 100, 3, 32, 32, 32),     # ragged: chunks 32, 32, 32, 4
+    (1, 257, 4, 64, 128, 128),   # mamba2-1.3b's (P, N, chunk), one row past two chunks
+    (2, 300, 2, 64, 64, 64),
+    (1, 130, 2, 32, 128, 64),
+    (1, 5, 2, 64, 128, 128),     # one short chunk
+    (2, 1024, 8, 64, 128, 128),  # whole chunks
+])
+def test_ssd_backward_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    args = _ssd_bwd_inputs(b, s, h, p, n, dtype, cuda, seed=s)
+    got = _ssd_backward_counted(args, chunk, dtype)
+    _ssd_grads_close(got, ssd.ssd_scan_backward_plain(*args, chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("p", [32, 64])
+def test_ssd_backward_each_instance_matches_plain(cuda, p, n, chunk, dtype):
+    """Every built (P, N, chunk) on the dtype's variant: three chunks, the
+    last of 5 rows."""
+    args = _ssd_bwd_inputs(2, 2 * chunk + 5, 3, p, n, dtype, cuda, seed=chunk + n + p)
+    got = _ssd_backward_counted(args, chunk, dtype)
+    _ssd_grads_close(got, ssd.ssd_scan_backward_plain(*args, chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_unaligned_strided_b_and_c(cuda, dtype):
+    """B and C one element into their rows: the ``mma`` variant copies rows
+    that are not 16-byte aligned element by element."""
+    args = _ssd_bwd_inputs(2, 263, 4, 64, 128, dtype, cuda, seed=5, offset=1)
+    assert args[3].data_ptr() % 16 and args[3].stride(1) % 8
+    got = _ssd_backward_counted(args, 128, dtype)
+    _ssd_grads_close(got, ssd.ssd_scan_backward_plain(*args, chunk=128), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_repeats_bit_for_bit(cuda, dtype):
+    """No atomics: the heads' partials are summed in a fixed order."""
+    args = _ssd_bwd_inputs(2, 333, 16, 64, 128, dtype, cuda, seed=9)
+    first = ssd.ssd_scan_backward(*args, chunk=128)
+    for _ in range(10):
+        again = ssd.ssd_scan_backward(*args, chunk=128)
+        assert all(torch.equal(a, g) for a, g in zip(first, again))
+
+
+def test_ssd_scan_train_on_card_runs_both_kernels(cuda):
+    """With grad, `ssd_scan_train` launches the forward kernel once and, in
+    the backward, the backward kernel once; the gradients reach every input
+    (B and C through their views) and equal a direct backward call."""
+    x, dt, A, Bm, Cm, dy = _ssd_bwd_inputs(1, 200, 4, 64, 128, torch.bfloat16, cuda)
+    bc = torch.cat([Bm, Cm], dim=-1).requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A)]
+    before = (ssd.LAUNCHES, ssd.BWD_LAUNCHES)
+    y = ssd.ssd_scan_train(*leaves, bc[..., :128], bc[..., 128:], chunk=128)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd.LAUNCHES, ssd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = ssd.ssd_scan_backward(x, dt, A, Bm, Cm, dy, chunk=128)
+    got = [t.grad for t in leaves] + [bc.grad[..., :128], bc.grad[..., 128:]]
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_ssd_backward_raises_instead_of_falling_back(cuda, monkeypatch):
+    args = _ssd_bwd_inputs(1, 64, 2, 64, 64, torch.float32, cuda)
+    x, dt, A, Bm, Cm, dy = args
+    before = ssd.BWD_LAUNCHES
+    with pytest.raises(ValueError):  # chunk 16
+        ssd.ssd_scan_backward(*args, chunk=16)
+    with pytest.raises(ValueError):  # P = 48
+        ssd.ssd_scan_backward(x[..., :48].contiguous(), dt, A, Bm, Cm, dy[..., :48].contiguous())
+    with pytest.raises(ValueError):  # x not contiguous
+        ssd.ssd_scan_backward(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, dy)
+    with pytest.raises(ValueError):  # dy on another device
+        ssd.ssd_scan_backward(x, dt, A, Bm, Cm, dy.cpu())
+    with pytest.raises(TypeError):  # a dtype the kernel is not built for
+        ssd.ssd_scan_backward(x.half(), dt, A, Bm.half(), Cm.half(), dy.half())
+    # A launch the kernel refuses raises KernelError; nothing falls back.
+    monkeypatch.setattr(ssd, "_bwd_fn", lambda dtype: (lambda *a: 1))
+    with pytest.raises(KernelError, match="ssd_scan_backward simt kernel launch failed"):
+        ssd.ssd_scan_backward(*args)
+    assert ssd.BWD_LAUNCHES == before
+
+
+@pytest.mark.parametrize("lanes", [None, 64, 128])
+@pytest.mark.parametrize("b,s,w", [(1, 4096, 4096), (3, 200, 4096), (2, 65, 100), (1, 33, 7),
+                                   (2, 1, 130)])
+def test_rglru_backward_kernel_matches_plain(cuda, monkeypatch, b, s, w, lanes):
+    """recurrentgemma-9b's training call, a partial last box, W not a
+    multiple of 4, one step; at the CTA width `_lanes` picks and forced."""
+    if lanes is not None:
+        monkeypatch.setattr(rglru, "_lanes", lambda *a: lanes)
+    rng = np.random.RandomState(s)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32)).to(cuda)
+    h = rglru.rglru_scan(a, torch.from_numpy(rng.standard_normal((b, s, w)).astype(
+        np.float32)).to(cuda))
+    dh = torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32)).to(cuda)
+    before = rglru.BWD_LAUNCHES
+    got = rglru.rglru_scan_backward(a, h, dh)
+    torch.cuda.synchronize()
+    assert rglru.BWD_LAUNCHES == before + 1
+    share, rtol = rglru.BWD_TOLERANCE
+    for name, g, w_ in zip(("da", "db"), got, rglru.rglru_scan_backward_plain(a, h, dh)):
+        torch.testing.assert_close(g, w_, rtol=rtol, atol=share * float(w_.abs().max()),
+                                   msg=name)
+    again = rglru.rglru_scan_backward(a, h, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_rglru_backward_raises_instead_of_falling_back(cuda, monkeypatch):
+    a = torch.rand(2, 16, 64, device=cuda)
+    before = rglru.BWD_LAUNCHES
+    with pytest.raises(ValueError):
+        rglru.rglru_scan_backward(a.transpose(0, 1).contiguous().transpose(0, 1), a, a)
+    with pytest.raises(ValueError):
+        rglru.rglru_scan_backward(a, a, a.cpu())
+    with pytest.raises(TypeError):
+        rglru.rglru_scan_backward(a.double(), a.double(), a.double())
+    from repro_torch.kernels import _build
+
+    fn = _build.load_library("rglru_bwd").rglru_bwd_f32
+    assert fn(96, a.data_ptr(), a.data_ptr(), a.data_ptr(), a.data_ptr(), a.data_ptr(), 2, 16,
+              64, torch.cuda.current_stream().cuda_stream) != 0  # no 96-lane CTA
+    monkeypatch.setattr(rglru, "_lanes", lambda *args: 96)
+    with pytest.raises(KernelError, match="rglru_scan_backward kernel launch failed"):
+        rglru.rglru_scan_backward(a, a, a)
+    assert rglru.BWD_LAUNCHES == before
+
+
+def test_backward_sources_build_without_spills(cuda, tmp_path):
+    """ptxas's report of a fresh build of ``ssd_bwd.cu`` and
+    ``rglru_bwd.cu``: every instance of ``ssd_bwd_mma`` and ``ssd_bwd_simt``
+    (18 (P, N, chunk) each) and of ``rglru_bwd_cp_async`` (64 and 128 lanes)
+    stores no spill."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    rx = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                    r"spill stores, (\d+) bytes spill loads\s*\n.*?Used (\d+) registers")
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.SOURCES[name][0], "-o", str(tmp_path / f"{name}.so"),
+         str(_build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in ("ssd_bwd", "rglru_bwd")}
+    found = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log[-3000:]
+        for m in rx.finditer(log):
+            found[m[1]] = int(m[3])
+    for kernel, n in (("ssd_bwd_mma", 18), ("ssd_bwd_simt", 18), ("rglru_bwd_cp_async", 2)):
+        got = {f: st for f, st in found.items() if kernel in f}
+        assert len(got) == n, (kernel, sorted(got))
+        assert not any(got.values()), {f: st for f, st in got.items() if st}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_ssd_and_recurrent_train_steps_on_card_equal_the_cpu_steps(cuda, arch):
+    """Smoke mamba2-1.3b (chunk 32: the kernels are not built for the smoke
+    chunk of 16) and recurrentgemma-9b cut to one (recurrent, recurrent,
+    attention) group, float32, from the same weights and batches on the
+    card (the backward kernels) and on the CPU (plain versions): every
+    gradient leaf of `loss_fn` within 1e-4 of its largest |grad|, then two
+    train steps (remat on the card) whose losses and grad norms agree
+    within 1e-4.  The updated weights are not compared: where a gradient is
+    near zero Adam moves a weight by up to lr whatever its relative error,
+    so they cannot tell a right gradient from a wrong one of its sign."""
+    from repro_torch.data import BatchSpec, make_batch
+    from repro_torch.interop import param_leaves
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import batch_to_device, make_train_step
+
+    cut = (dict(ssm_chunk=32) if arch == "mamba2-1.3b" else
+           dict(layer_pattern=("recurrent", "recurrent", "attention"),
+                window_pattern=(None, None, 16), num_layers=3))
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32", **cut)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tfm.init_params(cfg, seed=0, device="cpu").to(dev)
+        model.requires_grad_(True)
+        before = ssd.BWD_LAUNCHES + rglru.BWD_LAUNCHES
+        total, _ = tfm.loss_fn(model, cfg, batch_to_device(
+            make_batch(cfg, BatchSpec(2, 96), seed=0), dev))
+        total.backward()
+        grads = {path: [p.grad.detach().cpu() for p in leaf]
+                 for path, leaf in param_leaves(cfg, model).items() if isinstance(leaf, list)}
+        model.zero_grad(set_to_none=True)
+        state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+        step = make_train_step(cfg, opt, remat=dev != "cpu")
+        hist = []
+        for i in range(2):
+            state, m = step(state, batch_to_device(make_batch(cfg, BatchSpec(2, 96), seed=i),
+                                                   dev))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = (grads, hist, ssd.BWD_LAUNCHES + rglru.BWD_LAUNCHES - before)
+    (cpu_g, cpu_hist, cpu_bwd), (card_g, card_hist, card_bwd) = out["cpu"], out[str(cuda)]
+    n_scan = sum(k in ("ssd", "recurrent") for k in cfg.layer_pattern) * cfg.num_groups
+    assert cpu_bwd == 0 and card_bwd == 3 * n_scan  # the gradients' pass and two steps
+    for path, wants in cpu_g.items():
+        for got, want in zip(card_g[path], wants):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()),
+                                       msg=path)
+    np.testing.assert_allclose(card_hist, cpu_hist, rtol=1e-4)

@@ -66,6 +66,12 @@ def test_kernel_groups(tpw, name, group):
     ("void (anonymous namespace)::tc::ssd_cb<128, 128>(...)", "SSD scan"),
     ("void (anonymous namespace)::tc::ssd_mma<64, 128, 128>(...)", "SSD scan"),
     ("void (anonymous namespace)::ssd_kernel<__nv_bfloat16, 64, 128, 128>(...)", "SSD scan"),
+    ("void (anonymous namespace)::tc::ssd_bwd_mma<64, 128, 128>(...)", "SSD backward"),
+    ("void (anonymous namespace)::simt::ssd_bwd_simt<64, 128, 128>(...)", "SSD backward"),
+    ("void (anonymous namespace)::ssd_bwd_reduce<__nv_bfloat16>(...)", "SSD backward"),
+    ("void (anonymous namespace)::rglru_tma<128>(CUtensorMap_st, ...)", "RG-LRU scan"),
+    ("void (anonymous namespace)::rglru_cp_async<64>(...)", "RG-LRU scan"),
+    ("void (anonymous namespace)::rglru_bwd_cp_async<64>(...)", "RG-LRU backward"),
 ])
 def test_decode_and_scan_kernel_groups(tpw, name, group):
     """The redesigned kernels' names, and the SSD kernel's name in earlier

@@ -93,8 +93,8 @@ def _loss_and_grads(cfg, batch):
     """(reference (total, ce, grads), port (total, ce, grads)), grads as
     ``{path: array}`` in the reference's leaf order."""
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jtotal, jparts), jgrads = jax.value_and_grad(
-        lambda p: jtfm.loss_fn(p, cfg, jb), has_aux=True)(_ref_params(cfg))
+    (jtotal, jparts), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtfm.loss_fn(p, cfg, jb), has_aux=True))(_ref_params(cfg))
     model = _port_params(cfg)
     ttotal, tparts = ttfm.loss_fn(model, cfg, batch_to_device(batch, "cpu"))
     ttotal.backward()
@@ -186,12 +186,29 @@ def test_opt_state_round_trips_through_the_reference_form():
 # ---- loss and gradients ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma2-2b"])
+#: `test_loss_and_every_gradient_match_reference`'s configs: (arch, the
+#: smoke variant's replaced fields).  recurrentgemma-9b is cut to one
+#: ("recurrent", "recurrent", "attention") group: its 19-slot smoke would
+#: triple the test for the same three kinds of layer.
+GRAD_CASES = {
+    "internlm2-1.8b": dict(num_kv_heads=2),
+    "gemma2-2b": dict(num_kv_heads=2),
+    "mamba2-1.3b": dict(),
+    "recurrentgemma-9b": dict(layer_pattern=("recurrent", "recurrent", "attention"),
+                              window_pattern=(None, None, 16), num_layers=3),
+}
+
+
+@pytest.mark.parametrize("arch", list(GRAD_CASES))
 def test_loss_and_every_gradient_match_reference(arch):
-    """Smoke internlm2-1.8b with 2 KV heads (GQA), and smoke gemma2-2b with
-    2 KV heads (GQA, a 16-token window binding at S = 40, attention softcap
-    50, final softcap 30, embeddings scaled by sqrt(d))."""
-    cfg = _smoke(arch, num_kv_heads=2)
+    """Smoke internlm2-1.8b with 2 KV heads (GQA); smoke gemma2-2b with 2 KV
+    heads (GQA, a 16-token window binding at S = 40, attention softcap 50,
+    final softcap 30, embeddings scaled by sqrt(d)); smoke mamba2-1.3b (two
+    SSD layers; S = 40 is not a multiple of its chunk of 16, so both take
+    the reference's rule, one chunk of 40); recurrentgemma-9b cut to two
+    RG-LRU layers and one local-attention layer (MQA, window 16, GeGLU MLPs,
+    embeddings scaled by sqrt(d))."""
+    cfg = _smoke(arch, **GRAD_CASES[arch])
     batch = make_batch(cfg, BatchSpec(2, 40), seed=1)
     (jt, jce, jg), (tt, tce, tg) = _loss_and_grads(cfg, batch)
     assert tt == pytest.approx(jt, rel=RTOL)
@@ -281,11 +298,10 @@ def test_loss_decreases_on_fixed_batch():
     assert hist[-1]["loss"] < hist[0]["loss"] * 0.7
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
-                                  "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
 def test_layers_without_a_backward_kernel_raise(arch):
-    """``"ssd"``, ``"recurrent"`` and ``"moe"`` layers wait for backward
-    kernels: the loss, the forward and `train` raise before any work."""
+    """``"moe"`` layers wait for the grouped GEMM's backward: the loss, the
+    forward and `train` raise before any work."""
     cfg = tsmoke_variant(tget_config(arch))
     model = ttfm.init_params(cfg, seed=0, device="cpu")
     batch = batch_to_device(make_batch(cfg, BatchSpec(1, 16)), "cpu")
@@ -295,3 +311,62 @@ def test_layers_without_a_backward_kernel_raise(arch):
                                       device="cpu", state={"params": model, "opt": None})):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_launcher_trains_the_ssd_and_recurrent_families(arch, capsys):
+    """``python -m repro_torch.launch.train --arch ARCH --smoke --steps 3
+    --device cpu``, in process: three finite losses, the first step's
+    logged."""
+    from repro_torch.launch import train as launch_train
+
+    out = launch_train.main(["--arch", arch, "--smoke", "--steps", "3", "--device", "cpu"])
+    assert out["arch"] == f"{arch}-smoke"
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert "step     0 loss " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_float32_leaves_train_in_float32_in_a_bf16_model(arch):
+    """One `train` step of the bf16 smoke model (recurrentgemma-9b cut as
+    above): the leaves the reference keeps in float32 (``A_log``, ``D``,
+    ``dt_bias``; ``b_r``, ``b_i``, ``lam``) stay float32 and move by steps no
+    bf16 weight could take, every moment is float32 in the reference's
+    stacked shape, and the weights and moments cross to the reference's
+    form and back unchanged."""
+    from repro_torch.models import rglru as trglru
+    from repro_torch.models import ssm as tssm
+
+    cfg = tsmoke_variant(tget_config(arch))
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, **{k: v for k, v in GRAD_CASES[arch].items()
+                                          if k != "num_kv_heads"})
+    names = tssm.FLOAT32_PARAMS if arch == "mamba2-1.3b" else trglru.FLOAT32_PARAMS
+    state = ttrain.init_state(0, cfg, device="cpu")
+    before = {p: [t.detach().clone() for t in leaf]
+              for p, leaf in param_leaves(cfg, state["params"]).items()
+              if p.split("/")[-1] in names}
+    kind = "ssd" if arch == "mamba2-1.3b" else "recurrent"
+    assert len(before) == len(names) * cfg.layer_pattern.count(kind)
+    state, _ = ttrain.train(cfg, iter([make_batch(cfg, BatchSpec(2, 32), seed=0)]), steps=1,
+                            log_fn=lambda s: None, device="cpu", state=state)
+    leaves = param_leaves(cfg, state["params"])
+    for path, old in before.items():
+        for t, t0 in zip(leaves[path], old):
+            assert t.dtype == torch.float32, path
+            moved = t.detach() - t0
+            assert bool((moved != 0).any()), path
+            assert not torch.equal(t.detach(), t.detach().bfloat16().float()), path
+    shapes = {p: (len(v),) + tuple(v[0].shape) if isinstance(v, list) else tuple(v.shape)
+              for p, v in leaves.items()}
+    for key in ("mu", "nu"):
+        assert {p: tuple(m.shape) for p, m in state["opt"][key].items()} == shapes
+        assert all(m.dtype == torch.float32 for m in state["opt"][key].values())
+    plain = opt_state_to_plain(state["opt"])
+    back = opt_state_from_plain(plain, device="cpu")
+    for key in ("mu", "nu"):
+        for path, m in state["opt"][key].items():
+            assert torch.equal(back[key][path], m), path
+    again = params_from_plain(cfg, params_to_plain(cfg, state["params"]), device="cpu")
+    for (name, a), (_, b) in zip(state["params"].named_parameters(), again.named_parameters()):
+        assert a.dtype == b.dtype and torch.equal(a.detach(), b), name
