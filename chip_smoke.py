@@ -18,8 +18,10 @@ version.  Phases, each raising on failure:
    ``knapsack_global``), an RG-LRU one (``rglru_tma``,
    ``rglru_cp_async``) or one of a backward (flash attention's
    ``flash_bwd_{dkdv,dq}_{wgmma,simt}``, the SSD scan's
-   ``ssd_bwd_{mma,simt}``, the RG-LRU scan's ``rglru_bwd_cp_async``)
-   fails the phase;
+   ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma``, ``ssd_bwd_simt`` and
+   ``ssd_bwd_finish``, the RG-LRU scan's
+   ``rglru_bwd_cp_async``) or in the pack scan (``pack_scan_warp``,
+   ``pack_scan_global``) fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    packed take bits, the kernel's mask of steps taken (against the plain
    walk over the same bits) and the counts from it (against the host
@@ -49,10 +51,13 @@ version.  Phases, each raising on failure:
    experiment 3 (the acting autoscaler on the 500-stream bursty growth
    trace, 2-minute boot), billed cost, degraded stream-seconds and spares
    against `GROWTH_GOLDEN`, every what-if on the pack scan.  Then every
-   pack-scan launch against `pack_scan_plain` on the card and every
    greedy-repair matrix through numpy, the placement kernel and its
    plain version, bit for bit, plus one fleet-scale matrix; both kernels
-   timed beside their plain versions and bounds;
+   timed beside their plain versions and bounds, the pack scan also beside
+   its empty walk (`pack.empty_walk`: the walk's n steps without their
+   pair loop, the floor the dependent steps set); then phase 4c's 8-cell
+   replay starts in its process, and every pack-scan launch is held
+   against `pack_scan_plain` on the card, bit for bit;
 4c. the sharded controller (`core/shard.py`), each part with the live
    loop's kernel counts set to 0 just before it and read just after:
    (a) `benchmarks/shard.py`'s 100,000 streams over 512 cells — two twins
@@ -67,8 +72,8 @@ version.  Phases, each raising on failure:
    `repack()` on the live cells against `REPACK_GOLDEN`; (c) the
    500-stream cost parity on the benchmark trace's first `PARITY_EVENTS`
    events (flat, one cell equal to flat at every step, 8 cells with the
-   market, the last in a process of its own started with the phase and
-   joined last, since its market's trial moves take minutes of host work;
+   market, the last in a process of its own started after phase 4b's
+   timings and joined last, since its market's trial moves take minutes of host work;
    (c) runs after (d)) against `PARITY_GOLDEN`; (d) a sharded `simulate_churn` on a
    spot catalog (8 cells, a consolidation policy a cell, the batched
    reset, the market) whose whole output dict must digest to
@@ -203,7 +208,8 @@ version.  Phases, each raising on failure:
    (`rglru_bwd.cu`) at recurrentgemma-9b's (B=1, S=4096, W=4096),
    against their plain versions within `ssd.BWD_TOLERANCE` and
    `rglru.BWD_TOLERANCE`, bit for bit over a repeat, timed cold beside
-   their bounds and plain versions (no PyTorch call computes either);
+   their bounds and plain versions (no PyTorch call computes either), the
+   SSD's with each of its launches (`ssd.BWD_PASSES`) timed apart;
    (b) float32 at full width on the card and on the CPU from the same
    weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b and mamba2-1.3b
    at 2 layers, recurrentgemma-9b at 3): every gradient leaf within
@@ -234,8 +240,8 @@ CUDA card:
     python3 chip_smoke.py [--json PATH] [--kernel-only]
 
 ``--kernel-only`` runs phases 1-3 and 6.
-``--cells-parity PATH`` is how phase 4c starts its 8-cell replay in a
-process of its own.
+``--cells-parity PATH`` is how the script starts phase 4c's 8-cell replay
+in a process of its own, after phase 4b's timings.
 """
 from __future__ import annotations
 
@@ -520,8 +526,12 @@ def check_flash_wgmma_spills() -> dict:
 #: type, the RG-LRU scan's ``rglru_tma`` and ``rglru_cp_async`` per CTA
 #: width (64, 128 lanes), flash attention's backward ``flash_bwd_dkdv_*`` and
 #: ``flash_bwd_dq_*`` per variant (``wgmma`` bf16, ``simt`` float32) and
-#: head_dim, the SSD scan's backward ``ssd_bwd_mma`` and ``ssd_bwd_simt`` per
-#: (P, N, chunk) and the RG-LRU scan's ``rglru_bwd_cp_async`` per CTA width.
+#: head_dim, the SSD scan's backward ``ssd_bwd_walk_mma``,
+#: ``ssd_bwd_grads_wgmma`` and ``ssd_bwd_simt`` per (P, N, chunk) and its
+#: ``ssd_bwd_finish`` per chunk, the RG-LRU scan's ``rglru_bwd_cp_async``
+#: per CTA width, and the pack scan's
+#: ``pack_scan_warp`` (the scan and its empty walk, first and best fit, each
+#: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``.
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -535,8 +545,12 @@ SPILL_CHECKED = {
     ("flash_attention_bwd", "flash_bwd_dq_wgmma"): len(flash.HEAD_DIMS),
     ("flash_attention_bwd", "flash_bwd_dkdv_simt"): len(flash.HEAD_DIMS),
     ("flash_attention_bwd", "flash_bwd_dq_simt"): len(flash.HEAD_DIMS),
-    ("ssd_bwd", "ssd_bwd_mma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("ssd_bwd", "ssd_bwd_walk_mma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("ssd_bwd", "ssd_bwd_grads_wgmma"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
     ("ssd_bwd", "ssd_bwd_simt"): len(ssd.HEAD_DIMS) * len(ssd.STATES) * len(ssd.CHUNKS),
+    ("ssd_bwd", "ssd_bwd_finish"): len(ssd.CHUNKS),
+    ("pack", "pack_scan_warp"): 8,
+    ("pack", "pack_scan_global"): 1,
     ("rglru_bwd", "rglru_bwd_cp_async"): 2,
 }
 
@@ -1346,17 +1360,21 @@ def pack_timing(pack_calls) -> dict:
     bt_rec = recs[2]
     opened_before = (bt_rec >= 0).to(torch.int64).cumsum(dim=1) - (bt_rec >= 0).to(torch.int64)
     ms = time_cold_ms(lambda: pack._dispatch(*args), reps=10)
+    empty_ms = time_cold_ms(lambda: pack.empty_walk(*args[:6], best_fit=args[6]), reps=10)
     plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=3)
     bound = pack_bound(args, int(opened_before.sum()))
     pack.LAUNCHES = before[0]
     pack.LAUNCHES_BY_VARIANT.update(before[1])
-    b_n, n = args[3].shape
-    variant = pack._variant(n, args[0].shape[2], args[0].shape[3])
-    log(f"  pack_scan {variant} {ms:.4f} ms at B={b_n} n={n} C={args[0].shape[2]} "
+    b_n, n, c_n, dim = args[0].shape
+    variant, fleets = pack.launch_shape(b_n, pack.fleets_that_fit(n, c_n, dim, args[4].shape[0]),
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  pack_scan {variant} ({fleets} fleets a CTA) {ms:.4f} ms at B={b_n} n={n} C={c_n} "
         f"(plain {plain_ms:.3f} ms), bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
-        f"{n} dependent steps, {ms / n * 1e3:.2f} us a step)")
-    return {"ms": ms, "plain_ms": plain_ms, **bound, "B": b_n, "n": n, "C": args[0].shape[2],
-            "variant": variant, "us_per_step": ms / n * 1e3}
+        f"{n} dependent steps, {ms / n * 1e3:.3f} us a step), empty walk {empty_ms:.4f} ms "
+        f"({empty_ms / n * 1e3:.3f} us a step)")
+    return {"ms": ms, "plain_ms": plain_ms, **bound, "B": b_n, "n": n, "C": c_n,
+            "variant": variant, "fleets_per_cta": fleets, "us_per_step": ms / n * 1e3,
+            "empty_walk_ms": empty_ms, "empty_walk_us_per_step": empty_ms / n * 1e3}
 
 
 def phase_live_timing(pack_calls, largest, big) -> dict:
@@ -1371,21 +1389,25 @@ def phase_live_timing(pack_calls, largest, big) -> dict:
     return out
 
 
-def phase_live_loop(managers) -> dict:
+def phase_live_loop(managers, after_timings) -> dict:
     """Phase 4b: the live re-planning loop on the card — (a), (b), (c), then
-    both new kernels against their plain versions and timed."""
+    both new kernels timed and the placement kernel against its plain
+    version; ``after_timings()`` is called then (it starts phase 4c's
+    8-cell replay), and the pack scan is checked against its plain version
+    last."""
     out = {}
     with LiveClock() as clock:
         out["main"] = live_main_path(managers, clock)
         out["churn_replan"] = live_churn_replan(clock)
         out["growth"] = live_growth(clock)
-    out["pack_check"] = check_pack_calls(clock.pack_calls)
     placement_check = check_placement_inputs(clock.placement_inputs)
     big, largest = placement_check.pop("_big"), placement_check.pop("_largest")
     out["placement_check"] = {k: v for k, v in placement_check.items() if k != "candidates"}
     out["placement_candidates"] = {"max": max(placement_check["candidates"]),
                                    "threshold": heuristics._CUDA_MIN_CANDIDATES}
     out["timing"] = phase_live_timing(clock.pack_calls, largest, big)
+    after_timings()
+    out["pack_check"] = check_pack_calls(clock.pack_calls)
     launches = {name: sum(out[part]["counts"][name]["launches"]
                           for part in ("main", "churn_replan", "growth"))
                 for name in LIVE_KERNELS}
@@ -1419,8 +1441,9 @@ SHARD_WORKERS = 4
 #: the benchmark's 48-event trace, so that the 8-cell replay's market runs
 #: (after its 8th and 16th events).  A market round tries moves until 4
 #: are kept, each a pair of exact cell solves: minutes of host time, so
-#: the 8-cell replay runs in a process of its own beside the rest of the
-#: phase (`start_cells_parity`).
+#: the 8-cell replay runs in a process of its own beside the end of phase
+#: 4b (its untimed check of the pack launches) and the rest of phase 4c
+#: (`start_cells_parity`).
 PARITY_STREAMS = 500
 PARITY_TRACE_EVENTS = 48
 PARITY_EVENTS = 16
@@ -1875,7 +1898,8 @@ CELLS_PARITY_TIMEOUT_S = 900
 def start_cells_parity(workdir: pathlib.Path) -> subprocess.Popen:
     """(c)'s `cells_parity` in a process of its own (this script with
     ``--cells-parity``), so that its market's host work runs beside the
-    rest of phase 4c; its outcome and its log go to ``workdir``."""
+    end of phase 4b (after its timings) and the rest of phase 4c; its
+    outcome and its log go to ``workdir``."""
     with open(workdir / "cells_parity.log", "w") as out:
         return subprocess.Popen(
             [sys.executable, str(pathlib.Path(__file__).resolve()), "--cells-parity",
@@ -1972,27 +1996,19 @@ def sharded_parts(pkg, out: dict, proc, workdir: pathlib.Path, t0: float) -> "Sh
     return clock
 
 
-def phase_sharded() -> dict:
+def phase_sharded(proc, workdir: pathlib.Path, t0: float) -> dict:
     """Phase 4c: the sharded controller on the card — (a) the 100k replay,
-    (b) the batched repair, (c) the cost parity (its 8-cell replay in a
-    process of its own, from the phase's start), (d) a sharded churn
-    replay, each with the live loop's kernel counts set to 0 just before
-    it and read just after, each against the reference's goldens; then
-    every pack and knapsack launch of the phase against its plain version
-    on the card (the 8-cell replay's, in its process), and both timed at
-    the phase's largest launch."""
+    (b) the batched repair, (c) the cost parity (its 8-cell replay is
+    `start_cells_parity`'s process ``proc``, started at ``t0`` after phase
+    4b's timings, writing to ``workdir``), (d) a sharded churn replay, each with the
+    live loop's kernel counts set to 0 just before it and read just after,
+    each against the reference's goldens; then every pack and knapsack
+    launch of the phase against its plain version on the card (the 8-cell
+    replay's, in its process), and both timed at the phase's largest
+    launch."""
     pkg = port_package()
     out: dict = {"steps": {}}
-    with tempfile.TemporaryDirectory() as workdir:
-        workdir = pathlib.Path(workdir)
-        t0 = time.perf_counter()
-        proc = start_cells_parity(workdir)
-        try:
-            clock = sharded_parts(pkg, out, proc, workdir, t0)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    clock = sharded_parts(pkg, out, proc, workdir, t0)
     for part in ("a", "b"):
         if out[part]["counts"]["pack_scan"]["launches"] == 0:
             raise AssertionError(f"({part}) launched pack_scan 0 times")
@@ -2990,12 +3006,12 @@ def time_cold_ms(fn, reps: int, warmup: int = 2, flush: str = "write") -> float:
     return time_cold_parts_ms(lambda mid: fn(), reps, warmup, flush, parts=False)[0]
 
 
-def time_cold_parts_ms(fn, reps: int, warmup: int = 2, flush: str = "write",
-                       parts: bool = True) -> tuple:
-    """`time_cold_ms` of ``fn(mid)``, a call of two kernel passes that
-    records the timing event ``mid`` between them: the means of the whole
-    call, of the first pass and of the second (the parts are None without
-    ``parts``, where ``fn`` gets None)."""
+def time_cold_launches_ms(fn, n_launches: int, reps: int, warmup: int = 2,
+                          flush: str = "write") -> tuple:
+    """`time_cold_ms` of ``fn(events)``, a call of ``n_launches`` kernel
+    launches that records ``events[i]`` after launch i (the last launch's
+    end is the call's): the mean of the whole call and the list of each
+    launch's means."""
     buf = torch.zeros(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     for _ in range(warmup):
         fn(None)
@@ -3011,29 +3027,40 @@ def time_cold_parts_ms(fn, reps: int, warmup: int = 2, flush: str = "write",
     COLD_TIMINGS.append({"host_ms": host_ms, "spin_ms": spin_ms})
     log(f"    cold timing ({flush} flush): host dispatch {host_ms:.4f} ms, "
         f"spin {spin_ms:.4f} ms")
-    events = []
+    runs = []
     for _ in range(reps):
-        mid = None
-        if parts:
-            mid = torch.cuda.Event(enable_timing=True)
-            mid.record()  # created here, recorded again between the passes
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_launches - 1)]
+        for m in marks:
+            m.record()  # created here, recorded again between the launches
         torch.cuda._sleep(cycles)
         FLUSHES[flush](buf)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(mid)
+        fn(marks)
         end.record()
-        events.append((start, mid, end))
+        runs.append([start, *marks, end])
     torch.cuda.synchronize()
-    times = [s.elapsed_time(e) for s, _, e in events]
+    times = [r[0].elapsed_time(r[-1]) for r in runs]
     total = float(np.mean(times))
     COLD_TIMINGS[-1].update(mean_ms=total, median_ms=float(np.median(times)),
                             max_ms=float(np.max(times)))
+    parts = [float(np.mean([r[i].elapsed_time(r[i + 1]) for r in runs]))
+             for i in range(n_launches)]
+    return total, parts
+
+
+def time_cold_parts_ms(fn, reps: int, warmup: int = 2, flush: str = "write",
+                       parts: bool = True) -> tuple:
+    """`time_cold_ms` of ``fn(mid)``, a call of two kernel passes that
+    records the timing event ``mid`` between them: the means of the whole
+    call, of the first pass and of the second (the parts are None without
+    ``parts``, where ``fn`` gets None)."""
     if not parts:
-        return total, None, None
-    return (total, float(np.mean([s.elapsed_time(m) for s, m, _ in events])),
-            float(np.mean([m.elapsed_time(e) for _, m, e in events])))
+        return time_cold_launches_ms(lambda marks: fn(None), 1, reps, warmup, flush)[0], None, None
+    total, (first, second) = time_cold_launches_ms(
+        lambda marks: fn(marks[0] if marks else None), 2, reps, warmup, flush)
+    return total, first, second
 
 
 def time_decode_parts(args, reps: int) -> dict:
@@ -3995,7 +4022,7 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
     on the same inputs (dt and A over mamba2-1.3b's init ranges, a as the
     gates make it), counted on the variant `_variant` picks, repeated bit
     for bit, and timed cold beside its bound and its plain version (the
-    SSD's per-head pass and the sum over the heads apart).  No PyTorch call
+    SSD's launches, `ssd.BWD_PASSES`, apart).  No PyTorch call
     computes either function."""
     rng = np.random.RandomState(12)
     checks, timing = [], {}
@@ -4009,7 +4036,17 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
         args = (x, dt, A, Bm, Cm, dy, chunk)
         variant = ssd._variant(dtype)
         before = dict(ssd.BWD_LAUNCHES_BY_VARIANT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         got = ssd._dispatch_bwd(*args)
+        torch.cuda.synchronize()
+        call_bytes = torch.cuda.max_memory_allocated() - held
+        # The heads' float32 partials of dB and dC would take this alone.
+        partial_bytes = 2 * b * h * s * n * 4
+        if variant == "mma" and call_bytes >= partial_bytes:
+            raise AssertionError(f"ssd backward bf16 took {call_bytes} bytes, as much as the "
+                                 f"heads' partials of dB and dC ({partial_bytes})")
         if ssd.BWD_LAUNCHES_BY_VARIANT != {**before, variant: before[variant] + 1}:
             raise AssertionError(f"ssd backward {dtype}: not one {variant} launch: {before} -> "
                                  f"{ssd.BWD_LAUNCHES_BY_VARIANT}")
@@ -4022,9 +4059,12 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
             raise AssertionError(f"ssd backward {dtype}: a repeat differs")
         del got
         t = {"shape": [b, s, h, p], "state": n, "chunk": chunk, "variant": variant,
+             "call_bytes": call_bytes, "partial_bytes": partial_bytes,
              **ssd_bwd_bound(x, Bm, chunk)}
-        t["ms"], t["per_head_ms"], t["reduce_ms"] = time_cold_parts_ms(
-            lambda mid: ssd._dispatch_bwd(*args, mid_event=mid), reps=5)
+        passes = ssd.BWD_PASSES[variant]
+        t["ms"], parts = time_cold_launches_ms(
+            lambda marks: ssd._dispatch_bwd(*args, events=marks), len(passes), reps=5)
+        t["passes_ms"] = dict(zip(passes, parts))
         t["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_backward_plain(
             x, dt, A, Bm, Cm, dy, chunk=chunk), reps=2)
         t["library_ms"] = None
@@ -4035,8 +4075,9 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
         log(f"  {key} [{variant}] at {t['shape']} N {n} chunk {chunk}: grads err "
             + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_abs_want']:.3g}"
                         for k, e in check["grads"].items())
-            + f"; bit-equal repeat; {t['ms']:.3f} ms (per-head {t['per_head_ms']:.3f}, sum "
-            f"over heads {t['reduce_ms']:.3f}), plain {t['plain_ms']:.3f}, bound "
+            + f"; bit-equal repeat; {t['ms']:.3f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in t["passes_ms"].items())
+            + f"), plain {t['plain_ms']:.3f}, bound "
             f"{t['bound_ms']:.4f} ({t['bound_by']})")
         del x, dy, dt, A, bc, Bm, Cm, args
         torch.cuda.empty_cache()
@@ -4382,11 +4423,10 @@ def scan_backward_entries(training: dict) -> list[dict]:
             "library_ms": None,
         }
         if name == "ssd_scan_backward":
-            entry.update(variant=t["variant"], per_head_ms=t["per_head_ms"],
-                         reduce_ms=t["reduce_ms"],
+            entry.update(variant=t["variant"], passes_ms=t["passes_ms"],
                          launches_by_variant=runs[run]["launches"]["ssd_scan_backward_by_variant"],
                          float32={k: training["scan_timing"]["ssd_scan_backward float32"][k]
-                                  for k in ("variant", "ms", "per_head_ms", "reduce_ms",
+                                  for k in ("variant", "ms", "passes_ms",
                                             "plain_ms", "bound_ms", "bound_by")})
         else:
             entry["lanes"] = t["lanes"]
@@ -4468,20 +4508,37 @@ def main(argv=None) -> int:
     result["checks"] = checks
 
     if not args.kernel_only:
-        timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras)")
-        result["quickstart_savings"] = phase_quickstart()
-        main_path = phase_main_path()
-        largest = main_path.pop("_largest")
-        managers = main_path.pop("_managers")
-        result["main_path"] = main_path
-        timer.begin("phase 4b", "live re-planning loop: (a) the 500-camera fleet's churn, "
-                    "(b) churn_replan, (c) lifecycle experiment 3")
-        result["live_loop"] = phase_live_loop(managers)
-        del managers
-        timer.begin("phase 4c", f"sharded controller: (a) {SHARD_STREAMS:,} streams over "
-                    f"{SHARD_CELLS} cells, (b) the batched repair, (c) cost parity at "
-                    f"{PARITY_STREAMS} streams, (d) a sharded churn replay")
-        result["sharded"] = phase_sharded()
+        # Phase 4c's 8-cell replay (minutes of host work, one thread) runs in
+        # a process of its own from the end of phase 4b's timings.
+        parity_dir = tempfile.TemporaryDirectory()
+        parity = {}
+
+        def start_replay():
+            parity["t0"] = time.perf_counter()
+            parity["proc"] = start_cells_parity(pathlib.Path(parity_dir.name))
+
+        try:
+            timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras)")
+            result["quickstart_savings"] = phase_quickstart()
+            main_path = phase_main_path()
+            largest = main_path.pop("_largest")
+            managers = main_path.pop("_managers")
+            result["main_path"] = main_path
+            timer.begin("phase 4b", "live re-planning loop: (a) the 500-camera fleet's churn, "
+                        "(b) churn_replan, (c) lifecycle experiment 3")
+            result["live_loop"] = phase_live_loop(managers, start_replay)
+            del managers
+            timer.begin("phase 4c", f"sharded controller: (a) {SHARD_STREAMS:,} streams over "
+                        f"{SHARD_CELLS} cells, (b) the batched repair, (c) cost parity at "
+                        f"{PARITY_STREAMS} streams, (d) a sharded churn replay")
+            result["sharded"] = phase_sharded(parity["proc"], pathlib.Path(parity_dir.name),
+                                              parity["t0"])
+        finally:
+            proc = parity.get("proc")
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            parity_dir.cleanup()
         torch.cuda.empty_cache()
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)
@@ -4583,7 +4640,8 @@ def main(argv=None) -> int:
                 "library_ms": None,
                 "launches_by_replay": {part: live[part]["counts"][kname]["launches"]
                                        for part in ("main", "churn_replan", "growth")},
-                **({"steps": t["steps"], "variant": t["variant"], "B": t["B"]}
+                **({"steps": t["steps"], "variant": t["variant"], "B": t["B"],
+                    "fleets_per_cta": t["fleets_per_cta"], "empty_walk_ms": t["empty_walk_ms"]}
                    if kname == "pack_scan" else
                    {"shape": t["shape"], "threshold": heuristics._CUDA_MIN_CANDIDATES,
                     "fleet_scale": t["fleet_scale"]}),

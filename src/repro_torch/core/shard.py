@@ -13,7 +13,7 @@ Three mechanisms make the hierarchy more than a dict of controllers:
 
 * **Batched cold packing / defrag** — `reset(pack="batched")` and
   `repack()` push *every* cell's fleet through ONE launch of the FFD/BFD
-  scan kernel (`heuristics.batched_pack`, ``pack_scan``, one CTA a
+  scan kernel (`heuristics.batched_pack`, ``pack_scan``, one warp a
   cell): cells are embarrassingly parallel, so N per-cell heuristic
   passes collapse into a single padded-tensor kernel call.  Exact pinned
   sub-solves stay per-cell and only fire for displaced streams, exactly

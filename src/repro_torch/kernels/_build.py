@@ -47,7 +47,7 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "flash_attention_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh")),
     "decode_attention": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
-    "ssd_bwd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
+    "ssd_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "rglru_bwd": (FMAD_FLAGS, ("mma_common.cuh",)),
     "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),

@@ -24,12 +24,17 @@ Two implementations, bit-identical:
 
 * `pack_scan_plain` — plain torch, a Python loop over the steps vectorised
   over the fleets; runs on any device;
-* the CUDA kernel in ``csrc/pack.cu``: one CTA a fleet, its threads over the
-  (open bin, choice) pairs of a step, a block reduction on (score, pair) for
-  the first-occurrence argmin.  Two variants, picked by shape before the
-  launch (`_variant`): ``"shared"`` keeps the open bins' loads and
-  capacities in shared memory; ``"global"`` keeps them in a global scratch
-  where a fleet's ``2 n dim`` doubles outgrow it.
+* the CUDA kernel in ``csrc/pack.cu``: a prologue by the whole CTA stages
+  each fleet's rows, mask and order in shared memory and computes every
+  item's validity and opening (neither depends on the walk), then the
+  walk.  Two variants, picked by shape before the launch (`launch_shape`):
+  ``"warp"``, one warp a fleet and as many fleets a CTA as
+  `fleets_that_fit` (the library's count) allows, the
+  fleet's open bins' loads and capacities in shared memory too, the
+  decision by warp reductions and ``__syncwarp`` only; ``"global"``, one
+  CTA a fleet with its threads over the (open bin, choice) pairs and the
+  loads and capacities in a global scratch, where a fleet's rows and state
+  outgrow a CTA's shared memory.
 
 `pack_scan` dispatches by the device of its tensors: CPU tensors go to the
 plain version, CUDA tensors launch the kernel (or raise).  `pack_scan_host`
@@ -47,16 +52,17 @@ import torch
 
 from ..device import KernelError, on_card
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "pack_scan", "pack_scan_host", "pack_scan_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "empty_walk", "fleets_that_fit", "launch_shape",
+           "pack_openings_plain", "pack_scan", "pack_scan_host", "pack_scan_plain"]
 
 #: Number of CUDA kernel launches made by `pack_scan` in this process.
 LAUNCHES = 0
-#: The same launches by variant (`_variant`).
-LAUNCHES_BY_VARIANT = {"shared": 0, "global": 0}
+#: The same launches by variant (`launch_shape`).
+LAUNCHES_BY_VARIANT = {"warp": 0, "global": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _FIT_EPS = 1e-9  # heuristics._FIT_EPS
-_VARIANT_CODES = {"shared": 0, "global": 1}
+_VARIANT_CODES = {"warp": 0, "global": 1}
 
 
 def pack_scan_plain(req, mask, open_score, order, caps, costs, *, best_fit: bool):
@@ -118,6 +124,17 @@ def pack_scan_plain(req, mask, open_score, order, caps, costs, *, best_fit: bool
     return tuple(recs), n_open, total
 
 
+def pack_openings_plain(mask, open_score):
+    """The kernel's prologue in plain torch: per item of each fleet, the
+    opening a step takes when no open bin fits it, as the type-major flat
+    index (bin type x C + choice) of its first least ``open_score``, or -1
+    for a padding item (no valid choice).  ``(B, n)`` int64; any device.
+    Neither depends on the walk's state."""
+    b_n, n, n_bt, c_n = open_score.shape
+    flat = open_score.reshape(b_n, n, n_bt * c_n).argmin(dim=2)
+    return torch.where(mask.any(dim=2), flat, -1)
+
+
 def neumaier_add(s, c, x):
     """One term of Python's float ``sum`` (Neumaier's compensated sum):
     ``(s + x, c + the rounding error of s + x)``; the sum is ``s + c`` once
@@ -158,24 +175,40 @@ def _library():
     from ._build import load_library
 
     lib = load_library("pack")
-    lib.pack_scan_f64.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [
+    lib.pack_scan_f64.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
     lib.pack_scan_f64.restype = ctypes.c_int
-    lib.pack_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.pack_scan_smem_bytes.restype = ctypes.c_longlong
-    lib.pack_scan_max_smem.argtypes = []
-    lib.pack_scan_max_smem.restype = ctypes.c_longlong
+    lib.pack_scan_probe_f64.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+    lib.pack_scan_probe_f64.restype = ctypes.c_int
+    lib.pack_scan_warp_fleets.argtypes = [ctypes.c_int] * 4
+    lib.pack_scan_warp_fleets.restype = ctypes.c_int
     return lib
 
 
-def _variant(n: int, c: int, dim: int) -> str:
-    """The kernel for fleets of ``n`` items with ``c`` choices over ``dim``
-    dimensions: ``"shared"`` where a CTA's shared memory holds the open
-    bins' loads and capacities (the library's own byte count), else
-    ``"global"``."""
-    lib = _library()
-    fits = lib.pack_scan_smem_bytes(_VARIANT_CODES["shared"], n, c, dim) <= lib.pack_scan_max_smem()
-    return "shared" if fits else "global"
+@functools.cache
+def fleets_that_fit(n: int, c: int, dim: int, n_bt: int) -> int:
+    """The most fleets of ``n`` items with ``c`` choices over ``dim``
+    dimensions and ``n_bt`` bin types a CTA of the ``"warp"`` variant holds
+    in shared memory, 0 where not one does: the library's count
+    (``pack_scan_warp_fleets``), from the layout its kernel uses."""
+    return int(_library().pack_scan_warp_fleets(n, c, dim, n_bt))
+
+
+def launch_shape(b_n: int, fit: int, sm_count: int) -> tuple[str, int]:
+    """``(variant, fleets a CTA)`` for B = ``b_n`` fleets of which ``fit``
+    fit a CTA's shared memory (`fleets_that_fit`), on a card of ``sm_count``
+    SMs: ``"warp"`` where one fleet fits, with as many fleets a CTA as
+    spread B over the SMs (at most ``fit``); else ``"global"``, one fleet a
+    CTA."""
+    if fit == 0:
+        return "global", 1
+    return "warp", max(1, min(fit, -(-b_n // sm_count)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pack_scan(req, mask, open_score, order, caps, costs, *, best_fit: bool):
@@ -226,7 +259,8 @@ def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
             raise KernelError(f"pack_scan: {name} must be contiguous on CUDA")
     b_n, n, c_n, dim = req.shape
     n_bt = caps.shape[0]
-    variant = _variant(n, c_n, dim)
+    variant, fleets = launch_shape(b_n, fleets_that_fit(n, c_n, dim, n_bt),
+                                   _sm_count(dev.index or 0))
     lib = _library()
     with torch.cuda.device(dev):
         scratch = (torch.empty((b_n, 2, n, dim), dtype=torch.float64, device=dev)
@@ -235,7 +269,7 @@ def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
         n_open = torch.empty(b_n, dtype=torch.int64, device=dev)
         total = torch.empty(b_n, dtype=torch.float64, device=dev)
         rc = lib.pack_scan_f64(
-            _VARIANT_CODES[variant], int(bool(best_fit)), req.data_ptr(),
+            _VARIANT_CODES[variant], fleets, int(bool(best_fit)), req.data_ptr(),
             mask.data_ptr(), open_score.data_ptr(), order.data_ptr(), caps.data_ptr(),
             costs.data_ptr(), b_n, n, c_n, dim, n_bt,
             None if scratch is None else scratch.data_ptr(),
@@ -249,3 +283,30 @@ def _dispatch(req, mask, open_score, order, caps, costs, best_fit):
         LAUNCHES += 1
         LAUNCHES_BY_VARIANT[variant] += 1
     return (recs[0], recs[1], recs[2]), n_open, total
+
+
+def empty_walk(req, mask, open_score, order, caps, costs, *, best_fit: bool) -> None:
+    """Launches the ``"warp"`` variant's walk without its pair loop on CUDA
+    tensors (``pack_scan_probe_f64``: no pair fits, every valid item opens a
+    bin) for measurements: the floor the walk's n dependent steps set.  Not
+    counted in `LAUNCHES`; its records are discarded."""
+    _check_inputs(req, mask, open_score, order, caps, costs)
+    dev = req.device
+    b_n, n, c_n, dim = req.shape
+    if dev.type != "cuda":
+        raise ValueError(f"empty_walk: CUDA tensors only, got {dev}")
+    variant, fleets = launch_shape(b_n, fleets_that_fit(n, c_n, dim, caps.shape[0]),
+                                   _sm_count(dev.index or 0))
+    if variant != "warp":
+        raise ValueError(f"empty_walk: the warp variant's shapes only, got {variant}")
+    with torch.cuda.device(dev):
+        recs = torch.empty((3, b_n, n), dtype=torch.int64, device=dev)
+        n_open = torch.empty(b_n, dtype=torch.int64, device=dev)
+        total = torch.empty(b_n, dtype=torch.float64, device=dev)
+        rc = _library().pack_scan_probe_f64(
+            fleets, int(bool(best_fit)), req.data_ptr(), mask.data_ptr(), open_score.data_ptr(),
+            order.data_ptr(), caps.data_ptr(), costs.data_ptr(), b_n, n, c_n, dim,
+            caps.shape[0], recs[0].data_ptr(), recs[1].data_ptr(), recs[2].data_ptr(),
+            n_open.data_ptr(), total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise KernelError(f"pack_scan empty walk launch failed: CUDA error {rc}")

@@ -44,12 +44,16 @@ kernel).
 The gradient.  Training calls `ssd_scan_train` (no entering state, the
 final one dropped): when grad is enabled and an input requires it, the
 call goes through `SsdScanFn`, whose backward is `ssd_scan_backward`: on
-CUDA tensors the kernels of ``csrc/ssd_bwd.cu`` (a per-head pass that
-walks the chunks forward to store the state entering each, then backwards
-with the state's gradient, in the variant `_variant` picks; then a pass
-that sums the heads' partials of dB and dC, which every head shares), on
-the CPU `ssd_scan_backward_plain`, the explicit formulas.  No Pallas kernel
-computes it: the reference trains through ``jax.grad`` of
+CUDA tensors the kernels of ``csrc/ssd_bwd.cu``: in the ``mma`` variant
+the chunk-parallel split of `BWD_PASSES` (a walk over the chunks for the
+states entering them and the gradients leaving them; every chunk-local
+gradient in parallel over (batch row, chunk, row slice) on wgmma, with dB
+and dC summed over the heads on chip; the per-head finish of d(dt) and
+dA), in the ``simt`` variant one CTA per (batch row, head) and a sum of
+its per-head partials; on the CPU `ssd_scan_backward_plain`, the
+explicit formulas.
+`ssd_scan_backward_phases` chains plain twins of the four phases.  No
+Pallas kernel computes it: the reference trains through ``jax.grad`` of
 `repro/models/ssm.py:ssd_chunked`.
 """
 from __future__ import annotations
@@ -70,8 +74,8 @@ LAUNCHES = 0
 #: The same launches by variant (`_variant`).
 LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
 
-#: Number of backward calls that launched the backward kernels (its per-head
-#: pass and the sum over the heads count as one).
+#: Number of backward calls that launched the backward kernels (the launches
+#: of `BWD_PASSES` count as one).
 BWD_LAUNCHES = 0
 #: The same backward calls by variant (`_variant`).
 BWD_LAUNCHES_BY_VARIANT = {"mma": 0, "simt": 0}
@@ -347,6 +351,154 @@ def ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, *, chunk=128):
             unpad(dbm, n).to(Bm.dtype), unpad(dcm, n).to(Cm.dtype))
 
 
+# ---- the backward's phases, as the CUDA kernels split it ----------------------
+#
+# Plain twins of the four launches of ``csrc/ssd_bwd.cu``, in float32 (float64
+# for float64 inputs), each passing to the next what the kernel passes through
+# device memory.  `ssd_scan_backward_phases` chains them.
+
+
+def _chunk_rows(t, q, nc, wt):
+    """``t`` (B, S, ...) zero-padded to ``nc * q`` positions, as (B, nc, q, ...)
+    in ``wt``."""
+    b, s = t.shape[:2]
+    t = t.to(wt)
+    if nc * q > s:
+        t = torch.cat([t, t.new_zeros((b, nc * q - s) + t.shape[2:])], dim=1)
+    return t.reshape(b, nc, q, *t.shape[2:])
+
+
+def _work_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _chunk_decays(dt, A, q, nc, wt):
+    """Per chunk: dt (B, nc, q, H), cum (inclusive sum of dt A), e^{cum},
+    s = dt e^{total - cum}, e^{total - cum} and e^{total} (B, nc, H)."""
+    dtc = _chunk_rows(dt, q, nc, wt)
+    cum = torch.cumsum(dtc * A.to(wt), dim=2)
+    total = cum[:, :, -1, :]
+    etot = torch.exp(total[:, :, None, :] - cum)
+    return dtc, cum, torch.exp(cum), dtc * etot, etot, torch.exp(total)
+
+
+def bwd_chunk_states_plain(x, dt, A, Bm, Cm, dy, *, chunk=128):
+    """Phase 1, parallel over (batch row, head, chunk): the chunk's own
+    state ``S_c = Σ_j s_j x_j ⊗ B_j`` (what it adds to the state leaving
+    it), the chunk's own share of the state gradient ``T_c = Σ_i e^{cum_i}
+    dy_i ⊗ C_i`` (what it adds to the gradient of the state entering it),
+    both (B, H, nc, P, N), and ``e^{total_c}`` (B, H, nc)."""
+    b, s, h, p = x.shape
+    q = min(chunk, s)
+    nc = -(-s // q)
+    wt = _work_dtype(x)
+    _, _, ecum, sv, _, edecay = _chunk_decays(dt, A, q, nc, wt)
+    xc, dyc = _chunk_rows(x, q, nc, wt), _chunk_rows(dy, q, nc, wt)
+    bc, cc = _chunk_rows(Bm, q, nc, wt), _chunk_rows(Cm, q, nc, wt)
+    S = torch.einsum("bcjhp,bcjn->bhcpn", xc * sv[..., None], bc)
+    T = torch.einsum("bcihp,bcin->bhcpn", dyc * ecum[..., None], cc)
+    return S, T, edecay.permute(0, 2, 1)
+
+
+def bwd_state_pass_plain(S, T, edecay):
+    """Phase 2, elementwise over (batch row, head, P, N): the walk over the
+    chunks, forward ``h_in_{c+1} = e^{total_c} h_in_c + S_c`` from a zero
+    state and backward ``G_{c-1} = e^{total_c} G_c + T_c`` from a zero
+    gradient.  Returns (h_in, G) like S: the state entering each chunk and
+    the gradient of the state leaving it (the kernel overwrites S and T)."""
+    nc = S.shape[2]
+    h_in, g = torch.empty_like(S), torch.empty_like(T)
+    run = torch.zeros_like(S[:, :, 0])
+    for c in range(nc):
+        h_in[:, :, c] = run
+        run = run * edecay[:, :, c, None, None] + S[:, :, c]
+    run = torch.zeros_like(T[:, :, 0])
+    for c in reversed(range(nc)):
+        g[:, :, c] = run
+        run = run * edecay[:, :, c, None, None] + T[:, :, c]
+    return h_in, g
+
+
+def bwd_chunk_grads_plain(x, dt, A, Bm, Cm, dy, h_in, G, *, chunk=128):
+    """Phase 3, parallel over (batch row, chunk, row slice) with the heads
+    summed in order: from the states entering each chunk and the gradients
+    leaving it, ``dx`` (B, S, H, P), ``dBm`` and ``dCm`` (B, S, N) summed
+    over the heads, in the working type; per position and head (B, S, H)
+    the parts of the log-decays' gradient that need no other chunk's rows:
+    ``dcum_part = rowz - dt colz + u - s r``, ``ddt_part = colz + e^{total -
+    cum} r`` and ``sr = s r``; and ``dot = <G_c, h_in_c>`` (B, H, nc).
+    With ``Z = (dy xᵀ) o (C Bᵀ) o dec`` (over i >= j), ``colz_j = Σ_i Z_ij``,
+    ``rowz_i = Σ_j Z_ij dt_j``, ``r_j = x_j · (G B_j)`` and ``u_i =
+    e^{cum_i} dy_i · (h_in C_i)``."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    wt = _work_dtype(x)
+    dtc, cum, ecum, sv, etot, _ = _chunk_decays(dt, A, q, nc, wt)
+    xc, dyc = _chunk_rows(x, q, nc, wt), _chunk_rows(dy, q, nc, wt)
+    bc, cc = _chunk_rows(Bm, q, nc, wt), _chunk_rows(Cm, q, nc, wt)
+    hin, g = h_in.permute(0, 2, 1, 3, 4), G.permute(0, 2, 1, 3, 4)  # (B, nc, H, P, N)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q_i, Q_j, H)
+    dec = torch.exp(seg.masked_fill(~causal[:, :, None], float("-inf")))
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None]
+    dw = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    dtj = dtc[:, :, None, :, :]
+    m = dw * dec * dtj
+    zp = dw * cb * dec
+    gb = torch.einsum("bchpn,bcjn->bcjhp", g, bc)  # G B_j
+    xg = torch.einsum("bcjhp,bchpn->bcjhn", xc, g)  # x_j^T G
+    r = (xc * gb).sum(-1)
+    hc = torch.einsum("bchpn,bcin->bcihp", hin, cc)  # h_in C_i
+    u = ecum * (dyc * hc).sum(-1)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", cb * dec * dtj, dyc) + sv[..., None] * gb
+    dbm = (torch.einsum("bcijh,bcin->bcjn", m, cc) + torch.einsum("bcjh,bcjhn->bcjn", sv, xg))
+    dcm = (torch.einsum("bcijh,bcjn->bcin", m, bc)
+           + torch.einsum("bcih,bcihp,bchpn->bcin", ecum, dyc, hin))
+    colz, rowz = zp.sum(2), (zp * dtj).sum(3)
+    dcum_part = rowz - dtc * colz + u - sv * r
+    ddt_part = colz + etot * r
+    dot = torch.einsum("bchpn,bchpn->bhc", g, hin)
+
+    def unpad(t):
+        return t.reshape(b, nc * q, *t.shape[3:])[:, :s]
+
+    return (unpad(dx), unpad(dbm), unpad(dcm), unpad(dcum_part), unpad(ddt_part),
+            unpad(sv * r), dot)
+
+
+def bwd_finish_plain(dt, A, dcum_part, ddt_part, sr, dot, edecay, *, chunk=128):
+    """Phase 4, per head over the batch and the chunks in order: the state
+    leaving chunk c is ``e^{total_c} h_in_c + S_c``, so its weight in the
+    loss has gradient ``dtotal_c = e^{total_c} dot_c + Σ_k sr_k`` over the
+    chunk's rows; ``da_t = Σ_{k >= t} dcum_part_k + dtotal_c`` inside the
+    chunk, ``d(dt) = A da + ddt_part`` and ``dA = Σ dt da``."""
+    b, s, h = dt.shape
+    q = min(chunk, s)
+    nc = -(-s // q)
+    wt = dcum_part.dtype
+    dtc = _chunk_rows(dt, q, nc, wt)
+    dtotal = edecay.permute(0, 2, 1) * dot.permute(0, 2, 1) + _chunk_rows(sr, q, nc, wt).sum(2)
+    part = _chunk_rows(dcum_part, q, nc, wt)
+    da = torch.flip(torch.cumsum(torch.flip(part, [2]), dim=2), [2]) + dtotal[:, :, None, :]
+    ddt = A.to(wt) * da + _chunk_rows(ddt_part, q, nc, wt)
+    return ddt.reshape(b, nc * q, h)[:, :s], (dtc * da).sum((0, 1, 2))
+
+
+def ssd_scan_backward_phases(x, dt, A, Bm, Cm, dy, *, chunk=128):
+    """`ssd_scan_backward_plain`'s ``(dx, d(dt), dA, dBm, dCm)`` through
+    the four phases the CUDA backward launches, each cast to its input's
+    type; any device."""
+    S, T, edecay = bwd_chunk_states_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
+    h_in, G = bwd_state_pass_plain(S, T, edecay)
+    dx, dbm, dcm, dcum_part, ddt_part, sr, dot = bwd_chunk_grads_plain(
+        x, dt, A, Bm, Cm, dy, h_in, G, chunk=chunk)
+    ddt, da = bwd_finish_plain(dt, A, dcum_part, ddt_part, sr, dot, edecay, chunk=chunk)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), da.to(A.dtype), dbm.to(Bm.dtype),
+            dcm.to(Cm.dtype))
+
+
 def ssd_scan_backward(x, dt, A, Bm, Cm, dy, *, chunk=128):
     """``(dx, d(dt), dA, dBm, dCm)`` of `ssd_scan` without an entering
     state, for the output gradient ``dy`` (like x), dispatched by device.
@@ -367,9 +519,13 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, *, chunk=128):
 _BWD_ARGTYPES = {
     torch.float32: [ctypes.c_void_p] * 15 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 2,
-    torch.bfloat16: [ctypes.c_void_p] * 15 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
+    torch.bfloat16: [ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 2,
 }
+
+#: The backward's launches in call order, by variant: ``_dispatch_bwd``'s
+#: ``events`` are recorded after each but the last.
+BWD_PASSES = {"mma": ("walk", "grads", "finish"), "simt": ("per_head", "head_sum")}
 
 
 def _bwd_fn(dtype: torch.dtype):
@@ -383,10 +539,10 @@ def _bwd_fn(dtype: torch.dtype):
     return fn
 
 
-def _dispatch_bwd(x, dt, A, Bm, Cm, dy, chunk, *, mid_event=None):
-    """`ssd_scan_backward` on CUDA tensors after its checks.  ``mid_event``
-    (a `torch.cuda.Event`) is recorded between the per-head pass and the sum
-    over the heads, for measurements."""
+def _dispatch_bwd(x, dt, A, Bm, Cm, dy, chunk, *, events=None):
+    """`ssd_scan_backward` on CUDA tensors after its checks.  ``events`` (up
+    to two `torch.cuda.Event`, or None) are recorded after the launches of
+    `BWD_PASSES` in order, for measurements; the call counts as one launch."""
     global BWD_LAUNCHES
     b, s, h, p = x.shape
     n = Bm.shape[-1]
@@ -404,27 +560,38 @@ def _dispatch_bwd(x, dt, A, Bm, Cm, dy, chunk, *, mid_event=None):
     strides = (Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
     n_chunks = -(-s // chunk)
     with torch.cuda.device(x.device):
-        if mid_event is not None and not mid_event.cuda_event:
-            mid_event.record()  # creates the event, which the launch records again
-        mid = None if mid_event is None else mid_event.cuda_event
+        marks = (ctypes.c_void_p * 2)()
+        for i, ev in enumerate(events or ()):
+            if ev is not None:
+                if not ev.cuda_event:
+                    ev.record()  # creates the event, which the launch records again
+                marks[i] = ev.cuda_event
         stream = torch.cuda.current_stream(x.device).cuda_stream
         f32 = dict(dtype=torch.float32, device=x.device)
         dx, ddt = torch.empty_like(x), torch.empty((b, s, h), **f32)
         dbm, dcm = (torch.empty((b, s, n), dtype=x.dtype, device=x.device) for _ in range(2))
         da = torch.empty((h,), **f32)
-        # Scratch: the heads' partials of dB and dC and of dA, and the state
-        # entering every chunk.
-        dbp, dcp = torch.empty((b, h, s, n), **f32), torch.empty((b, h, s, n), **f32)
-        dap = torch.empty((b, h), **f32)
-        hch = torch.empty((b, h, n_chunks, p, n), **f32)
-        pointers = [t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dbp, dcp, dap, hch,
-                                           dbm, dcm, da)]
+        # Scratch: the states entering the chunks (mma: bf16 hi and lo
+        # halves from its walk, and the gradients leaving them likewise).
+        hst = torch.empty((b, h, n_chunks, p, n), **f32)
+        outputs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dbm, dcm, da, hst)]
         if variant == "mma":
+            # e^{total} and <G, h_in> per chunk (by row slice), and per
+            # position and head the parts of d(cum), d(dt) and s r.
+            gst = torch.empty_like(hst)
+            edec = torch.empty((b, h, n_chunks), **f32)
+            dot = torch.empty((b, h, n_chunks, 2), **f32)
+            rows = torch.empty((3, b, h, s), **f32)
             aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, Bm, Cm)) and all(
                 st % 8 == 0 for st in strides)
-            rc = fn(*pointers, *strides, b, s, h, p, n, chunk, int(aligned), mid, stream)
+            rc = fn(*outputs, gst.data_ptr(), edec.data_ptr(), rows.data_ptr(), dot.data_ptr(),
+                    *strides, b, s, h, p, n, chunk, int(aligned), marks, stream)
         else:
-            rc = fn(*pointers, *strides, b, s, h, p, n, chunk, mid, stream)
+            # The heads' partials of dB, dC and dA, which the last launch sums.
+            dbp, dcp = (torch.empty((b, h, s, n), **f32) for _ in range(2))
+            dap = torch.empty((b, h), **f32)
+            rc = fn(*outputs, dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), *strides, b, s, h,
+                    p, n, chunk, marks, stream)
     if rc != 0:
         raise KernelError(f"ssd_scan_backward {variant} kernel launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1

@@ -36,14 +36,15 @@ def test_the_table_holds_the_port_kernels():
     and of the RG-LRU scan among them, built with fused multiply-adds like
     their forwards (no bit-identity with their plain versions is asked):
     flash's ``wgmma`` variant on the Hopper helpers its forward uses, the
-    SSD's ``mma`` variant on the warp-level ones."""
+    SSD's ``mma`` variant on both (its walk on the warp-level ones, its
+    grads launch on wgmma)."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
         "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "pack", "placement"}
     assert _build.SOURCES["flash_attention_bwd"] == (
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh"))
     assert _build.SOURCES["ssd_bwd"] == (
-        _build.FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh"))
+        _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh"))
     assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS, ("mma_common.cuh",))
 
 

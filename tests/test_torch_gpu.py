@@ -910,10 +910,12 @@ def _scan_inputs(seed, b_n, n, c, n_bt, dim=4, pad_items=True):
     return req, mask, score, order, caps, costs
 
 
-def _assert_scan_equals_plain(args, device, best_fit, variant=None, monkeypatch=None):
+def _assert_scan_equals_plain(args, device, best_fit, shape=None, monkeypatch=None):
+    """The kernel against the plain scan on the card, bit for bit; with
+    ``shape`` = (variant, fleets a CTA), that launch shape forced."""
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
-    if variant is not None:
-        monkeypatch.setattr(pack, "_variant", lambda n, c, dim: variant)
+    if shape is not None:
+        monkeypatch.setattr(pack, "launch_shape", lambda *a: shape)
     before = pack.LAUNCHES_BY_VARIANT.copy()
     recs, n_open, total = pack.pack_scan(*t, best_fit=best_fit)
     torch.cuda.synchronize()
@@ -921,8 +923,8 @@ def _assert_scan_equals_plain(args, device, best_fit, variant=None, monkeypatch=
     for a, b in zip(recs, p_recs):
         assert torch.equal(a, b)
     assert torch.equal(n_open, p_open) and torch.equal(total, p_total)
-    if variant is not None:
-        assert pack.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
+    if shape is not None:
+        assert pack.LAUNCHES_BY_VARIANT[shape[0]] == before[shape[0]] + 1
 
 
 @pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
@@ -934,17 +936,46 @@ def test_pack_scan_kernel_equals_plain(cuda, b_n, n, c, n_bt, best_fit):
 
 @pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
 def test_pack_scan_global_variant_equals_plain(cuda, monkeypatch, best_fit):
-    """The global-memory variant, forced at a shape the shared one takes."""
-    _assert_scan_equals_plain(_scan_inputs(5, 4, 90, 2, 4), cuda, best_fit, "global",
+    """The block-wide variant, forced at a shape the warp one takes."""
+    _assert_scan_equals_plain(_scan_inputs(5, 4, 90, 2, 4), cuda, best_fit, ("global", 1),
                               monkeypatch)
 
 
 def test_pack_scan_takes_global_memory_past_shared_memory(cuda):
-    """A fleet whose loads and capacities outgrow a CTA's shared memory."""
-    assert pack._variant(4000, 2, 4) == "global"
-    assert pack._variant(500, 2, 4) == "shared"
+    """A fleet whose rows and state outgrow a CTA's shared memory."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pack.launch_shape(1, pack.fleets_that_fit(4000, 2, 4, 3), sms) == ("global", 1)
+    assert pack.launch_shape(4, pack.fleets_that_fit(500, 2, 4, 3), sms) == ("warp", 1)
     args = _scan_inputs(9, 1, 4000, 2, 3, pad_items=False)
     _assert_scan_equals_plain(args, cuda, False)
+
+
+@pytest.mark.parametrize("n,fit", [(552, 3), (208, 8), (7, 8), (4000, 0)])
+def test_pack_scan_fleets_that_fit_at_the_paths_shapes(cuda, n, fit):
+    """The library's count of fleets a warp CTA holds, at the shapes
+    `tests/test_torch_pack.py::test_launch_shape_at_the_paths_shapes` takes
+    (10 bin types, 2 choices, 4 dimensions)."""
+    assert pack.fleets_that_fit(n, 2, 4, 10) == fit
+
+
+@pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
+@pytest.mark.parametrize("b_n,fleets", [(13, 4), (9, 8), (5, 3)])
+def test_pack_scan_fleets_a_cta_not_dividing_b(cuda, monkeypatch, best_fit, b_n, fleets):
+    """B not a multiple of the fleets a CTA: the last CTA walks fewer."""
+    _assert_scan_equals_plain(_scan_inputs(b_n, b_n, 60, 2, 4), cuda, best_fit,
+                              ("warp", fleets), monkeypatch)
+
+
+@pytest.mark.parametrize("best_fit", [False, True], ids=["ffd", "bfd"])
+def test_pack_scan_open_pairs_cross_multiples_of_32(cuda, best_fit):
+    """Some 175 bins open a fleet, 3 choices: a step's (open bin, choice)
+    pairs run past 32, 64, 96 ... up to some 525, each lane taking several,
+    and over half the items fit an open bin."""
+    args = _scan_inputs(21, 3, 400, 3, 4, pad_items=False)
+    _assert_scan_equals_plain(args, cuda, best_fit)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    (_, _, bt), n_open, _ = pack.pack_scan_plain(*t, best_fit=best_fit)
+    assert int(n_open.min()) * 3 > 12 * 32 and int((bt < 0).sum()) > 600
 
 
 def test_pack_scan_on_a_500_stream_forecast_cone(cuda):
@@ -1319,8 +1350,17 @@ def test_ssd_backward_unaligned_strided_b_and_c(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_one_batch_row_at_the_training_shape(cuda, dtype):
+    """B = 1 at mamba2-1.3b's (S, H, P, N, chunk): 64 (b, chunk, slice)
+    CTAs of the bf16 grads launch, each walking all 64 heads."""
+    args = _ssd_bwd_inputs(1, 4096, 64, 64, 128, dtype, cuda, seed=41)
+    got = _ssd_backward_counted(args, 128, dtype)
+    _ssd_grads_close(got, ssd.ssd_scan_backward_plain(*args, chunk=128), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_repeats_bit_for_bit(cuda, dtype):
-    """No atomics: the heads' partials are summed in a fixed order."""
+    """No atomics: dB, dC and dA are summed over the heads in a fixed order."""
     args = _ssd_bwd_inputs(2, 333, 16, 64, 128, dtype, cuda, seed=9)
     first = ssd.ssd_scan_backward(*args, chunk=128)
     for _ in range(10):
@@ -1414,9 +1454,10 @@ def test_rglru_backward_raises_instead_of_falling_back(cuda, monkeypatch):
 
 def test_backward_sources_build_without_spills(cuda, tmp_path):
     """ptxas's report of a fresh build of ``ssd_bwd.cu`` and
-    ``rglru_bwd.cu``: every instance of ``ssd_bwd_mma`` and ``ssd_bwd_simt``
-    (18 (P, N, chunk) each) and of ``rglru_bwd_cp_async`` (64 and 128 lanes)
-    stores no spill."""
+    ``rglru_bwd.cu``: every instance of the SSD backward's kernels (18 (P,
+    N, chunk) each of ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma`` and
+    ``ssd_bwd_simt``, 3 chunks of ``ssd_bwd_finish``) and of
+    ``rglru_bwd_cp_async`` (64 and 128 lanes) stores no spill."""
     import re
     import subprocess
 
@@ -1434,7 +1475,8 @@ def test_backward_sources_build_without_spills(cuda, tmp_path):
         assert proc.returncode == 0, log[-3000:]
         for m in rx.finditer(log):
             found[m[1]] = int(m[3])
-    for kernel, n in (("ssd_bwd_mma", 18), ("ssd_bwd_simt", 18), ("rglru_bwd_cp_async", 2)):
+    for kernel, n in (("ssd_bwd_walk_mma", 18), ("ssd_bwd_grads_wgmma", 18),
+                      ("ssd_bwd_simt", 18), ("ssd_bwd_finish", 3), ("rglru_bwd_cp_async", 2)):
         got = {f: st for f, st in found.items() if kernel in f}
         assert len(got) == n, (kernel, sorted(got))
         assert not any(got.values()), {f: st for f, st in got.items() if st}

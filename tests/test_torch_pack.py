@@ -156,6 +156,40 @@ def test_device_packers_on_the_cpu_equal_the_reference(best_fit):
     assert named(_port(ref_problem), device="cpu").cost == want.cost
 
 
+def test_prologue_openings_equal_the_references_first_least_open_score():
+    """The kernel's prologue (its plain twin): per item its validity and the
+    (bin type, choice) it opens, the first least of the reference's
+    `_pack_inputs` open scores over the type-major flattening, as its packer
+    takes it; -1 for the padding items of a batch of fleets."""
+    cases = [[FLEETS[f]()] for f in sorted(FLEETS)]
+    cases.append([_ref_problem(_random_items(n, seed, 4)) for n, seed in ((7, 1), (40, 2),
+                                                                         (23, 3))])
+    for refs in cases:
+        ports = [_port(r) for r in refs]
+        _, masks, scores, _ = h._pad_fleets(ports, [p.tensors() for p in ports])
+        got = pack.pack_openings_plain(torch.from_numpy(masks), torch.from_numpy(scores))
+        for b, ref_problem in enumerate(refs):
+            _, open_score = ref_h._pack_inputs(ref_problem.tensors())
+            n = open_score.shape[0]
+            want = open_score.reshape(n, -1).argmin(axis=1)
+            assert got[b, :n].tolist() == want.tolist()
+            assert (got[b, n:] == -1).all()
+
+
+@pytest.mark.parametrize("b_n,fit,want", [
+    (4, 3, ("warp", 1)),       # lifecycle exp. 3's what-if cones (n 552: 3 fit a CTA)
+    (512, 8, ("warp", 4)),     # the sharded controller's 512 cells (n 208: 8 fit)
+    (8, 8, ("warp", 1)),       # a repack of a few cells
+    (2000, 8, ("warp", 8)),    # no more than fit a CTA
+    (1000, 3, ("warp", 3)),    # ... at n 552
+    (1, 0, ("global", 1)),     # one fleet outgrows a CTA (n 4000): block-wide
+])
+def test_launch_shape_at_the_paths_shapes(b_n, fit, want):
+    """132 SMs; ``fit`` as the library counts it at the paths' shapes (10
+    bin types, 2 choices, 4 dimensions; checked on the card)."""
+    assert pack.launch_shape(b_n, fit, 132) == want
+
+
 def test_mixed_catalog_raises():
     a = _port(_ref_problem(_random_items(5, 1, 2)))
     b = _port(_ref_problem(_random_items(5, 2, 2, cpu_only=True), CATALOG[:2]))

@@ -69,13 +69,19 @@ def test_kernel_groups(tpw, name, group):
     ("void (anonymous namespace)::tc::ssd_bwd_mma<64, 128, 128>(...)", "SSD backward"),
     ("void (anonymous namespace)::simt::ssd_bwd_simt<64, 128, 128>(...)", "SSD backward"),
     ("void (anonymous namespace)::ssd_bwd_reduce<__nv_bfloat16>(...)", "SSD backward"),
+    ("void (anonymous namespace)::tc::ssd_bwd_walk_mma<64, 128, 128>(...)", "SSD backward"),
+    ("void (anonymous namespace)::tc::ssd_bwd_grads_wgmma<64, 128, 128>(...)", "SSD backward"),
+    ("void (anonymous namespace)::ssd_bwd_finish<128>(...)", "SSD backward"),
+    ("void (anonymous namespace)::ssd_bwd_reduce<float>(...)", "SSD backward"),
     ("void (anonymous namespace)::rglru_tma<128>(CUtensorMap_st, ...)", "RG-LRU scan"),
     ("void (anonymous namespace)::rglru_cp_async<64>(...)", "RG-LRU scan"),
     ("void (anonymous namespace)::rglru_bwd_cp_async<64>(...)", "RG-LRU backward"),
 ])
 def test_decode_and_scan_kernel_groups(tpw, name, group):
-    """The redesigned kernels' names, and the SSD kernel's name in earlier
-    commits, so that a parent checkout's wave groups its scan alike."""
+    """The redesigned kernels' names, and the SSD kernels' names in earlier
+    commits (the scan's ``ssd_kernel``, the backward's ``ssd_bwd_mma``,
+    ``ssd_bwd_simt`` and ``ssd_bwd_reduce``), so that a parent checkout's
+    wave groups its scans alike."""
     assert tpw._group(name) == group
 
 

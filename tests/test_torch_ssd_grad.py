@@ -120,6 +120,74 @@ def test_ssd_scan_fn_is_the_plain_backward_on_the_cpu(b, s, h, p, n, chunk):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def _sequential_walk(x, dt, A, Bm, Cm, dy, chunk):
+    """float64, position by position: the state entering each chunk and the
+    gradient of the state leaving it (from the positions after it), (B, H,
+    chunks, P, N) each."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    decay = np.exp(dt * A)  # (B, S, H)
+    state, h_in = np.zeros((b, h, p, n)), np.zeros((b, h, nc, p, n))
+    for t in range(s):
+        if t % q == 0:
+            h_in[:, :, t // q] = state
+        state = (decay[:, t, :, None, None] * state
+                 + (dt[:, t, :, None, None] * x[:, t, :, :, None]) * Bm[:, t, None, None, :])
+    grad, g = np.zeros((b, h, p, n)), np.zeros((b, h, nc, p, n))
+    for t in reversed(range(s)):
+        if t % q == q - 1 or t == s - 1:
+            g[:, :, t // q] = grad
+        grad = decay[:, t, :, None, None] * (grad + dy[:, t, :, :, None] * Cm[:, t, None, None, :])
+    return h_in, g
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 75, 2, 32, 32, 32),     # chunks 32, 32, 11
+    (1, 261, 2, 64, 128, 128),  # mamba2-1.3b's (P, N, chunk): 128, 128, 5
+    (1, 150, 3, 32, 128, 64),   # 64, 64, 22
+])
+def test_chunk_parallel_states_equal_the_sequential_walk(b, s, h, p, n, chunk):
+    """The backward's phases 1 and 2 (each chunk's own state and state
+    gradient in parallel, then the elementwise walk over the chunks) give
+    the states entering the chunks and the gradients leaving them that the
+    recurrence gives position by position, in float64."""
+    arrays = [a.astype(np.float64) for a in _inputs(b, s, h, p, n, seed=s)]
+    want_h, want_g = _sequential_walk(*arrays, chunk)
+    S, T, edecay = ssd.bwd_chunk_states_plain(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    h_in, g = ssd.bwd_state_pass_plain(S, T, edecay)
+    assert h_in.dtype == g.dtype == torch.float64
+    for got, want in ((h_in, want_h), (g, want_g)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
+                                   atol=1e-12 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SHAPES)
+def test_backward_phases_match_the_plain_backward(b, s, h, p, n, chunk):
+    """The four phases chained (`ssd_scan_backward_phases`) against the
+    explicit formulas, float32: the same gradients in other sum orders."""
+    arrays = _inputs(b, s, h, p, n, seed=s)
+    got = [g.numpy() for g in ssd.ssd_scan_backward_phases(
+        *(torch.from_numpy(a) for a in arrays), chunk=chunk)]
+    _assert_close(got, _plain(arrays, chunk), AUTOGRAD_RTOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 3, 8, 16, 16), (1, 96, 2, 32, 32, 32)])
+def test_backward_phases_match_jax_grad_of_the_reference(b, s, h, p, n, chunk):
+    x, dt, A, Bm, Cm, dy = _inputs(b, s, h, p, n, seed=s)
+
+    def loss(x, dt, A, Bm, Cm):
+        y, _ = jssm.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        return jnp.sum(y * dy)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)))
+    got = ssd.ssd_scan_backward_phases(
+        *(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, dy)), chunk=chunk)
+    _assert_close([g.numpy() for g in got], want, REFERENCE_RTOL)
+
+
 def test_ssd_scan_train_without_grad_keeps_the_forward_route():
     x, dt, A, Bm, Cm, _ = _inputs(1, 20, 2, 8, 16)
     args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)]
