@@ -19,9 +19,9 @@ version.  Phases, each raising on failure:
    ``rglru_cp_async``) or one of a backward (flash attention's
    ``flash_bwd_{dkdv,dq}_{wgmma,simt}``, the SSD scan's
    ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma``, ``ssd_bwd_simt`` and
-   ``ssd_bwd_finish``, the RG-LRU scan's
-   ``rglru_bwd_cp_async``) or in the pack scan (``pack_scan_warp``,
-   ``pack_scan_global``) fails the phase;
+   ``ssd_bwd_finish``, the RG-LRU scan's ``rglru_bwd_split`` and
+   ``rglru_bwd_walk``) or in the live loop's kernels (``pack_scan_warp``,
+   ``pack_scan_global``, ``placement_scores``) fails the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    packed take bits, the kernel's mask of steps taken (against the plain
    walk over the same bits) and the counts from it (against the host
@@ -55,7 +55,9 @@ version.  Phases, each raising on failure:
    plain version, bit for bit, plus one fleet-scale matrix; both kernels
    timed beside their plain versions and bounds, the pack scan also beside
    its empty walk (`pack.empty_walk`: the walk's n steps without their
-   pair loop, the floor the dependent steps set); then phase 4c's 8-cell
+   pair loop, the floor the dependent steps set), the placement scores
+   beside an empty kernel of the same launch shape (`placement.empty_launch`,
+   the call's floor); then phase 4c's 8-cell
    replay starts in its process, and every pack-scan launch is held
    against `pack_scan_plain` on the card, bit for bit;
 4c. the sharded controller (`core/shard.py`), each part with the live
@@ -209,7 +211,10 @@ version.  Phases, each raising on failure:
    against their plain versions within `ssd.BWD_TOLERANCE` and
    `rglru.BWD_TOLERANCE`, bit for bit over a repeat, timed cold beside
    their bounds and plain versions (no PyTorch call computes either), the
-   SSD's with each of its launches (`ssd.BWD_PASSES`) timed apart;
+   SSD's with each of its launches (`ssd.BWD_PASSES`) timed apart, the
+   RG-LRU's ``split`` beside its ``walk`` forced (at `rglru._lanes`'s
+   width and at 32 lanes), and the RG-LRU forward at that shape beside
+   its bound;
    (b) float32 at full width on the card and on the CPU from the same
    weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b and mamba2-1.3b
    at 2 layers, recurrentgemma-9b at 3): every gradient leaf within
@@ -528,10 +533,12 @@ def check_flash_wgmma_spills() -> dict:
 #: ``flash_bwd_dq_*`` per variant (``wgmma`` bf16, ``simt`` float32) and
 #: head_dim, the SSD scan's backward ``ssd_bwd_walk_mma``,
 #: ``ssd_bwd_grads_wgmma`` and ``ssd_bwd_simt`` per (P, N, chunk) and its
-#: ``ssd_bwd_finish`` per chunk, the RG-LRU scan's ``rglru_bwd_cp_async``
-#: per CTA width, and the pack scan's
+#: ``ssd_bwd_finish`` per chunk, the RG-LRU scan's backward
+#: ``rglru_bwd_split`` (32 lanes) and ``rglru_bwd_walk`` per CTA width (32,
+#: 64, 128 lanes), the pack scan's
 #: ``pack_scan_warp`` (the scan and its empty walk, first and best fit, each
-#: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``.
+#: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``, and
+#: the placement scores' ``placement_scores`` (4 dimensions and any).
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -551,7 +558,9 @@ SPILL_CHECKED = {
     ("ssd_bwd", "ssd_bwd_finish"): len(ssd.CHUNKS),
     ("pack", "pack_scan_warp"): 8,
     ("pack", "pack_scan_global"): 1,
-    ("rglru_bwd", "rglru_bwd_cp_async"): 2,
+    ("rglru_bwd", "rglru_bwd_split"): 1,
+    ("rglru_bwd", "rglru_bwd_walk"): 3,
+    ("placement", "placement_scores"): 2,
 }
 
 
@@ -1338,18 +1347,21 @@ def pack_bound(args, n_open_steps: int) -> dict:
 
 def placement_timing(inputs) -> dict:
     """The placement kernel and its plain version on ``inputs`` (host
-    arrays) on the card, beside the bound."""
+    arrays) on the card, beside the bound and beside an empty kernel of the
+    same launch shape (`placement.empty_launch`: the call's floor)."""
     dev = torch.device("cuda")
     targs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in inputs]
     ms = time_cold_ms(lambda: placement._dispatch(*targs), reps=20)
+    empty_ms = time_cold_ms(lambda: placement.empty_launch(*targs), reps=20)
     plain_ms = time_cold_ms(lambda: placement.placement_scores_plain(*targs), reps=20)
     k, c, dim = inputs[0].shape
     p_n = inputs[2].shape[0]
     bytes_moved = sum(t.numel() * t.element_size() for t in targs) + k * c * p_n * 8
     bound = _bound(bytes_moved, k * c * p_n * dim * 4, FP64_OPS_PER_S)
-    log(f"  placement_scores {ms:.4f} ms at {(k, c, p_n)} (plain {plain_ms:.4f} ms), "
-        f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})")
-    return {"ms": ms, "plain_ms": plain_ms, **bound, "shape": [k, c, p_n]}
+    log(f"  placement_scores {ms:.5f} ms at {(k, c, p_n)} (plain {plain_ms:.4f} ms), "
+        f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}), empty launch {empty_ms:.5f} ms "
+        f"({ms / empty_ms:.2f}x)")
+    return {"ms": ms, "plain_ms": plain_ms, **bound, "shape": [k, c, p_n], "empty_ms": empty_ms}
 
 
 def pack_timing(pack_calls) -> dict:
@@ -3784,8 +3796,9 @@ def reset_train_counts() -> None:
         for k in mod.LAUNCHES_BY_VARIANT:
             mod.LAUNCHES_BY_VARIANT[k] = 0
     ssd.BWD_LAUNCHES = rglru.BWD_LAUNCHES = 0
-    for k in ssd.BWD_LAUNCHES_BY_VARIANT:
-        ssd.BWD_LAUNCHES_BY_VARIANT[k] = 0
+    for counts in (ssd.BWD_LAUNCHES_BY_VARIANT, rglru.BWD_LAUNCHES_BY_VARIANT):
+        for k in counts:
+            counts[k] = 0
 
 
 def train_counts() -> dict:
@@ -4082,34 +4095,68 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
         del x, dy, dt, A, bc, Bm, Cm, args
         torch.cuda.empty_cache()
     b, s, w = RGLRU_BWD_CASE
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     a = torch.sigmoid(_normal(rng, (b, s, w), torch.float32) + 2.0)
-    h_ = rglru._dispatch(0.3 * a, _normal(rng, (b, s, w), torch.float32), None)
+    bb = _normal(rng, (b, s, w), torch.float32)
+    h_ = rglru._dispatch(0.3 * a, bb, None)
     dh = _normal(rng, (b, s, w), torch.float32)
-    before = rglru.BWD_LAUNCHES
-    got = rglru._dispatch_bwd(a, h_, dh)
-    if rglru.BWD_LAUNCHES != before + 1:
-        raise AssertionError("rglru backward: launch not counted")
-    check = {"kernel": "rglru_scan_backward", **_compare_scan_grads(
-        "rglru backward recurrentgemma-9b", torch.float32, ("da", "db"), got,
-        rglru.rglru_scan_backward_plain(a, h_, dh), rglru.BWD_TOLERANCE)}
-    if not all(torch.equal(g, r) for g, r in zip(got, rglru._dispatch_bwd(a, h_, dh))):
-        raise AssertionError("rglru backward: a repeat differs")
-    del got
-    t = {"shape": [b, s, w], "dtype": "float32",
-         "lanes": rglru._lanes(b, w, torch.cuda.get_device_properties(0).multi_processor_count),
-         **rglru_bwd_bound(a)}
-    t["ms"] = time_cold_ms(lambda: rglru._dispatch_bwd(a, h_, dh), reps=20)
+    seg, split_lanes = rglru._split(b, s, w, n_sms)
+    variant = rglru._bwd_variant(w, seg)
+    want = rglru.rglru_scan_backward_plain(a, h_, dh)
+    t = {"shape": [b, s, w], "dtype": "float32", "variant": variant, "seg": seg,
+         "segment_steps": rglru.segment_steps(s, seg), "split_lanes": split_lanes,
+         "clusters": rglru.split_clusters(seg, rglru.segment_steps(s, seg)),
+         "lanes": rglru._lanes(b, w, n_sms), **rglru_bwd_bound(a)}
+    # The variant the shape picks, then the walk forced at its own width and
+    # at 32 lanes, each against the plain version and repeated bit for bit.
+    for key, forced in (("ms", None), ("walk_ms", dict(_bwd_variant=lambda *x: "walk")),
+                        ("walk_32_ms", dict(_bwd_variant=lambda *x: "walk",
+                                            _lanes=lambda *x: 32))):
+        with Patched(rglru, **(forced or {})):
+            name = "walk" if forced else variant
+            before = dict(rglru.BWD_LAUNCHES_BY_VARIANT)
+            got = rglru._dispatch_bwd(a, h_, dh)
+            if rglru.BWD_LAUNCHES_BY_VARIANT != {**before, name: before[name] + 1}:
+                raise AssertionError(f"rglru backward: not one {name} launch: {before} -> "
+                                     f"{rglru.BWD_LAUNCHES_BY_VARIANT}")
+            label = (f"rglru backward recurrentgemma-9b [{name}"
+                     + (", 32 lanes]" if key == "walk_32_ms" else "]"))
+            check = {"kernel": "rglru_scan_backward", "variant": name, **_compare_scan_grads(
+                label, torch.float32, ("da", "db"), got, want, rglru.BWD_TOLERANCE)}
+            if not all(torch.equal(g, r) for g, r in zip(got, rglru._dispatch_bwd(a, h_, dh))):
+                raise AssertionError(f"{label}: a repeat differs")
+            del got
+            t[key] = time_cold_ms(lambda: rglru._dispatch_bwd(a, h_, dh), reps=20)
+        if not forced:
+            check["timing"] = "rglru_scan_backward"
+        checks.append(check)
+        log(f"  {label}: grads err "
+            + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_abs_want']:.3g}"
+                        for k, e in check["grads"].items())
+            + f"; bit-equal repeat; {t[key]:.4f} ms")
+    del want
     t["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_backward_plain(a, h_, dh), reps=2)
     t["library_ms"] = None
+    # The forward at the training shape (a measurement: its ring was tuned
+    # at the served B 4), at `_lanes`'s width and at 128 lanes.
+    before = (rglru.LAUNCHES, dict(rglru.LAUNCHES_BY_VARIANT))
+    fwd = {"variant": rglru._variant(w), "lanes": rglru._lanes(b, w, n_sms),
+           **rglru_bound(a, None)}
+    fwd["ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, None), reps=20)
+    with forced_rglru(lanes=128):
+        fwd["lanes_128_ms"] = time_cold_ms(lambda: rglru._dispatch(a, bb, None), reps=20)
+    rglru.LAUNCHES = before[0]
+    rglru.LAUNCHES_BY_VARIANT.update(before[1])
+    t["forward"] = fwd
     timing["rglru_scan_backward"] = t
-    check["timing"] = "rglru_scan_backward"
-    checks.append(check)
-    log(f"  rglru_scan_backward at {t['shape']} ({t['lanes']} lanes a CTA): grads err "
-        + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_abs_want']:.3g}"
-                    for k, e in check["grads"].items())
-        + f"; bit-equal repeat; {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}, bound "
-        f"{t['bound_ms']:.4f} ({t['bound_by']})")
-    del a, h_, dh
+    log(f"  rglru_scan_backward at {t['shape']} [{variant}: {seg} segments of "
+        f"{t['segment_steps']} steps, {split_lanes} lanes a CTA, {t['clusters']} clusters] "
+        f"{t['ms']:.4f} ms; walk "
+        f"({t['lanes']} lanes) {t['walk_ms']:.4f} ms, 32 lanes {t['walk_32_ms']:.4f} ms; plain "
+        f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} ({t['bound_by']}); forward "
+        f"[{fwd['variant']}, {fwd['lanes']} lanes] {fwd['ms']:.4f} ms, 128 lanes "
+        f"{fwd['lanes_128_ms']:.4f} ms, bound {fwd['bound_ms']:.4f}")
+    del a, bb, h_, dh
     torch.cuda.empty_cache()
     return checks, timing
 
@@ -4288,6 +4335,14 @@ def train_full_width(arch: str) -> dict:
     expected = expected_train_counts(cfg, n_steps, remat=True)
     if launches != expected:
         raise AssertionError(f"(c) {arch}: launches {launches}, expected {expected}")
+    rglru_bwd = dict(rglru.BWD_LAUNCHES_BY_VARIANT)
+    if launches["rglru_scan_backward"]:
+        w = cfg.resolved_lru_width
+        want = rglru._bwd_variant(w, rglru._split(batch_size, TRAIN_SEQ, w, torch.cuda.
+                                                  get_device_properties(0).multi_processor_count)[0])
+        if rglru_bwd[want] != launches["rglru_scan_backward"]:
+            raise AssertionError(f"(c) {arch}: RG-LRU backward launches {rglru_bwd}, all "
+                                 f"expected on {want}")
     busy = ("not measured (the trace holds no device work)" if not traced["device_ops"] else
             f"{1 - traced['device_idle_share']:.4f} of {traced['wave_ms']:.1f} ms, by group "
             + ", ".join(f"{g} {ms:.1f}" for g, ms in traced["device_ms_by_group"].items()))
@@ -4298,8 +4353,8 @@ def train_full_width(arch: str) -> dict:
     torch.cuda.empty_cache()
     return {"arch": arch, "reduced": reduced, "layers": cfg.num_layers, "batch": batch_size,
             "seq": TRAIN_SEQ, "remat": True, "dtype": cfg.dtype, "steps": steps,
-            "launches": launches, "peak_memory_bytes": peak, "card_memory_bytes": total,
-            "traced_step": traced}
+            "launches": launches, "rglru_bwd_by_variant": rglru_bwd,
+            "peak_memory_bytes": peak, "card_memory_bytes": total, "traced_step": traced}
 
 
 def train_launcher(workdir: pathlib.Path) -> dict:
@@ -4414,14 +4469,23 @@ def scan_backward_entries(training: dict) -> list[dict]:
             "replaces_note": note,
             "launches": runs[run]["launches"][name],
             "launches_by_run": {arch: r["launches"][name] for arch, r in runs.items()},
-            "max_abs_err": max(c["max_abs_err"] for c in checks if c["kernel"] == name),
-            "grads": {c["dtype"]: c["grads"] for c in checks if c["kernel"] == name},
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["kernel"] == name and "timing" in c),
+            "grads": {c["dtype"]: c["grads"] for c in checks
+                      if c["kernel"] == name and "timing" in c},
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
         }
+        if name == "rglru_scan_backward":
+            entry.update({k: t[k] for k in ("variant", "seg", "segment_steps", "split_lanes",
+                                            "clusters", "lanes", "walk_ms", "walk_32_ms",
+                                            "forward")})
+            entry["launches_by_variant"] = runs[run]["rglru_bwd_by_variant"]
+            entry["walk_max_abs_err"] = max(c["max_abs_err"] for c in checks
+                                            if c["kernel"] == name and "timing" not in c)
         if name == "ssd_scan_backward":
             entry.update(variant=t["variant"], passes_ms=t["passes_ms"],
                          launches_by_variant=runs[run]["launches"]["ssd_scan_backward_by_variant"],
@@ -4644,7 +4708,7 @@ def main(argv=None) -> int:
                     "fleets_per_cta": t["fleets_per_cta"], "empty_walk_ms": t["empty_walk_ms"]}
                    if kname == "pack_scan" else
                    {"shape": t["shape"], "threshold": heuristics._CUDA_MIN_CANDIDATES,
-                    "fleet_scale": t["fleet_scale"]}),
+                    "empty_ms": t["empty_ms"], "fleet_scale": t["fleet_scale"]}),
                 "shard": shard_kernel_entry(result["sharded"], kname),
             })
         for kname, replaces in (

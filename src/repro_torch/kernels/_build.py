@@ -49,7 +49,7 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "ssd": (FMAD_FLAGS, ("attention_common.cuh", "mma_common.cuh")),
     "ssd_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
-    "rglru_bwd": (FMAD_FLAGS, ("mma_common.cuh",)),
+    "rglru_bwd": (FMAD_FLAGS, ("hopper_common.cuh", "mma_common.cuh")),
     "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "pack": (NVCC_FLAGS, ()),
     "placement": (NVCC_FLAGS, ()),

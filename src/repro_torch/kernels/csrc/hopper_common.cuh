@@ -92,6 +92,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Shared -> global tile stores, in bulk groups: elements of the box past the
+// tensor are not written.  The source tile must not change, nor the CTA
+// exit, before tma_store_wait_read says the group has been read.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
 // ---- wgmma --------------------------------------------------------------------
 
 // After a thread's own st.shared to a tile that a wgmma (or TMA store) will
@@ -359,6 +379,21 @@ inline EncodeTiledFn encode_tiled_fn() {
     return found == cudaDriverEntryPointSuccess && p ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
   }();
   return fn;
+}
+
+// A float32 tensor map of `rank` dimensions (innermost first) with a box
+// of `box` elements, no swizzle, zero fill past the edges (negative
+// coordinates included).  dims and strides as for encode_bf16_b128.
+inline int encode_f32(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first) with a box of

@@ -166,19 +166,12 @@ __global__ void __launch_bounds__(LANES)
 // A float32 tensor map over (W, S, B), innermost first, with a box of
 // (LANES, kSteps, 1), no swizzle, zero fill past the edges.
 int encode_f32(CUtensorMap* map, const void* base, int B, int S, int W, int lanes) {
-  const hopper::EncodeTiledFn fn = hopper::encode_tiled_fn();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * 4,
                                  static_cast<cuuint64_t>(S) * W * 4};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(lanes), kSteps, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box,
-         ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return hopper::encode_f32(map, base, 3, dims, strides, box);
 }
 
 template <int LANES>

@@ -11,7 +11,10 @@ the residual slack ``max_d (resid[p, d] - req[i, c, d]) / max(resid[p, d],
 Two implementations, bit-identical with it:
 
 * `placement_scores_plain` — plain torch; runs on any device;
-* the CUDA kernel in ``csrc/placement.cu``: one thread an output.
+* the CUDA kernel in ``csrc/placement.cu``: a 2-D grid of (i, c) rows by
+  blocks of 32 bins, a thread an output, every load issued before the
+  first compare (in 16-byte words where dim is 4), 32-bit indices; an
+  empty kernel of the same launch shape (`empty_launch`) is its floor.
 
 `placement_scores` dispatches by the device of its tensors: CPU tensors go
 to the plain version, CUDA tensors launch the kernel (or raise).
@@ -31,13 +34,18 @@ import torch
 
 from ..device import KernelError, on_card
 
-__all__ = ["LAUNCHES", "placement_scores", "placement_scores_host", "placement_scores_plain"]
+__all__ = ["LAUNCHES", "empty_launch", "placement_scores", "placement_scores_host",
+           "placement_scores_plain"]
 
 #: Number of CUDA kernel launches made by `placement_scores` in this process.
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
 
 _FIT_EPS = 1e-9  # heuristics._FIT_EPS
+
+#: Bins the kernel's grid can hold: 65,535 blocks of 32 (kBins in
+#: csrc/placement.cu).
+MAX_BINS = 65535 * 32
 
 
 def placement_scores_plain(req, mask, resid):
@@ -74,13 +82,29 @@ def _check_inputs(req, mask, resid) -> None:
 
 
 @functools.cache
-def _kernel_fn():
+def _library():
     from ._build import load_library
 
-    fn = load_library("placement").placement_scores_f64
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("placement")
+    lib.placement_scores_f64.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 2
+    lib.placement_empty_f64.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.placement_scores_f64, lib.placement_empty_f64):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_card_shape(req, mask, resid) -> None:
+    """What only the kernel refuses: non-contiguous tensors, more than
+    `MAX_BINS` bins, an output or an input past 32-bit indices."""
+    for name, t in (("req", req), ("mask", mask), ("resid", resid)):
+        if not t.is_contiguous():
+            raise KernelError(f"placement_scores: {name} must be contiguous on CUDA")
+    k, c, dim = req.shape
+    p_n = resid.shape[0]
+    if p_n > MAX_BINS or max(k * c * p_n, k * c * dim, p_n * dim) >= 2**31:
+        raise KernelError(f"placement_scores: {(k, c, p_n, dim)} is past the kernel's 32-bit "
+                          f"indices or {MAX_BINS} bins")
 
 
 def placement_scores(req, mask, resid):
@@ -112,12 +136,10 @@ def _dispatch(req, mask, resid):
     dev = req.device
     if dev.type == "cpu":
         return placement_scores_plain(req, mask, resid)
-    for name, t in (("req", req), ("mask", mask), ("resid", resid)):
-        if not t.is_contiguous():
-            raise KernelError(f"placement_scores: {name} must be contiguous on CUDA")
+    _check_card_shape(req, mask, resid)
     k, c, dim = req.shape
     p_n = resid.shape[0]
-    fn = _kernel_fn()
+    fn = _library().placement_scores_f64
     with torch.cuda.device(dev):
         out = torch.empty((k, c, p_n), dtype=torch.float64, device=dev)
         rc = fn(req.data_ptr(), mask.data_ptr(), resid.data_ptr(), k, c, p_n, dim,
@@ -127,3 +149,19 @@ def _dispatch(req, mask, resid):
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
     return out
+
+
+def empty_launch(req, mask, resid) -> None:
+    """Launches a kernel that does nothing on the launch shape the scores of
+    these CUDA tensors take, for measurements: the call's floor.  Not
+    counted in `LAUNCHES`."""
+    _check_inputs(req, mask, resid)
+    if req.device.type != "cuda":
+        raise ValueError(f"empty_launch: CUDA tensors only, got {req.device}")
+    _check_card_shape(req, mask, resid)
+    k, c, dim = req.shape
+    with torch.cuda.device(req.device):
+        rc = _library().placement_empty_f64(k, c, resid.shape[0], dim,
+                                            torch.cuda.current_stream(req.device).cuda_stream)
+    if rc != 0:
+        raise KernelError(f"placement_scores empty launch failed: CUDA error {rc}")

@@ -28,10 +28,22 @@ state): when grad is enabled and a or b requires it, the call goes through
 `RglruScanFn`, which keeps a and the output h, and whose backward is
 `rglru_scan_backward`: the reverse recurrence ``g_t = dh_t + a_{t+1}
 g_{t+1}``, ``db_t = g_t``, ``da_t = g_t h_{t-1}`` (``h_{-1} = 0``), on
-CUDA tensors the kernel in ``csrc/rglru_bwd.cu`` (the forward's
-``cp_async`` walk reversed), on the CPU `rglru_scan_backward_plain`.  No
-Pallas kernel computes it: the reference trains through ``jax.grad`` of
-``associative_scan`` (`repro/models/rglru.py:rglru_scan`).
+CUDA tensors the kernel in ``csrc/rglru_bwd.cu``, on the CPU
+`rglru_scan_backward_plain`.  No Pallas kernel computes it: the reference
+trains through ``jax.grad`` of ``associative_scan``
+(`repro/models/rglru.py:rglru_scan`).  The backward has two variants,
+picked by shape before the launch (`_bwd_variant`): ``"split"`` cuts the
+time axis into `_split`'s SEG segments, one CTA each in a thread-block
+cluster of SEG: each walks its segment from a zero carry to ``(G, A)``
+with ``g_{t0} = G + A g_{t1}``, the cluster folds the later segments'
+pairs into each one's true carry through distributed shared memory, and
+each walks its segment again from shared memory (TMA boxes in and out; W
+a multiple of 4, 16-byte-aligned rows, a segment of at most
+`SPLIT_MAX_STEPS`); the card holds `split_clusters` clusters at once, and
+each walks (batch row, lane block) items, loading the next item's boxes
+under its second walk;
+``"walk"`` (any shape) is the forward's ``cp_async`` walk reversed, one CTA
+walking all S steps of its lanes.
 """
 from __future__ import annotations
 
@@ -41,9 +53,10 @@ import torch
 
 from ..device import KernelError, sm_count
 
-__all__ = ["BWD_LAUNCHES", "BWD_TOLERANCE", "LAUNCHES", "LAUNCHES_BY_VARIANT", "RglruScanFn",
-           "boxes", "rglru_scan", "rglru_scan_backward", "rglru_scan_backward_plain",
-           "rglru_scan_plain", "rglru_scan_train"]
+__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_VARIANT", "BWD_TOLERANCE", "LAUNCHES",
+           "LAUNCHES_BY_VARIANT", "RglruScanFn", "SPLIT_LANES", "SPLIT_MAX_STEPS", "boxes",
+           "rglru_scan", "rglru_scan_backward", "rglru_scan_backward_plain",
+           "rglru_scan_plain", "rglru_scan_train", "segment_steps", "split_clusters"]
 
 #: Number of CUDA kernel launches made by `rglru_scan` in this process.
 LAUNCHES = 0
@@ -52,6 +65,8 @@ LAUNCHES_BY_VARIANT = {"tma": 0, "cp_async": 0}
 
 #: Number of CUDA kernel launches made by `rglru_scan_backward`.
 BWD_LAUNCHES = 0
+#: The same launches by variant (`_bwd_variant`).
+BWD_LAUNCHES_BY_VARIANT = {"split": 0, "walk": 0}
 #: The backward kernel against `rglru_scan_backward_plain` on the same
 #: inputs: (atol as a share of each gradient's largest magnitude, rtol).
 #: Both walk the same float32 steps; the kernel fuses each multiply-add, so
@@ -59,8 +74,19 @@ BWD_LAUNCHES = 0
 #: forward's limit (2e-5) allows.
 BWD_TOLERANCE = (2e-5, 2e-5)
 
-#: Time steps a box of the kernel's ring (kSteps in csrc/rglru.cu).
+#: Time steps a box of the kernel's ring (kSteps in csrc/rglru.cu), and a
+#: TMA box of the backward's split (kBoxSteps in csrc/rglru_bwd.cu).
 BOX_STEPS = 32
+#: The split's lanes a CTA (kSplitLanes in csrc/rglru_bwd.cu: one warp).
+SPLIT_LANES = 32
+#: Steps a segment of the split may have at most: its three planes of
+#: (steps x `SPLIT_LANES`) floats in 216 KB of shared memory (kPlaneFloats
+#: in csrc/rglru_bwd.cu).
+SPLIT_MAX_STEPS = 576
+#: The split's largest cluster: the portable size.
+SPLIT_MAX_SEG = 8
+#: The shortest segment a split makes: below it S is walked whole.
+SPLIT_MIN_STEPS = 64
 _VARIANT_CODES = {"tma": 0, "cp_async": 1}
 
 
@@ -115,6 +141,41 @@ def _lanes(bsz: int, w: int, n_sms: int) -> int:
     1-2% faster than 256 of 64 on an H100 (``chip_smoke.py`` phase 8,
     ``scripts/torch_rglru_ring.py``)."""
     return 128 if 2 * bsz * -(-w // 128) >= n_sms else 64
+
+
+def segment_steps(s: int, seg: int) -> int:
+    """Steps of each of ``seg`` segments over ``s`` steps: ``ceil(s / seg)``
+    rounded up to whole boxes of `BOX_STEPS` (the last segments may hold
+    fewer, or none)."""
+    return -(-(-(-s // seg)) // BOX_STEPS) * BOX_STEPS
+
+
+def _split(bsz: int, s: int, w: int, n_sms: int) -> tuple[int, int]:
+    """``(SEG, LANES)`` of the backward's split: `SPLIT_LANES` lanes a CTA,
+    and the segments doubled from 1 while the (lane block, segment) pairs
+    number under four an SM (or a segment would not fit in shared memory)
+    and halving the segments leaves at least `SPLIT_MIN_STEPS` steps each,
+    up to `SPLIT_MAX_SEG`.  SEG 1 where no split fits or none is needed:
+    the walk takes the call.  At recurrentgemma-9b's training call (1, 4096,
+    4096) on 132 SMs: 8 segments of 512 steps over 128 lane blocks."""
+    blocks = bsz * -(-w // SPLIT_LANES)
+
+    def fits(seg):
+        return segment_steps(s, seg) <= SPLIT_MAX_STEPS
+
+    seg = 1
+    while (seg < SPLIT_MAX_SEG and (blocks * seg < 4 * n_sms or not fits(seg))
+           and -(-s // (2 * seg)) >= SPLIT_MIN_STEPS):
+        seg *= 2
+    return (seg if fits(seg) else 1), SPLIT_LANES
+
+
+def _bwd_variant(w: int, seg: int, aligned: bool = True) -> str:
+    """The backward for a width of ``w`` lanes cut into ``seg`` segments:
+    ``"split"`` where there are segments and TMA can read the rows (``w`` a
+    multiple of 4 and ``aligned``, a, h and dh on 16 bytes), else
+    ``"walk"``."""
+    return "split" if seg > 1 and w % 4 == 0 and aligned else "walk"
 
 
 _ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -203,30 +264,57 @@ def rglru_scan_backward(a, h, dh):
     return _dispatch_bwd(a, h, dh.contiguous())
 
 
-_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = {
+    "walk": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "split": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+_BWD_FUNCTIONS = {"walk": "rglru_bwd_f32", "split": "rglru_bwd_split_f32"}
+
+
+def _bwd_fn(variant: str):
+    """The C function that launches the backward's ``variant``."""
+    from ._build import load_library
+
+    fn = getattr(load_library("rglru_bwd"), _BWD_FUNCTIONS[variant])
+    fn.argtypes = _BWD_ARGTYPES[variant]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def split_clusters(seg: int, steps: int) -> int:
+    """Clusters of the split (``seg`` CTAs, segments of ``steps`` steps) the
+    current card holds at once: the split's grid, each cluster walking
+    items (batch row, lane block) until none is left (0 where none fits)."""
+    from ._build import load_library
+
+    fn = load_library("rglru_bwd").rglru_bwd_split_clusters
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn(seg, steps)
 
 
 def _dispatch_bwd(a, h, dh):
     """`rglru_scan_backward` on CUDA tensors after its checks."""
     global BWD_LAUNCHES
-    from ._build import load_library
-
     for name, t in (("a", a), ("h", h), ("dh", dh)):
         if not t.is_contiguous():
             raise ValueError(f"rglru_scan_backward: {name} must be contiguous on CUDA")
     bsz, s, w = a.shape
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    lanes = _lanes(bsz, w, sm_count(index))
-    fn = load_library("rglru_bwd").rglru_bwd_f32
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = ctypes.c_int
+    n_sms = sm_count(index)
+    seg, split_lanes = _split(bsz, s, w, n_sms)
+    variant = _bwd_variant(w, seg, all(t.data_ptr() % 16 == 0 for t in (a, h, dh)))
+    shape = ((seg, segment_steps(s, seg)) if variant == "split" else (_lanes(bsz, w, n_sms),))
+    fn = _bwd_fn(variant)
     with torch.cuda.device(a.device):
         da, db = torch.empty_like(a), torch.empty_like(a)
-        rc = fn(lanes, a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+        rc = fn(*shape, a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
                 bsz, s, w, torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
-        raise KernelError(f"rglru_scan_backward kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"rglru_scan_backward kernel launch failed ({variant} {shape}): "
+                          f"CUDA error {rc}")
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_VARIANT[variant] += 1
     return da, db
 
 

@@ -37,7 +37,8 @@ def test_the_table_holds_the_port_kernels():
     their forwards (no bit-identity with their plain versions is asked):
     flash's ``wgmma`` variant on the Hopper helpers its forward uses, the
     SSD's ``mma`` variant on both (its walk on the warp-level ones, its
-    grads launch on wgmma)."""
+    grads launch on wgmma), the RG-LRU's on both (its ``split`` on TMA and
+    clusters, its ``walk`` on cp.async)."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
         "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "pack", "placement"}
@@ -45,7 +46,8 @@ def test_the_table_holds_the_port_kernels():
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh"))
     assert _build.SOURCES["ssd_bwd"] == (
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh"))
-    assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS, ("mma_common.cuh",))
+    assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS,
+                                           ("hopper_common.cuh", "mma_common.cuh"))
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

@@ -18,6 +18,7 @@ equals the same replay on the CPU.  Calibration on the card equals the numpy pat
 bit for bit; VGG-16 and ZF on the card (cuDNN convs, TF32 off) are within
 1e-3 of the largest logit of the same weights on the CPU.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -1000,13 +1001,17 @@ def test_pack_scan_on_a_500_stream_forecast_cone(cuda):
         assert costs.tolist() == [heuristics._pack(p, best_fit).cost for p in problems]
 
 
-@pytest.mark.parametrize("k,c,p", [(1, 1, 1), (3, 2, 40), (500, 2, 64), (37, 3, 1029)])
-def test_placement_kernel_equals_plain(cuda, k, c, p):
+@pytest.mark.parametrize("k,c,p,dim", [(1, 1, 1, 4), (3, 2, 40, 4), (500, 2, 64, 4),
+                                       (37, 3, 1029, 4), (5, 2, 37, 3), (9, 3, 65, 7),
+                                       (4, 1, 130, 1)])
+def test_placement_kernel_equals_plain(cuda, k, c, p, dim):
+    """The fleet's 4 dimensions and others (the kernel's loop over dim), P
+    filling its last block of 32 bins or not."""
     rng = np.random.RandomState(k + p)
-    req = rng.uniform(0.0, 2.0, size=(k, c, 4))
+    req = rng.uniform(0.0, 2.0, size=(k, c, dim))
     mask = rng.rand(k, c) < 0.8
     req[~mask] = np.inf
-    resid = rng.uniform(0.0, 2.0, size=(p, 4))
+    resid = rng.uniform(0.0, 2.0, size=(p, dim))
     resid[0] = 0.0
     args = [torch.from_numpy(a).to(cuda) for a in (req, mask, resid)]
     before = placement.LAUNCHES
@@ -1016,6 +1021,18 @@ def test_placement_kernel_equals_plain(cuda, k, c, p):
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   heuristics.placement_scores_np(req, mask, resid))
+
+
+def test_placement_empty_launch_is_not_counted(cuda):
+    rng = np.random.RandomState(1)
+    args = [torch.from_numpy(x).to(cuda) for x in (rng.rand(22, 2, 4), rng.rand(22, 2) < 0.9,
+                                                    rng.rand(38, 4))]
+    before = placement.LAUNCHES
+    placement.empty_launch(*args)
+    torch.cuda.synchronize()
+    assert placement.LAUNCHES == before
+    with pytest.raises(ValueError):
+        placement.empty_launch(*(t.cpu() for t in args))
 
 
 def test_placement_routes_by_size_on_the_card(cuda, monkeypatch):
@@ -1407,19 +1424,26 @@ def test_ssd_backward_raises_instead_of_falling_back(cuda, monkeypatch):
     assert ssd.BWD_LAUNCHES == before
 
 
-@pytest.mark.parametrize("lanes", [None, 64, 128])
-@pytest.mark.parametrize("b,s,w", [(1, 4096, 4096), (3, 200, 4096), (2, 65, 100), (1, 33, 7),
-                                   (2, 1, 130)])
-def test_rglru_backward_kernel_matches_plain(cuda, monkeypatch, b, s, w, lanes):
-    """recurrentgemma-9b's training call, a partial last box, W not a
-    multiple of 4, one step; at the CTA width `_lanes` picks and forced."""
-    if lanes is not None:
-        monkeypatch.setattr(rglru, "_lanes", lambda *a: lanes)
-    rng = np.random.RandomState(s)
+def _rglru_bwd_inputs(b, s, w, cuda, seed):
+    rng = np.random.RandomState(seed)
     a = torch.from_numpy(rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32)).to(cuda)
     h = rglru.rglru_scan(a, torch.from_numpy(rng.standard_normal((b, s, w)).astype(
         np.float32)).to(cuda))
     dh = torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32)).to(cuda)
+    return a, h, dh
+
+
+@pytest.mark.parametrize("lanes", [None, 32, 64, 128])
+@pytest.mark.parametrize("b,s,w", [(1, 4096, 4096), (3, 200, 4096), (2, 65, 100), (1, 33, 7),
+                                   (2, 1, 130)])
+def test_rglru_backward_kernel_matches_plain(cuda, monkeypatch, b, s, w, lanes):
+    """recurrentgemma-9b's training call, a partial last box, W not a
+    multiple of 4, one step; on the variant the shape picks, and on the
+    ``walk`` forced at each CTA width."""
+    a, h, dh = _rglru_bwd_inputs(b, s, w, cuda, seed=s)
+    if lanes is not None:
+        monkeypatch.setattr(rglru, "_lanes", lambda *a: lanes)
+        monkeypatch.setattr(rglru, "_bwd_variant", lambda *a, **k: "walk")
     before = rglru.BWD_LAUNCHES
     got = rglru.rglru_scan_backward(a, h, dh)
     torch.cuda.synchronize()
@@ -1430,6 +1454,44 @@ def test_rglru_backward_kernel_matches_plain(cuda, monkeypatch, b, s, w, lanes):
                                    msg=name)
     again = rglru.rglru_scan_backward(a, h, dh)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("seg", [2, 8])
+@pytest.mark.parametrize("b,s,w", [(2, 77, 100), (16, 77, 1000), (2, 1001, 40), (3, 200, 4096),
+                                   (1, 1024, 4096)])
+def test_rglru_backward_split_matches_plain(cuda, monkeypatch, b, s, w, seg):
+    """The ``split`` at SEG 2 and 8 forced: S not a multiple of SEG (at S 77
+    and SEG 8 some segments hold no step), W not a multiple of the 32
+    lanes, B 2 and 16 (more items than the clusters the card holds at
+    once, so a cluster walks several); one ``split`` launch a call, within
+    `rglru.BWD_TOLERANCE`, bit for bit over a repeat."""
+    monkeypatch.setattr(rglru, "_split", lambda *a: (seg, rglru.SPLIT_LANES))
+    a, h, dh = _rglru_bwd_inputs(b, s, w, cuda, seed=s + seg)
+    before = (rglru.BWD_LAUNCHES, dict(rglru.BWD_LAUNCHES_BY_VARIANT))
+    got = rglru.rglru_scan_backward(a, h, dh)
+    torch.cuda.synchronize()
+    assert rglru.BWD_LAUNCHES == before[0] + 1
+    assert rglru.BWD_LAUNCHES_BY_VARIANT == {**before[1], "split": before[1]["split"] + 1}
+    share, rtol = rglru.BWD_TOLERANCE
+    for name, g, w_ in zip(("da", "db"), got, rglru.rglru_scan_backward_plain(a, h, dh)):
+        torch.testing.assert_close(g, w_, rtol=rtol, atol=share * float(w_.abs().max()),
+                                   msg=name)
+    again = rglru.rglru_scan_backward(a, h, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_rglru_backward_variant_by_shape(cuda):
+    """recurrentgemma-9b's training call takes the ``split``; a misaligned
+    base, a W that is not a multiple of 4 or a short S the ``walk``."""
+    assert rglru.split_clusters(8, 512) >= 1  # the grid at recurrentgemma-9b's segments
+    cases = [((1, 4096, 4096), 0, "split"), ((1, 1024, 4096), 1, "walk"),
+             ((1, 1024, 4098), 0, "walk"), ((2, 65, 4096), 0, "walk")]
+    for (b, s, w), offset, want in cases:
+        buf = torch.rand(b * s * w + offset, device=cuda)
+        a = buf[offset:].view(b, s, w)
+        before = dict(rglru.BWD_LAUNCHES_BY_VARIANT)
+        rglru.rglru_scan_backward(a, a, a)
+        assert rglru.BWD_LAUNCHES_BY_VARIANT == {**before, want: before[want] + 1}, (b, s, w)
 
 
 def test_rglru_backward_raises_instead_of_falling_back(cuda, monkeypatch):
@@ -1449,6 +1511,18 @@ def test_rglru_backward_raises_instead_of_falling_back(cuda, monkeypatch):
     monkeypatch.setattr(rglru, "_lanes", lambda *args: 96)
     with pytest.raises(KernelError, match="rglru_scan_backward kernel launch failed"):
         rglru.rglru_scan_backward(a, a, a)
+    # The split refuses a segment past its planes and a cluster past 16 CTAs.
+    split = _build.load_library("rglru_bwd").rglru_bwd_split_f32
+    split.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    ptrs = [a.data_ptr()] * 5
+    stream = torch.cuda.current_stream().cuda_stream
+    assert split(2, rglru.SPLIT_MAX_STEPS + 32, *ptrs, 2, 16, 64, stream) != 0
+    assert split(32, 32, *ptrs, 2, 16, 64, stream) != 0
+    assert split(2, 32, *ptrs, 2, 16, 64, stream) == 0
+    monkeypatch.setattr(rglru, "_split", lambda *args: (32, rglru.SPLIT_LANES))
+    with pytest.raises(KernelError, match="launch failed \\(split"):
+        rglru.rglru_scan_backward(a, a, a)
     assert rglru.BWD_LAUNCHES == before
 
 
@@ -1457,7 +1531,8 @@ def test_backward_sources_build_without_spills(cuda, tmp_path):
     ``rglru_bwd.cu``: every instance of the SSD backward's kernels (18 (P,
     N, chunk) each of ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma`` and
     ``ssd_bwd_simt``, 3 chunks of ``ssd_bwd_finish``) and of
-    ``rglru_bwd_cp_async`` (64 and 128 lanes) stores no spill."""
+    ``rglru_bwd_split`` and ``rglru_bwd_walk`` (32, 64 and 128 lanes) stores
+    no spill."""
     import re
     import subprocess
 
@@ -1476,7 +1551,8 @@ def test_backward_sources_build_without_spills(cuda, tmp_path):
         for m in rx.finditer(log):
             found[m[1]] = int(m[3])
     for kernel, n in (("ssd_bwd_walk_mma", 18), ("ssd_bwd_grads_wgmma", 18),
-                      ("ssd_bwd_simt", 18), ("ssd_bwd_finish", 3), ("rglru_bwd_cp_async", 2)):
+                      ("ssd_bwd_simt", 18), ("ssd_bwd_finish", 3), ("rglru_bwd_split", 1),
+                      ("rglru_bwd_walk", 3)):
         got = {f: st for f, st in found.items() if kernel in f}
         assert len(got) == n, (kernel, sorted(got))
         assert not any(got.values()), {f: st for f, st in got.items() if st}

@@ -76,12 +76,15 @@ def test_kernel_groups(tpw, name, group):
     ("void (anonymous namespace)::rglru_tma<128>(CUtensorMap_st, ...)", "RG-LRU scan"),
     ("void (anonymous namespace)::rglru_cp_async<64>(...)", "RG-LRU scan"),
     ("void (anonymous namespace)::rglru_bwd_cp_async<64>(...)", "RG-LRU backward"),
+    ("void (anonymous namespace)::rglru_bwd_walk<64>(...)", "RG-LRU backward"),
+    ("void (anonymous namespace)::rglru_bwd_split(CUtensorMap_st, ...)", "RG-LRU backward"),
 ])
 def test_decode_and_scan_kernel_groups(tpw, name, group):
     """The redesigned kernels' names, and the SSD kernels' names in earlier
     commits (the scan's ``ssd_kernel``, the backward's ``ssd_bwd_mma``,
-    ``ssd_bwd_simt`` and ``ssd_bwd_reduce``), so that a parent checkout's
-    wave groups its scans alike."""
+    ``ssd_bwd_simt`` and ``ssd_bwd_reduce``; the RG-LRU backward's
+    ``rglru_bwd_cp_async``), so that a parent checkout's wave groups its
+    scans alike."""
     assert tpw._group(name) == group
 
 

@@ -12,6 +12,8 @@ of each leaf's largest |grad|).  All float32, inputs from numpy seeds.  The
 kernel itself is held to the plain version on the card
 (`tests/test_torch_gpu.py`, `chip_smoke.py` phase 9).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +105,129 @@ def test_backward_raises_on_what_it_does_not_take():
     with pytest.raises(TypeError):
         rglru.rglru_scan_backward(a.double(), h, dh)
     assert rglru.BWD_LAUNCHES == 0  # the CPU never launches
+
+
+# ---- the kernel's split of the time axis ------------------------------------------
+
+
+def _fma(x, y, z):
+    """float32 ``fmaf``: the product and sum in float64, rounded once."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _segmented_emulated(a, h, dh, seg, lanes):
+    """The ``split`` variant's arithmetic in numpy, cluster by cluster: each
+    of ``seg`` segments of `rglru.segment_steps` steps loads its dh_t,
+    a_{t+1} and h_{t-1} planes in TMA boxes of `rglru.BOX_STEPS` steps
+    (zero past S, past W and before step 0; NaN where no box was loaded,
+    so a read of it would show), walks them from a zero carry to (G, A),
+    folds the later segments' pairs last to first into its carry and walks
+    again, storing da and db for the lanes inside W."""
+    bsz, s, w = a.shape
+    steps, box = rglru.segment_steps(s, seg), rglru.BOX_STEPS
+    da, db = np.full_like(a, np.nan), np.full_like(a, np.nan)
+
+    def rows(x, row, t0, n, w0):
+        """x[row, t0:t0 + n, w0:w0 + lanes], zero outside the tensor."""
+        out = np.zeros((n, lanes), dtype=np.float32)
+        for j in range(n):
+            if 0 <= t0 + j < s:
+                v = x[row, t0 + j, w0:w0 + lanes]
+                out[j, :len(v)] = v
+        return out
+
+    for row in range(bsz):
+        for w0 in range(0, w, lanes):
+            segs = []
+            for k in range(seg):
+                t0 = k * steps
+                n = max(0, min(steps, s - t0))
+                planes = np.full((3, steps, lanes), np.nan, dtype=np.float32)
+                for i in range(-(-n // box)):
+                    t = t0 + i * box
+                    planes[:, i * box:(i + 1) * box] = [rows(dh, row, t, box, w0),
+                                                        rows(a, row, t + 1, box, w0),
+                                                        rows(h, row, t - 1, box, w0)]
+                g, prod = np.zeros(lanes, np.float32), np.ones(lanes, np.float32)
+                for j in reversed(range(n)):
+                    g = _fma(planes[1, j], g, planes[0, j])
+                    prod = (prod * planes[1, j]).astype(np.float32)
+                segs.append((t0, n, planes, g, prod))
+            on = min(w, w0 + lanes) - w0
+            for k, (t0, n, planes, _, _) in enumerate(segs):
+                g = np.zeros(lanes, np.float32)
+                for big_g, big_a in (x[3:] for x in reversed(segs[k + 1:])):
+                    g = _fma(big_a, g, big_g)
+                for j in reversed(range(n)):
+                    g = _fma(planes[1, j], g, planes[0, j])
+                    db[row, t0 + j, w0:w0 + on] = g[:on]
+                    da[row, t0 + j, w0:w0 + on] = (g * planes[2, j]).astype(np.float32)[:on]
+    return da, db
+
+
+@pytest.mark.parametrize("seg", [1, 2, 8])
+@pytest.mark.parametrize("b,s,w", [(2, 77, 40), (2, 200, 100), (1, 33, 36)])
+def test_segmented_emulation_matches_plain(b, s, w, seg):
+    """S not a multiple of SEG (at SEG 8 and S 77 or 33 some segments hold
+    no step), W not a multiple of the lanes, B 2: the split's fold and
+    rewalk against the plain reverse loop within the kernel's limit
+    `rglru.BWD_TOLERANCE`, every output written."""
+    a, bb, dh = _inputs(b, s, w, seed=s + seg)
+    ta = torch.from_numpy(a)
+    h = rglru.rglru_scan_plain(ta, torch.from_numpy(bb))
+    want = rglru.rglru_scan_backward_plain(ta, h, torch.from_numpy(dh))
+    got = _segmented_emulated(a, h.numpy(), dh, seg, rglru.SPLIT_LANES)
+    share, rtol = rglru.BWD_TOLERANCE
+    for name, g, w_ in zip(("da", "db"), got, want):
+        assert np.isfinite(g).all(), name
+        torch.testing.assert_close(torch.from_numpy(g), w_, rtol=rtol,
+                                   atol=share * float(w_.abs().max()), msg=name)
+
+
+def test_split_at_recurrentgemma_training_and_at_short_s():
+    """recurrentgemma-9b's training call (B 1, S 4096, W 4096) on 132 SMs
+    takes 8 segments of 512 steps, 32 lanes a CTA: 1,024 CTAs in clusters
+    of 8, each segment's planes in 196 KB; its (1, 256) card-vs-CPU call
+    4 segments of 64; an S too short for two segments of `SPLIT_MIN_STEPS`
+    or too long for 8 segments in shared memory takes the walk (SEG 1)."""
+    assert rglru._split(1, 4096, 4096, 132) == (8, 32)
+    assert rglru.segment_steps(4096, 8) == 512
+    assert 3 * 512 * 32 * 4 == 196_608
+    assert rglru._bwd_variant(4096, 8) == "split"
+    assert rglru._split(1, 256, 4096, 132) == (4, 32)
+    for s in (1, 33, 127):
+        assert rglru._split(1, s, 4096, 132)[0] == (2 if s == 127 else 1)
+    assert rglru._split(1, 8192, 4096, 132)[0] == 1
+    assert rglru._bwd_variant(4096, 1) == "walk"
+    assert rglru._bwd_variant(4098, 8) == "walk"  # rows not on 16 bytes
+    assert rglru._bwd_variant(4096, 8, aligned=False) == "walk"
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 4096, 4096), (1, 256, 4096), (4, 4096, 4096),
+                                   (2, 1001, 40), (1, 4800, 4096), (3, 70, 12)])
+def test_split_segments_cover_s_and_fit(b, s, w):
+    """Every SEG the helper picks is 1 or a power of two up to
+    `SPLIT_MAX_SEG` whose segments cover S in whole boxes, fit the
+    kernel's planes, and hold at least one step each but the last ones."""
+    seg, lanes = rglru._split(b, s, w, 132)
+    assert lanes == rglru.SPLIT_LANES and seg in (1, 2, 4, 8)
+    if seg > 1:
+        steps = rglru.segment_steps(s, seg)
+        assert steps % rglru.BOX_STEPS == 0 and steps <= rglru.SPLIT_MAX_STEPS
+        assert seg * steps >= s > 0 and steps >= min(rglru.SPLIT_MIN_STEPS, s)
+
+
+def test_split_constants_match_the_source():
+    """`SPLIT_LANES`, `SPLIT_MAX_STEPS` and `BOX_STEPS` are the CUDA
+    source's kSplitLanes, kPlaneFloats / kSplitLanes and kBoxSteps."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "rglru_bwd.cu").read_text()
+    lanes = int(re.search(r"constexpr int kSplitLanes = (\d+);", src)[1])
+    plane = re.search(r"constexpr int kPlaneFloats = (\d+) \* kSplitLanes;", src)
+    box = int(re.search(r"constexpr int kBoxSteps = (\d+);", src)[1])
+    assert (lanes, int(plane[1]), box) == (rglru.SPLIT_LANES, rglru.SPLIT_MAX_STEPS,
+                                           rglru.BOX_STEPS)
 
 
 # ---- the Griffin block -----------------------------------------------------------
