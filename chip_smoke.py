@@ -6,7 +6,7 @@ branch-and-price pricing on the card, the serving path of the analysis
 programs at the full width of gemma2-2b, mamba2-1.3b, recurrentgemma-9b
 and qwen3-moe-30b-a3b, and training at the full width and depth of
 internlm2-1.8b and mamba2-1.3b and at the full width of recurrentgemma-9b
-— and holds every CUDA kernel of those paths against its plain torch
+and qwen3-moe-30b-a3b — and holds every CUDA kernel of those paths against its plain torch
 version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
@@ -20,8 +20,10 @@ version.  Phases, each raising on failure:
    ``flash_bwd_{dkdv,dq}_{wgmma,simt}``, the SSD scan's
    ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma``, ``ssd_bwd_simt`` and
    ``ssd_bwd_finish``, the RG-LRU scan's ``rglru_bwd_split`` and
-   ``rglru_bwd_walk``) or in the live loop's kernels (``pack_scan_warp``,
-   ``pack_scan_global``, ``placement_scores``) fails the phase;
+   ``rglru_bwd_walk``, the grouped GEMM's ``grouped_gemm_bwd_dx`` and
+   ``grouped_gemm_bwd_dw``) or in the live loop's kernels
+   (``pack_scan_warp``, ``pack_scan_global``, ``placement_scores``) fails
+   the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
    packed take bits, the kernel's mask of steps taken (against the plain
    walk over the same bits) and the counts from it (against the host
@@ -214,19 +216,34 @@ version.  Phases, each raising on failure:
    SSD's with each of its launches (`ssd.BWD_PASSES`) timed apart, the
    RG-LRU's ``split`` beside its ``walk`` forced (at `rglru._lanes`'s
    width and at 32 lanes), and the RG-LRU forward at that shape beside
-   its bound;
+   its bound; the grouped GEMM's backward (`grouped_gemm_bwd.cu`, ``dx``
+   and ``dw``) on the segments of a real routing at qwen3-moe-30b-a3b's
+   training call (B=1, S=4096: 16 dispatch groups, capacity 20 an expert
+   a group, 32,768 pairs, the dropped ones past the segments) at the
+   gate/up products' (K=2048, F=768) and the down product's (K=768,
+   F=2048) shapes, in bf16 and float32, and on the same segments with
+   four experts left empty, against `grouped_gemm_backward_plain` at the
+   forward's limits, each launch counted, bit for bit over a repeat,
+   timed cold beside its bound, its plain version and
+   ``torch._grouped_mm`` (dx as (dy, wᵀ), dw as (xᵀ, dy) with the offsets
+   on the contraction; the message where it refuses);
    (b) float32 at full width on the card and on the CPU from the same
-   weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b and mamba2-1.3b
-   at 2 layers, recurrentgemma-9b at 3): every gradient leaf within
-   1e-3 of its largest |grad|, then one train step's loss, grad norm and
-   every updated weight within 1e-3, every backward on ``simt`` (RG-LRU's
-   one variant); (c) bf16 with remat at S=4096, AdamW steps on one fixed
-   batch (`TRAIN_RUNS`): internlm2-1.8b and mamba2-1.3b at full width
-   and depth, B=2, 4 steps; recurrentgemma-9b at full width, its depth
-   cut to 6 layers (the cut printed), B=1, 3 steps; every kernel count
-   set to 0 just before and held after to `expected_train_counts` (one
-   backward launch and two forward launches (remat) per layer a step,
-   on the bf16 variants): the loss must fall, each step's wall ms split
+   weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b, mamba2-1.3b and
+   qwen3-moe-30b-a3b at 2 layers, recurrentgemma-9b at 3): every gradient
+   leaf within 1e-3 of its largest |grad|, then one train step's loss,
+   grad norm and every updated weight within 1e-3, every backward on
+   ``simt`` (RG-LRU's and the grouped GEMM's one variant); the MoE
+   model's CPU runs take the card runs' expert choices, the rows that
+   would have chosen others counted and printed, as in phase 8; (c) bf16
+   with remat at S=4096, AdamW steps on one fixed batch (`TRAIN_RUNS`):
+   internlm2-1.8b and mamba2-1.3b at full width and depth, B=2, 4 steps;
+   recurrentgemma-9b at full width, its depth cut to 6 layers, and
+   qwen3-moe-30b-a3b at full width, its depth cut from 48 layers to 6
+   (`QWEN_TRAIN_LAYERS`; the cuts printed), B=1, 3 steps; every kernel
+   count set to 0 just before and held after to `expected_train_counts`
+   (one backward launch and two forward launches (remat) per layer a
+   step, on the bf16 variants; a MoE layer's three grouped GEMMs six
+   times and a ``dx`` and a ``dw`` launch for each): the loss must fall, each step's wall ms split
    by CUDA events into forward, backward and optimizer, tokens/s, the
    last step traced with `torch.profiler` for the card's busy share,
    peak memory against the card's; (d) the launcher
@@ -251,6 +268,7 @@ in a process of its own, after phase 4b's timings.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -299,6 +317,7 @@ from repro_torch.kernels import rglru, ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import analysis_programs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.layers import init_dense  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.data import BatchSpec, make_batch  # noqa: E402
@@ -537,8 +556,10 @@ def check_flash_wgmma_spills() -> dict:
 #: ``rglru_bwd_split`` (32 lanes) and ``rglru_bwd_walk`` per CTA width (32,
 #: 64, 128 lanes), the pack scan's
 #: ``pack_scan_warp`` (the scan and its empty walk, first and best fit, each
-#: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``, and
-#: the placement scores' ``placement_scores`` (4 dimensions and any).
+#: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``,
+#: the placement scores' ``placement_scores`` (4 dimensions and any), and
+#: the grouped GEMM's backward ``grouped_gemm_bwd_dx`` and
+#: ``grouped_gemm_bwd_dw`` per type (bf16, float32).
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -561,6 +582,8 @@ SPILL_CHECKED = {
     ("rglru_bwd", "rglru_bwd_split"): 1,
     ("rglru_bwd", "rglru_bwd_walk"): 3,
     ("placement", "placement_scores"): 2,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dx"): 2,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dw"): 2,
 }
 
 
@@ -3615,7 +3638,7 @@ class ForcedRouting:
 
         def forced(logits, k):
             probs, _, own = self._route(logits, k)
-            top_i = next(calls)
+            top_i = next(calls).to(own.device)
             self.forced_calls += 1
             self.flips += int((own.sort(-1).values != top_i.sort(-1).values).any(-1).sum())
             top_p = probs.gather(-1, top_i)
@@ -3629,6 +3652,36 @@ class ForcedRouting:
 
     def __exit__(self, *exc):
         moe_lib._route = self._route
+
+
+class KeptPairs:
+    """Around phase 9 (c)'s steps of a MoE model: the kept (token, choice)
+    pairs of every dispatch (`moe_lib._sort_pairs`), read from the device
+    once the steps are done, which is what the grouped GEMMs and their
+    backward take (the routing depends on the data)."""
+
+    def __init__(self):
+        self.kept: list[torch.Tensor] = []
+        self.pairs = 0
+        self._sort_pairs = moe_lib._sort_pairs
+
+    def _recording(self, top_i, *args):
+        out = self._sort_pairs(top_i, *args)
+        self.kept.append(out[2][-1])
+        self.pairs = top_i.numel()
+        return out
+
+    def summary(self) -> dict:
+        kept = [int(k) for k in self.kept]
+        return {"dispatches": len(kept), "pairs": self.pairs, "kept_min": min(kept),
+                "kept_max": max(kept), "kept_mean": float(np.mean(kept))}
+
+    def __enter__(self):
+        moe_lib._sort_pairs = self._recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib._sort_pairs = self._sort_pairs
 
 
 #: The kernels whose float32 calls all take their ``simt`` variant.
@@ -3732,6 +3785,17 @@ BWD_CASES = [
 #: tests read them too.
 SSD_BWD_CASE = (2, 4096, 64, 64, 128, 128)
 RGLRU_BWD_CASE = (1, 4096, 4096)
+#: (a) the grouped GEMM's backward kernels at qwen3-moe-30b-a3b's training
+#: call: the segments of a real routing of B 1 x S `GG_BWD_TOKENS` (its
+#: router at init on N(0, 1) activations; 16 dispatch groups, capacity 20
+#: an expert a group, 32,768 pairs, the dropped ones past the segments), at
+#: the gate/up products' (K, F) and the down product's; and the same
+#: segments with the experts `GG_BWD_EMPTY` left empty, their rows joining
+#: the dropped tail.
+GG_BWD_ARCH = "qwen3-moe-30b-a3b"
+GG_BWD_TOKENS = 4096
+GG_BWD_SHAPES = (("gate/up", 2048, 768), ("down", 768, 2048))
+GG_BWD_EMPTY = (0, 5, 77, 127)
 #: The backward against its plain version, relative to the largest |grad|
 #: of dq, dk and dv: (atol as a share of it, rtol), the forward's limits
 #: (defined beside the kernel, where the card tests read them too).  The
@@ -3758,24 +3822,45 @@ TRAIN_ATOL = 1e-3
 RG_TRAIN_CUT = dict(layer_pattern=("recurrent", "recurrent", "attention"),
                     window_pattern=(None, None, 2048))
 #: (b) the configs held card against CPU, each at full width: (arch, its
-#: cut).  internlm2-1.8b and mamba2-1.3b at `TRAIN_PARITY_LAYERS` layers,
-#: recurrentgemma-9b at one group of `RG_TRAIN_CUT` (3 layers).
+#: cut).  internlm2-1.8b, mamba2-1.3b and qwen3-moe-30b-a3b at
+#: `TRAIN_PARITY_LAYERS` layers, recurrentgemma-9b at one group of
+#: `RG_TRAIN_CUT` (3 layers).  The MoE model's CPU runs take the card runs'
+#: expert choices (`ForcedRouting`), as phase 8 does.
 TRAIN_PARITY = {
     TRAIN_ARCH: dict(num_layers=TRAIN_PARITY_LAYERS),
     "mamba2-1.3b": dict(num_layers=TRAIN_PARITY_LAYERS),
     "recurrentgemma-9b": dict(RG_TRAIN_CUT, num_layers=3),
+    "qwen3-moe-30b-a3b": dict(num_layers=TRAIN_PARITY_LAYERS),
 }
+#: qwen3-moe-30b-a3b's depth in (c), cut from 48 layers to fit one card's
+#: 80 GB: a layer holds some 0.623 B parameters (604 M of them expert
+#: stacks), 7.5 GB at 12 bytes each (a bf16 weight and its grad, two
+#: float32 moments); the untied embedding and unembedding (151,936 words)
+#: another 7.5 GB and the float32 logits 2.5 GB before their grad: 6
+#: layers is some 52 GB of state.  grok-1-314b cannot train on one card at
+#: any depth (4.8 B expert parameters a layer, some 58 GB of state for
+#: one): it trains only in the CPU tests' smoke variant.
+QWEN_TRAIN_LAYERS = 6
+#: (b)'s configs held by their gradients alone, with no train step after:
+#: qwen3-moe-30b-a3b's 1.9 B float32 parameters (2 layers, 151,936 words)
+#: make an AdamW step on the CPU take some 50 s, which the 1,200 s limit
+#: cannot spare, for the optimizer the other configs' steps already hold.
+#: Its launch counts are read around the card's gradient call (one forward
+#: and backward: a step's launches).
+TRAIN_PARITY_GRADS_ONLY = ("qwen3-moe-30b-a3b",)
 #: (c) bf16 with remat at `TRAIN_BATCH` x `TRAIN_SEQ` (train_4k's sequence,
 #: the batch cut from 256 to fit one card), AdamW steps on one fixed batch
 #: (make_batch seed 0): (arch, cut, batch, steps).  internlm2-1.8b and
 #: mamba2-1.3b at full width and depth; recurrentgemma-9b at full width, its
 #: depth cut from 38 layers to two groups of `RG_TRAIN_CUT` (6 layers), at
-#: B 1.
+#: B 1; qwen3-moe-30b-a3b at full width, its depth cut to
+#: `QWEN_TRAIN_LAYERS`, at B 1.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 4, 1e-3
 TRAIN_RUNS = {
     TRAIN_ARCH: (dict(), TRAIN_BATCH, TRAIN_STEPS),
     "mamba2-1.3b": (dict(), TRAIN_BATCH, TRAIN_STEPS),
     "recurrentgemma-9b": (dict(RG_TRAIN_CUT, num_layers=6), 1, 3),
+    "qwen3-moe-30b-a3b": (dict(num_layers=QWEN_TRAIN_LAYERS), 1, 3),
 }
 #: (d) the launcher's smoke run.
 LAUNCH_TRAIN_STEPS = 3
@@ -3791,12 +3876,13 @@ def _bwd_reset() -> None:
 def reset_train_counts() -> None:
     """Every launch count the training path reads, set to 0."""
     _bwd_reset()
-    for mod in (flash, ssd, rglru):
+    for mod in (flash, ssd, rglru, gg):
         mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_VARIANT:
             mod.LAUNCHES_BY_VARIANT[k] = 0
-    ssd.BWD_LAUNCHES = rglru.BWD_LAUNCHES = 0
-    for counts in (ssd.BWD_LAUNCHES_BY_VARIANT, rglru.BWD_LAUNCHES_BY_VARIANT):
+    ssd.BWD_LAUNCHES = rglru.BWD_LAUNCHES = gg.BWD_LAUNCHES = 0
+    for counts in (ssd.BWD_LAUNCHES_BY_VARIANT, rglru.BWD_LAUNCHES_BY_VARIANT,
+                   gg.BWD_LAUNCHES_BY_VARIANT):
         for k in counts:
             counts[k] = 0
 
@@ -3812,18 +3898,26 @@ def train_counts() -> dict:
             "ssd_scan": ssd.LAUNCHES, "ssd_scan_by_variant": dict(ssd.LAUNCHES_BY_VARIANT),
             "ssd_scan_backward": ssd.BWD_LAUNCHES,
             "ssd_scan_backward_by_variant": dict(ssd.BWD_LAUNCHES_BY_VARIANT),
-            "rglru_scan": rglru.LAUNCHES, "rglru_scan_backward": rglru.BWD_LAUNCHES}
+            "rglru_scan": rglru.LAUNCHES, "rglru_scan_backward": rglru.BWD_LAUNCHES,
+            "grouped_gemm": gg.LAUNCHES, "grouped_gemm_by_variant": dict(gg.LAUNCHES_BY_VARIANT),
+            "grouped_gemm_bwd": gg.BWD_LAUNCHES,
+            "grouped_gemm_bwd_by_variant": dict(gg.BWD_LAUNCHES_BY_VARIANT)}
 
 
 def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
     """`train_counts` after ``steps`` train steps of ``cfg``: one launch of
     each layer's forward kernel a step (two with remat, which recomputes
     each group in the backward) and one of its backward kernel, on the
-    variant of the model's dtype."""
+    variant of the model's dtype; a ``"moe"`` layer's attention counts as
+    an attention layer's, and its experts are three grouped GEMMs a
+    forward (gate, up, down) with a ``dx`` and a ``dw`` launch each in the
+    backward."""
     dtype = tfm.torch_dtype(cfg)
     kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(cfg.num_layers)]
-    n_attn, n_ssd, n_rec = (kinds.count(k) for k in ("attention", "ssd", "recurrent"))
+    n_ssd, n_rec, n_moe = (kinds.count(k) for k in ("ssd", "recurrent", "moe"))
+    n_attn = kinds.count("attention") + n_moe
     fwd = 2 if remat else 1
+    gg_variant = gg._variant(cfg.d_model, cfg.d_ff, dtype)
 
     def by(variants, want, n):
         return {v: n if v == want else 0 for v in variants}
@@ -3841,7 +3935,13 @@ def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
             "ssd_scan_backward": steps * n_ssd,
             "ssd_scan_backward_by_variant": by(ssd.BWD_LAUNCHES_BY_VARIANT, ssd._variant(dtype),
                                                steps * n_ssd),
-            "rglru_scan": fwd * steps * n_rec, "rglru_scan_backward": steps * n_rec}
+            "rglru_scan": fwd * steps * n_rec, "rglru_scan_backward": steps * n_rec,
+            "grouped_gemm": 3 * fwd * steps * n_moe,
+            "grouped_gemm_by_variant": by(gg.LAUNCHES_BY_VARIANT, gg_variant,
+                                          3 * fwd * steps * n_moe),
+            "grouped_gemm_bwd": 6 * steps * n_moe,
+            "grouped_gemm_bwd_by_variant": {k: 3 * steps * n_moe
+                                            for k in gg.BWD_LAUNCHES_BY_VARIANT}}
 
 
 def bwd_bound(q, k, window) -> dict:
@@ -4161,6 +4261,173 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
     return checks, timing
 
 
+def gg_training_routing() -> tuple[torch.Tensor, int, int]:
+    """(a)'s segments: ``(offsets, pairs, kept pairs)`` of `GG_BWD_ARCH`'s
+    routing of `GG_BWD_TOKENS` tokens, the way `moe_lib.moe_ffn` sorts
+    them: its router at init (seed 0) on N(0, 1) activations (the scale
+    of the normed residual stream), 16 dispatch groups at capacity 20."""
+    cfg = get_config(GG_BWD_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    router = init_dense(gen, cfg.d_model, cfg.num_experts, torch.float32)
+    x = torch.randn((GG_BWD_TOKENS, cfg.d_model), generator=gen, device="cuda")
+    _, _, top_i = moe_lib._route(x @ router, cfg.experts_per_token)
+    groups = cfg.moe_dispatch_groups
+    capacity = int(max(1, cfg.moe_capacity_factor * cfg.experts_per_token * GG_BWD_TOKENS
+                       / (cfg.num_experts * groups)))
+    keep, order, offsets = moe_lib._sort_pairs(top_i, cfg.num_experts, capacity, groups)
+    if (capacity, order.numel()) != (20, 32_768):
+        raise AssertionError(f"(a) routing: capacity {capacity}, {order.numel()} pairs")
+    return offsets, order.numel(), int(keep.sum())
+
+
+def gg_bwd_bound(kernel, x, w, offsets) -> dict:
+    """``dx``: dy's kept rows and the weights of every expert that has a
+    row read, all of dx written (its zero rows too); ``dw``: x's and dy's
+    kept rows read, every expert's dw written.  2·N·K·F operations over
+    the kept rows, at the bf16 tensor-core peak in bf16."""
+    e, k, f = w.shape
+    item = x.element_size()
+    bounds = offsets.cpu().numpy()
+    n_kept = int(bounds[-1] - bounds[0])
+    touched = int((np.diff(bounds) > 0).sum())
+    if kernel == "dx":
+        bytes_moved = (n_kept * f + touched * k * f + x.shape[0] * k) * item
+    else:
+        bytes_moved = (n_kept * (k + f) + e * k * f) * item
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else SIMT_OPS_PER_S
+    return {**_bound(bytes_moved, 2 * n_kept * k * f, peak), "rows": n_kept,
+            "experts_touched": touched}
+
+
+def gg_bwd_launch(kernel, x, w, offsets, dy) -> torch.Tensor:
+    """One backward kernel through `gg._dispatch_bwd`, checked to have
+    launched once; dx's rows outside every segment checked zero."""
+    before = dict(gg.BWD_LAUNCHES_BY_VARIANT)
+    dx, dw = gg._dispatch_bwd(x, w, offsets, dy, need_dx=kernel == "dx",
+                              need_dw=kernel == "dw")
+    torch.cuda.synchronize()
+    rose = {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[v] for v in before}
+    if rose != {v: int(v == kernel) for v in before}:
+        raise AssertionError(f"grouped_gemm backward: expected one {kernel} launch, "
+                             f"counted {rose}")
+    if kernel == "dw":
+        return dw
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    if bool(dx[:lo].any()) or bool(dx[hi:].any()):
+        raise AssertionError("grouped_gemm backward dx: rows outside the segments not zero")
+    return dx
+
+
+def _grouped_mm_bwd_yardstick(kernel, x, w, offsets, dy, want, n_kept) -> dict:
+    """``torch._grouped_mm`` for the same product, where this PyTorch has
+    it and takes the layout: ``dx`` as ``(dy, wᵀ)`` with the segments'
+    ends as offsets, ``dw`` as ``(xᵀ, dy)`` with them on the contraction;
+    where it refuses, ``library_ms`` None and its message."""
+    out = {"library": "torch._grouped_mm", "library_ms": None}
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None:
+        out["library_error"] = "this PyTorch has no torch._grouped_mm"
+        return out
+    ends = offsets[1:].contiguous()
+    if kernel == "dx":
+        def call():
+            return grouped_mm(dy, w.transpose(-2, -1), offs=ends)
+    else:
+        def call():
+            return grouped_mm(x.t(), dy, offs=ends)
+    try:
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as exc:
+        out["library_error"] = f"{type(exc).__name__}: {str(exc).strip().splitlines()[0][:300]}"
+        log(f"    torch._grouped_mm refused {kernel}: {out['library_error']}")
+        return out
+    if kernel == "dx":
+        got, want = got[:n_kept], want[:n_kept]
+    out["library_max_abs_err"] = float((got.float() - want.float()).abs().max())
+    del got
+    out["library_ms"] = time_cold_ms(call, reps=5)
+    return out
+
+
+def phase_gg_backward_vs_plain() -> tuple[list, dict]:
+    """(a): the grouped GEMM's ``dx`` and ``dw`` kernels on (a)'s routing
+    (`gg_training_routing`) at each `GG_BWD_SHAPES` product, in bf16 and
+    float32, against `grouped_gemm_backward_plain` at the forward's limits
+    (`TOLERANCE`), each launch counted, repeated bit for bit, and timed cold
+    beside its bound, its plain version and ``torch._grouped_mm``; then the
+    same with the experts `GG_BWD_EMPTY` left empty (their dw zero).  Both
+    limits are for outputs of O(1), so each kernel's dy makes its output
+    O(1): N(0, K/F) for dx (w is N(0, 1/K)), N(0, 1/m) for dw (x is N(0,
+    1)), m the mean rows of a non-empty segment."""
+    offsets, pairs, kept = gg_training_routing()
+    counts = np.diff(offsets.cpu().numpy())
+    mean_rows = float(counts[counts > 0].mean())
+    cut = counts.copy()
+    cut[list(GG_BWD_EMPTY)] = 0
+    empty = torch.from_numpy(np.concatenate([[0], np.cumsum(cut)]).astype(np.int32)).cuda()
+    log(f"  grouped GEMM backward: {pairs} pairs, {kept} kept over {int((counts > 0).sum())} "
+        f"experts ({int(counts.min())}-{int(counts.max())} rows, mean {mean_rows:.1f}); the "
+        f"cut case leaves experts {GG_BWD_EMPTY} empty ({int(cut.sum())} kept)")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    checks, timing = [], {}
+    e_n = len(counts)
+    for label, k, f in GG_BWD_SHAPES:
+        x32 = torch.randn((pairs, k), generator=gen, device="cuda")
+        w32 = torch.randn((e_n, k, f), generator=gen, device="cuda") / np.sqrt(k)
+        dy32 = {"dx": torch.randn((pairs, f), generator=gen, device="cuda") * np.sqrt(k / f),
+                "dw": torch.randn((pairs, f), generator=gen, device="cuda") / np.sqrt(mean_rows)}
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w = x32.to(dtype), w32.to(dtype)
+            dys = {kernel: dy.to(dtype) for kernel, dy in dy32.items()}
+            name = str(dtype).replace("torch.", "")
+            for case, offs in (("routing", offsets), ("empty experts", empty)):
+                for kernel in ("dx", "dw"):
+                    dy = dys[kernel]
+                    got = gg_bwd_launch(kernel, x, w, offs, dy)
+                    want = gg.grouped_gemm_backward_plain(
+                        x, w, offs, dy, need_dx=kernel == "dx",
+                        need_dw=kernel == "dw")[0 if kernel == "dx" else 1]
+                    check = {"kernel": f"grouped_gemm_bwd_{kernel}", "case": case, **_compare(
+                        f"grouped_gemm backward {kernel} {label} ({case})", dtype, got, want)}
+                    if not torch.equal(got, gg_bwd_launch(kernel, x, w, offs, dy)):
+                        raise AssertionError(f"{check['label']} {dtype}: a repeat differs")
+                    if kernel == "dw":
+                        bounds = offs.cpu().numpy()
+                        for ex in np.flatnonzero(np.diff(bounds) == 0):
+                            if bool(got[ex].any()):
+                                raise AssertionError(f"{check['label']}: empty expert {ex}'s "
+                                                     "dw is not zero")
+                    checks.append(check)
+                    log(f"  {check['label']} {name}: max abs err {check['max_abs_err']:.3g} "
+                        f"(largest {check['max_abs_want']:.3g}); bit-equal repeat")
+                    if case != "routing":
+                        del got, want
+                        continue
+                    t = {"shape": [pairs, k, f], "dtype": name, "mean_rows": mean_rows,
+                         **gg_bwd_bound(kernel, x, w, offs)}
+                    need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
+                    t["ms"] = time_cold_ms(lambda: gg._dispatch_bwd(x, w, offs, dy, **need), reps=5)
+                    t["plain_ms"] = time_cold_ms(lambda: gg.grouped_gemm_backward_plain(
+                        x, w, offs, dy, **need), reps=2)
+                    t.update(_grouped_mm_bwd_yardstick(kernel, x, w, offs, dy, want, t["rows"]))
+                    key = f"{kernel} {label} {name}"
+                    timing[key] = t
+                    check["timing"] = key
+                    lib = ("none" if t["library_ms"] is None else
+                           f"{t['library_ms']:.4f} ms")
+                    log(f"  grouped_gemm_bwd {key}: {t['ms']:.4f} ms, plain "
+                        f"{t['plain_ms']:.4f}, torch._grouped_mm {lib}, bound "
+                        f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB, "
+                        f"{t['ops'] / 1e9:.1f} GFLOP)")
+                    del got, want
+            del x, w, dys
+            torch.cuda.empty_cache()
+        del x32, w32, dy32
+        torch.cuda.empty_cache()
+    return checks, timing
+
+
 def _train_cfg(arch=TRAIN_ARCH, **updates):
     return dataclasses.replace(get_config(arch), **updates)
 
@@ -4188,42 +4455,29 @@ def _leaf_grads(cfg, model, batch, device) -> dict:
     return grads
 
 
-def train_card_vs_cpu(arch: str) -> dict:
-    """(b): ``arch`` at full width, cut as `TRAIN_PARITY` says, float32, on
-    the card and on the CPU from the same weights and batch: every gradient
-    leaf of `loss_fn`, then one `train` step's loss, grad norm and every
-    updated weight; the step's launches counted on the ``simt`` variants."""
-    cfg = _train_cfg(arch, dtype="float32", **TRAIN_PARITY[arch])
-    cpu_model = tfm.init_params(cfg, seed=0, device="cpu")
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    batch = make_batch(cfg, BatchSpec(1, TRAIN_PARITY_SEQ), seed=0)
+def _card_vs_cpu_step(arch, cfg, card_model, cpu_model, batch, card_then_cpu) -> dict:
+    """(b)'s train step: one `train` step on the card, its launches
+    counted, then on the CPU; loss, grad norm and every updated weight
+    within `TRAIN_ATOL`."""
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
-
-    card_grads = _leaf_grads(cfg, card_model, batch, "cuda")
-    cpu_grads = _leaf_grads(cfg, cpu_model, batch, "cpu")
-    grad_errs = {}
-    for path, wants in cpu_grads.items():
-        for got, want in zip(card_grads[path], wants):
-            scale = float(want.abs().max())
-            err = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
-            if not err <= TRAIN_ATOL:
-                raise AssertionError(f"(b) {arch} gradient {path}: card vs CPU {err:.3g} of "
-                                     f"its largest |grad| {scale:.3g}")
-            grad_errs[path] = max(grad_errs.get(path, 0.0), err)
-    del card_grads, cpu_grads
-    worst_grad_path = max(grad_errs, key=grad_errs.get)
-
-    reset_train_counts()
-    t0 = time.perf_counter()
-    card = _one_step(cfg, card_model, batch, opt_cfg, "cuda")
-    card_s = time.perf_counter() - t0
-    counts, expected = train_counts(), expected_train_counts(cfg, 1, remat=False)
-    if counts != expected:
-        raise AssertionError(f"(b) {arch}: launches {counts}, expected {expected}")
     init = [p.detach().clone() for p in cpu_model.parameters()]
-    t0 = time.perf_counter()
-    cpu = _one_step(cfg, cpu_model, batch, opt_cfg, "cpu")
-    cpu_s = time.perf_counter() - t0
+    timed = {}
+
+    def step_on(device, model):
+        if device == "cuda":
+            reset_train_counts()
+        t0 = time.perf_counter()
+        row = _one_step(cfg, model, batch, opt_cfg, device)
+        timed[device] = time.perf_counter() - t0
+        if device == "cuda":
+            timed["counts"] = train_counts()
+        return row
+
+    card, cpu = card_then_cpu(lambda: step_on("cuda", card_model),
+                              lambda: step_on("cpu", cpu_model))
+    expected = expected_train_counts(cfg, 1, remat=False)
+    if timed["counts"] != expected:
+        raise AssertionError(f"(b) {arch} step: launches {timed['counts']}, expected {expected}")
     # What the weights check would read had the card left every weight as it was.
     unchanged = max(float((p.detach() - w).abs().max())
                     for p, w in zip(cpu_model.parameters(), init))
@@ -4242,21 +4496,87 @@ def train_card_vs_cpu(arch: str) -> dict:
                 worst, worst_path = err, path
     if worst > TRAIN_ATOL:
         raise AssertionError(f"(b) {arch} updated weight {worst_path}: card vs CPU {worst:.3g}")
+    return {"card": card, "cpu": cpu, "step_launches": timed["counts"],
+            "max_weight_err": worst, "max_weight_err_leaf": worst_path,
+            "unchanged_weight_reading": unchanged, "card_s": timed["cuda"],
+            "cpu_s": timed["cpu"]}
+
+
+def train_card_vs_cpu(arch: str) -> dict:
+    """(b): ``arch`` at full width, cut as `TRAIN_PARITY` says, float32, on
+    the card and on the CPU from the same weights and batch: every gradient
+    leaf of `loss_fn`, its launches counted on the ``simt`` variants, then
+    (unless `TRAIN_PARITY_GRADS_ONLY`) one `train` step's loss, grad norm
+    and every updated weight.  A MoE model's CPU runs take the card runs'
+    expert choices (`ForcedRouting`), and the rows whose own choices
+    differ are counted."""
+    cfg = _train_cfg(arch, dtype="float32", **TRAIN_PARITY[arch])
+    cpu_model = tfm.init_params(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = make_batch(cfg, BatchSpec(1, TRAIN_PARITY_SEQ), seed=0)
+    routings = []
+
+    def card_then_cpu(card_fn, cpu_fn):
+        if "moe" not in cfg.layer_pattern:
+            return card_fn(), cpu_fn()
+        routing = ForcedRouting()
+        routings.append(routing)
+        with routing.recording():
+            on_card = card_fn()
+            routing.forcing()
+            on_cpu = cpu_fn()
+        if routing.forced_calls != len(routing.choices) or not routing.choices:
+            raise AssertionError(f"(b) {arch}: {len(routing.choices)} routings recorded, "
+                                 f"{routing.forced_calls} forced")
+        return on_card, on_cpu
+
+    def card_grads():
+        reset_train_counts()
+        grads = _leaf_grads(cfg, card_model, batch, "cuda")
+        launched.update(train_counts())
+        return grads
+
+    launched = {}
+    card, cpu = card_then_cpu(card_grads, lambda: _leaf_grads(cfg, cpu_model, batch, "cpu"))
+    expected = expected_train_counts(cfg, 1, remat=False)
+    if launched != expected:  # one forward and backward: a step's launches
+        raise AssertionError(f"(b) {arch}: launches {launched}, expected {expected}")
+    grad_errs = {}
+    for path, wants in cpu.items():
+        for got, want in zip(card[path], wants):
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
+            if not err <= TRAIN_ATOL:
+                raise AssertionError(f"(b) {arch} gradient {path}: card vs CPU {err:.3g} of "
+                                     f"its largest |grad| {scale:.3g}")
+            grad_errs[path] = max(grad_errs.get(path, 0.0), err)
+    del card, cpu
+    worst_grad_path = max(grad_errs, key=grad_errs.get)
+    out = {"arch": arch, "layers": cfg.num_layers, "pattern": list(cfg.layer_pattern),
+           "seq": TRAIN_PARITY_SEQ, "launches": launched, "grad_errs": grad_errs,
+           "max_grad_err": grad_errs[worst_grad_path], "max_grad_err_leaf": worst_grad_path,
+           "atol": TRAIN_ATOL, "grads_only": arch in TRAIN_PARITY_GRADS_ONLY}
+    if out["grads_only"]:
+        step = "gradients only (`TRAIN_PARITY_GRADS_ONLY`)"
+    else:
+        out.update(_card_vs_cpu_step(arch, cfg, card_model, cpu_model, batch, card_then_cpu))
+        card, cpu = out["card"], out["cpu"]
+        step = (f"loss card {card['loss']:.6f} CPU {cpu['loss']:.6f}, grad norm "
+                f"{card['grad_norm']:.6f} / {cpu['grad_norm']:.6f}, largest weight difference "
+                f"{out['max_weight_err']:.3g} ({out['max_weight_err_leaf']}; unchanged weights "
+                f"would read {out['unchanged_weight_reading']:.3g}); card {out['card_s']:.2f} s, "
+                f"CPU {out['cpu_s']:.2f} s")
+    if routings:
+        out["routing_flips"] = sum(r.flips for r in routings)
+        out["routed_rows"] = sum(c.shape[0] for r in routings for c in r.choices)
+        step += (f"; the CPU runs took the card's expert choices: {out['routing_flips']} of "
+                 f"{out['routed_rows']} rows would have chosen others")
     log(f"  (b) {arch} at full width, {cfg.num_layers} layers {cfg.layer_pattern} float32, B 1 x "
-        f"S {TRAIN_PARITY_SEQ}: largest gradient difference {grad_errs[worst_grad_path]:.3g} of "
-        f"its leaf's largest |grad| ({worst_grad_path}, {len(grad_errs)} leaves); loss card "
-        f"{card['loss']:.6f} CPU {cpu['loss']:.6f}, grad norm {card['grad_norm']:.6f} / "
-        f"{cpu['grad_norm']:.6f}, largest weight difference {worst:.3g} ({worst_path}; "
-        f"unchanged weights would read {unchanged:.3g}); card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+        f"S {TRAIN_PARITY_SEQ}: largest gradient difference {out['max_grad_err']:.3g} of its "
+        f"leaf's largest |grad| ({worst_grad_path}, {len(grad_errs)} leaves); {step}")
     del card_model, cpu_model
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": cfg.num_layers, "pattern": list(cfg.layer_pattern),
-            "seq": TRAIN_PARITY_SEQ, "card": card, "cpu": cpu, "launches": counts,
-            "grad_errs": grad_errs, "max_grad_err": grad_errs[worst_grad_path],
-            "max_grad_err_leaf": worst_grad_path,
-            "max_weight_err": worst, "max_weight_err_leaf": worst_path,
-            "unchanged_weight_reading": unchanged, "atol": TRAIN_ATOL,
-            "card_s": card_s, "cpu_s": cpu_s}
+    return out
 
 
 def split_trace(trace_path: pathlib.Path, annotation: str) -> dict:
@@ -4299,30 +4619,33 @@ def train_full_width(arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
     steps = []
-    for i in range(n_steps):
-        profiled = i == n_steps - 1
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        if profiled:
-            prof.start()
-        with torch.profiler.record_function(f"train step {i}"):
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch, events=events)
+    kept = KeptPairs() if "moe" in cfg.layer_pattern else contextlib.nullcontext()
+    with kept:
+        for i in range(n_steps):
+            profiled = i == n_steps - 1
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        if profiled:
-            prof.stop()
-        row = {"step": i, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-               "lr": float(metrics["lr"]), "wall_ms": wall_ms, "traced": profiled,
-               "tokens_per_s": batch_size * TRAIN_SEQ / (wall_ms / 1e3),
-               "forward_ms": events[0].elapsed_time(events[1]),
-               "backward_ms": events[1].elapsed_time(events[2]),
-               "optimizer_ms": events[2].elapsed_time(events[3])}
-        steps.append(row)
-        log(f"  (c) {arch} step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
-            f"lr {row['lr']:.2e}; wall {wall_ms:.1f} ms = forward {row['forward_ms']:.1f} + "
-            f"backward {row['backward_ms']:.1f} + optimizer {row['optimizer_ms']:.1f}; "
-            f"{row['tokens_per_s']:.0f} tokens/s" + (" (traced)" if profiled else ""))
+            if profiled:
+                prof.start()
+            with torch.profiler.record_function(f"train step {i}"):
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch, events=events)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            if profiled:
+                prof.stop()
+            row = {"step": i, "loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(metrics["lr"]), "wall_ms": wall_ms, "traced": profiled,
+                   "tokens_per_s": batch_size * TRAIN_SEQ / (wall_ms / 1e3),
+                   "forward_ms": events[0].elapsed_time(events[1]),
+                   "backward_ms": events[1].elapsed_time(events[2]),
+                   "optimizer_ms": events[2].elapsed_time(events[3])}
+            steps.append(row)
+            log(f"  (c) {arch} step {i}: loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
+                f"lr {row['lr']:.2e}; wall {wall_ms:.1f} ms = forward {row['forward_ms']:.1f} + "
+                f"backward {row['backward_ms']:.1f} + optimizer {row['optimizer_ms']:.1f}; "
+                f"{row['tokens_per_s']:.0f} tokens/s" + (" (traced)" if profiled else ""))
     launches = train_counts()
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4346,6 +4669,10 @@ def train_full_width(arch: str) -> dict:
     busy = ("not measured (the trace holds no device work)" if not traced["device_ops"] else
             f"{1 - traced['device_idle_share']:.4f} of {traced['wave_ms']:.1f} ms, by group "
             + ", ".join(f"{g} {ms:.1f}" for g, ms in traced["device_ms_by_group"].items()))
+    kept = kept.summary() if isinstance(kept, KeptPairs) else None
+    if kept:
+        log(f"  (c) {arch}: {kept['dispatches']} dispatches kept {kept['kept_min']}-"
+            f"{kept['kept_max']} (mean {kept['kept_mean']:.0f}) of {kept['pairs']} pairs")
     log(f"  (c) {arch} launches {launches}; peak memory {peak / 2**30:.2f} GiB of "
         f"{total / 2**30:.2f} GiB; traced step: card busy {busy}; "
         f"{traced['host_launch_calls']} host launch calls")
@@ -4353,7 +4680,7 @@ def train_full_width(arch: str) -> dict:
     torch.cuda.empty_cache()
     return {"arch": arch, "reduced": reduced, "layers": cfg.num_layers, "batch": batch_size,
             "seq": TRAIN_SEQ, "remat": True, "dtype": cfg.dtype, "steps": steps,
-            "launches": launches, "rglru_bwd_by_variant": rglru_bwd,
+            "launches": launches, "rglru_bwd_by_variant": rglru_bwd, "moe_kept_pairs": kept,
             "peak_memory_bytes": peak, "card_memory_bytes": total, "traced_step": traced}
 
 
@@ -4394,6 +4721,8 @@ def phase_training() -> dict:
     out["kernel_checks"], out["timing"] = phase_backward_vs_plain()
     scan_checks, out["scan_timing"] = phase_scan_backward_vs_plain()
     out["kernel_checks"] += scan_checks
+    gg_checks, out["gg_timing"] = phase_gg_backward_vs_plain()
+    out["kernel_checks"] += gg_checks
     out["card_vs_cpu"] = {arch: train_card_vs_cpu(arch) for arch in TRAIN_PARITY}
     out["full_width"] = {arch: train_full_width(arch) for arch in TRAIN_RUNS}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -4495,6 +4824,44 @@ def scan_backward_entries(training: dict) -> list[dict]:
         else:
             entry["lanes"] = t["lanes"]
         out.append(entry)
+    return out
+
+
+def gg_backward_entries(training: dict) -> list[dict]:
+    """The grouped GEMM's backward kernels' entries of the kernels line:
+    launches in (c) (qwen3-moe-30b-a3b's), the largest error of (a), and
+    the times at qwen3-moe-30b-a3b's bf16 gate/up product, every (a) timing
+    beside under ``shapes``."""
+    runs = training["full_width"]
+    out = []
+    for kernel in ("dx", "dw"):
+        name = f"grouped_gemm_bwd_{kernel}"
+        t = training["gg_timing"][f"{kernel} gate/up bfloat16"]
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_error",
+                  "library_max_abs_err", "rows", "experts_touched")
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu",
+            "replaces": "src/repro/models/moe.py:133",
+            "replaces_note": "no Pallas kernel: jax.grad of moe_ffn's capacity-buffer "
+                             "einsums, whose forward the Pallas grouped_gemm "
+                             "(src/repro/kernels/grouped_gemm.py:32) computes",
+            "launches": runs[GG_BWD_ARCH]["launches"]["grouped_gemm_bwd_by_variant"][kernel],
+            "launches_by_run": {arch: r["launches"]["grouped_gemm_bwd_by_variant"][kernel]
+                                for arch, r in runs.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in training["kernel_checks"]
+                               if c["kernel"] == name),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": t["library"],
+            "shapes": {key.split(" ", 1)[1]: {f: row[f] for f in fields if f in row}
+                       for key, row in training["gg_timing"].items()
+                       if key.startswith(kernel + " ")},
+        })
     return out
 
 
@@ -4655,8 +5022,8 @@ def main(argv=None) -> int:
             result["model_vs_plain"][arch] = phase_model_vs_plain(arch)
             torch.cuda.empty_cache()
         timer.begin("phase 9", "training: the backward kernels (flash attention, SSD scan, "
-                    f"RG-LRU scan), card vs CPU, full-width {', '.join(TRAIN_RUNS)}, the "
-                    "launcher")
+                    f"RG-LRU scan, grouped GEMM), card vs CPU, full-width "
+                    f"{', '.join(TRAIN_RUNS)}, the launcher")
         training = result["training"] = phase_training()
         kernel_checks += [c for c in training["kernel_checks"] if c["kernel"] == "flash_attention"]
 
@@ -4764,11 +5131,12 @@ def main(argv=None) -> int:
                         "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             result["kernels"].append(entry)
         for entry in result["kernels"]:
-            if entry["name"] in ("flash_attention", "ssd_scan", "rglru_scan"):
+            if entry["name"] in ("flash_attention", "ssd_scan", "rglru_scan", "grouped_gemm"):
                 entry["training_launches"] = {arch: run["launches"][entry["name"]]
                                               for arch, run in training["full_width"].items()}
         result["kernels"].append(backward_kernel_entry(training))
         result["kernels"] += scan_backward_entries(training)
+        result["kernels"] += gg_backward_entries(training)
         result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()
     result["seconds"] = time.perf_counter() - t_start

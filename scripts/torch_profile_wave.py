@@ -23,8 +23,8 @@ card), and the trace gives:
 * the card's busy time in it: the union of its kernel, copy and memset
   intervals, and the idle share ``1 - busy / call``;
 * the card's time by kernel group (flash attention and its backward,
-  flash-decode, the SSD and RG-LRU scans and their backwards, grouped
-  GEMM, library GEMMs, the rest) and the kernels that take the most;
+  flash-decode, the SSD and RG-LRU scans and their backwards, the grouped
+  GEMM and its backward, library GEMMs, the rest) and the kernels that take the most;
 * the host's kernel launches, its time waiting on the card (synchronizing
   calls and device-to-host copies) and its ops by self time.
 
@@ -73,6 +73,7 @@ GROUPS = (("flash attention", ("flash_wgmma", "flash_simt", "flash_kernel")),
           ("SSD scan", ("ssd_mma", "ssd_cb", "ssd_simt", "ssd_kernel")),
           ("RG-LRU backward", ("rglru_bwd",)),
           ("RG-LRU scan", ("rglru_tma", "rglru_cp_async")),
+          ("grouped GEMM backward", ("grouped_gemm_bwd",)),
           ("grouped GEMM", ("grouped_gemm",)),
           ("library GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -35,8 +35,8 @@ NVCC_FLAGS = (
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: The attention, SSD and RG-LRU kernels (both directions) and the grouped
-#: GEMM need no bit-identity with their plain versions, so they let the
+#: The attention, SSD and RG-LRU kernels and the grouped GEMM (both
+#: directions) need no bit-identity with their plain versions, so they let the
 #: compiler fuse multiply-adds.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
@@ -50,7 +50,8 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "ssd_bwd": (FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh")),
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "rglru_bwd": (FMAD_FLAGS, ("hopper_common.cuh", "mma_common.cuh")),
-    "grouped_gemm": (FMAD_FLAGS, ("hopper_common.cuh",)),
+    "grouped_gemm": (FMAD_FLAGS, ("grouped_gemm_common.cuh", "hopper_common.cuh")),
+    "grouped_gemm_bwd": (FMAD_FLAGS, ("grouped_gemm_common.cuh",)),
     "pack": (NVCC_FLAGS, ()),
     "placement": (NVCC_FLAGS, ()),
 }

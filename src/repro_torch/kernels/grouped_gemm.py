@@ -23,13 +23,26 @@ launch and without reading the offsets:
 
 A build or launch that fails raises; nothing falls back to another kernel.
 
+The backward (``csrc/grouped_gemm_bwd.cu``), for ``dy`` ``(N, F)``: ``dx[r]
+= dy[r] @ w[e(r)]ᵀ`` ``(N, K)``, zero on the rows outside every segment,
+and ``dw[e] = x[seg_e]ᵀ @ dy[seg_e]`` ``(E, K, F)``, zero for an expert
+with no rows; both in x's type, float32 sums rounded once.  Two kernels,
+``"dx"`` and ``"dw"``, each one launch a call, float32 FMAs for both
+types (tensor cores are later work), no float atomics: a repeat is bit
+for bit.
+
 Functions:
 
 * `grouped_gemm_plain` — plain torch: one float32 matmul per non-empty
   segment, cast once (never a per-row gather of ``w``);
 * `grouped_gemm_ragged` — dispatch by device: CPU tensors run the plain
   version, CUDA tensors launch a kernel (or raise).  The MoE block calls
-  this;
+  this; with grad enabled and x or w requiring it, the call goes through
+  `GroupedGemmFn`, whose backward is `grouped_gemm_backward`;
+* `grouped_gemm_backward_plain` — plain torch: one float32 matmul per
+  non-empty segment for each of dx and dw, cast once;
+* `grouped_gemm_backward` — dispatch by device: the plain version on CPU
+  tensors, the ``dx`` and ``dw`` kernels on CUDA tensors (or raise);
 * `grouped_gemm` — the reference's contract ``(x, w, block_expert, *,
   block_t, block_f)``, a thin adapter that turns the blocks of each expert
   into one segment of offsets (gathering the blocks into expert order
@@ -46,14 +59,21 @@ import torch
 
 from ..device import KernelError
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_plain",
-           "grouped_gemm_ragged", "pad_and_sort_tokens"]
+__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_VARIANT", "GroupedGemmFn", "LAUNCHES",
+           "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_backward",
+           "grouped_gemm_backward_plain", "grouped_gemm_plain", "grouped_gemm_ragged",
+           "pad_and_sort_tokens"]
 
 #: Number of CUDA kernel launches made by `grouped_gemm_ragged` (and so by
 #: `grouped_gemm`) in this process.
 LAUNCHES = 0
 #: The same launches by variant (`_variant`).
 LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
+#: Number of backward kernel launches made by `grouped_gemm_backward` (and
+#: so by `GroupedGemmFn`'s backward): each of ``dx`` and ``dw`` counts one.
+BWD_LAUNCHES = 0
+#: The same launches by kernel.
+BWD_LAUNCHES_BY_VARIANT = {"dx": 0, "dw": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: The variants' codes in the C interface.
@@ -73,18 +93,43 @@ def _variant(k: int, f: int, dtype: torch.dtype, *, aligned: bool = True) -> str
     return "simt"
 
 
-def grouped_gemm_plain(x, w, offsets):
-    """Plain torch ragged grouped GEMM; any device.  Reads ``offsets`` on
-    the host and raises unless ``0 <= offsets[0] <= ... <= offsets[E] <= N``."""
-    n = x.shape[0]
+def _bounds(offsets, n: int) -> list[int]:
+    """The offsets on the host, checked: ``0 <= offsets[0] <= ... <=
+    offsets[E] <= n``, else `ValueError`."""
     bounds = offsets.tolist()
     if bounds[0] < 0 or bounds[-1] > n or any(a > b for a, b in zip(bounds, bounds[1:])):
         raise ValueError(f"grouped_gemm: offsets must be nondecreasing in [0, {n}]")
-    out = torch.zeros((n, w.shape[2]), dtype=x.dtype, device=x.device)
+    return bounds
+
+
+def grouped_gemm_plain(x, w, offsets):
+    """Plain torch ragged grouped GEMM; any device.  Reads ``offsets`` on
+    the host and raises unless ``0 <= offsets[0] <= ... <= offsets[E] <= N``."""
+    bounds = _bounds(offsets, x.shape[0])
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
     for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
         if hi > lo:
             out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)
     return out
+
+
+def grouped_gemm_backward_plain(x, w, offsets, dy, *, need_dx: bool = True,
+                                need_dw: bool = True):
+    """Plain torch backward of `grouped_gemm_plain`; any device.  ``(dx,
+    dw)`` in x's type (None where not ``need_*``): per non-empty segment one
+    float32 matmul for each, cast once; the rows outside every segment get
+    zero ``dx``, an empty expert zero ``dw``."""
+    bounds = _bounds(offsets, x.shape[0])
+    dx = torch.zeros_like(x) if need_dx else None
+    dw = torch.zeros_like(w) if need_dw else None
+    for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        if hi > lo:
+            g = dy[lo:hi].float()
+            if need_dx:
+                dx[lo:hi] = (g @ w[e].float().T).to(x.dtype)
+            if need_dw:
+                dw[e] = (x[lo:hi].float().T @ g).to(w.dtype)
+    return dx, dw
 
 
 def _check_inputs(x, w, offsets) -> None:
@@ -130,10 +175,53 @@ def grouped_gemm_ragged(x, w, offsets):
     `_variant` picks on the current stream, and anything it does not take
     raises: another dtype or device, mismatched shapes, a non-contiguous
     tensor.  The kernels do not read the offsets on the host: they clamp
-    each segment into ``[0, N]``.
+    each segment into ``[0, N]``.  When grad is enabled and x or w requires
+    it, the call goes through `GroupedGemmFn`, whose backward is
+    `grouped_gemm_backward`.
     """
     _check_inputs(x, w, offsets)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedGemmFn.apply(x, w, offsets)
     return _dispatch(x, w, offsets)
+
+
+class GroupedGemmFn(torch.autograd.Function):
+    """The grouped GEMM with its gradient: the forward keeps x, w and the
+    offsets; the backward is `grouped_gemm_backward` (the ``dx`` and ``dw``
+    kernels on CUDA tensors, the plain version on the CPU), each of dx and
+    dw computed only where its input needs it."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        ctx.save_for_backward(x, w, offsets)
+        return _dispatch(x, w, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offsets = ctx.saved_tensors
+        dx, dw = grouped_gemm_backward(x, w, offsets, dy.contiguous(),
+                                       need_dx=ctx.needs_input_grad[0],
+                                       need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+def grouped_gemm_backward(x, w, offsets, dy, *, need_dx: bool = True, need_dw: bool = True):
+    """``(dx, dw)`` of the grouped GEMM for ``dy`` ``(N, F)`` in x's type,
+    dispatched by device (None where not ``need_*``).
+
+    CPU tensors run `grouped_gemm_backward_plain`; CUDA tensors launch the
+    ``dx`` and ``dw`` kernels on the current stream, one launch each, and
+    anything they do not take raises, as the forward's wrapper does.
+    """
+    _check_inputs(x, w, offsets)
+    if dy.dtype != x.dtype:
+        raise TypeError(f"grouped_gemm backward: dy is {dy.dtype}, x is {x.dtype}")
+    if dy.device != x.device:
+        raise ValueError(f"grouped_gemm backward: dy is on {dy.device}, x on {x.device}")
+    if tuple(dy.shape) != (x.shape[0], w.shape[2]):
+        raise ValueError(f"grouped_gemm backward: dy must be {(x.shape[0], w.shape[2])}, "
+                         f"got {tuple(dy.shape)}")
+    return _dispatch_bwd(x, w, offsets, dy, need_dx, need_dw)
 
 
 def _dispatch(x, w, offsets, variant: str | None = None):
@@ -162,6 +250,55 @@ def _dispatch(x, w, offsets, variant: str | None = None):
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
     return out
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _bwd_kernel_fn(kernel: str, dtype: torch.dtype):
+    """The C function that launches backward ``kernel`` ("dx" or "dw") for
+    ``dtype``."""
+    from ._build import load_library
+
+    lib = load_library("grouped_gemm_bwd")
+    fn = getattr(lib, f"grouped_gemm_{kernel}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True):
+    """`grouped_gemm_backward` after its checks: the plain version or the
+    kernels.  Each launch records a kernel's count after it succeeds."""
+    global BWD_LAUNCHES
+    if x.device.type == "cpu":
+        return grouped_gemm_backward_plain(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
+    for name, t in (("x", x), ("w", w), ("offsets", offsets), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_gemm backward: {name} must be contiguous on CUDA")
+    n, k = x.shape
+    e, _, f = w.shape
+    dx = dw = None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # Each kernel writes every element of its output: dx's rows outside
+        # the segments and an empty expert's dw as zeros.
+        if need_dx:
+            dx = torch.empty_like(x)
+        if need_dw:
+            dw = torch.empty_like(w)
+        for kernel, out, args in (("dx", dx, (dy, w)), ("dw", dw, (x, dy))):
+            if out is None or (kernel == "dx" and n == 0):
+                continue
+            rc = _bwd_kernel_fn(kernel, x.dtype)(args[0].data_ptr(), args[1].data_ptr(),
+                                                 offsets.data_ptr(), out.data_ptr(), n, k, f,
+                                                 e, stream)
+            if rc != 0:
+                raise KernelError(f"grouped_gemm backward {kernel} kernel launch failed: "
+                                  f"CUDA error {rc}")
+            BWD_LAUNCHES += 1
+            BWD_LAUNCHES_BY_VARIANT[kernel] += 1
+    return dx, dw
 
 
 def grouped_gemm(x, w, block_expert, *, block_t: int = 128, block_f: int = 128):

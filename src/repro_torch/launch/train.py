@@ -6,9 +6,10 @@ plus ``--remat`` (activation checkpointing of each layer group, as the
 reference's production step trains) and ``--device``: it runs on the card
 unless ``--device cpu`` is given.  The reference's ``--production-mesh``
 and ``--multi-pod`` build TPU meshes; the port trains on one card and has
-no mesh yet (ROADMAP queue A).  Attention, SSD (mamba2-1.3b) and recurrent
-(recurrentgemma-9b) configs train; MoE configs raise `NotImplementedError`
-until the grouped GEMM's backward exists.
+no mesh yet (ROADMAP queue A).  Every config trains: attention, SSD
+(mamba2-1.3b), recurrent (recurrentgemma-9b) and MoE (qwen3-moe-30b-a3b,
+grok-1-314b, whose experts' gradients come from the grouped GEMM's
+backward kernels).
 The checkpoint is written in the reference's format
 (`repro_torch.train.checkpoint`).
 
@@ -16,6 +17,8 @@ Example (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --smoke --steps 10 --batch 4 --seq-len 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --smoke --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
       --smoke --steps 3 --device cpu
 """
 from __future__ import annotations

@@ -16,6 +16,15 @@ the reference's parked slot does.  Row for row this is the buffer's
 product, up to the order of float32 sums.  No shape depends on the data,
 so nothing waits on the device.
 
+Training takes the gradient through the same path: autograd through the
+router, the softmax, the top-k values, the renormalised weights and the
+aux loss, the gather of the rows and the `index_copy_` that scatters them
+back, and through the grouped GEMM by its `GroupedGemmFn` (the ``dx`` and
+``dw`` kernels on the card).  A dropped pair gets no gradient from the
+experts, as the reference's parked slot gets none.  The parameters are
+created frozen, as serving wants them; training turns ``requires_grad``
+on.
+
 ``router`` is float32 whatever the model's type (`FLOAT32_PARAMS`), as in
 the reference (`repro/models/moe.py:50`).
 """
@@ -89,6 +98,25 @@ def _slots(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
     return torch.empty_like(flat_e).scatter_(1, order, rank_sorted)
 
 
+def _sort_pairs(top_i: torch.Tensor, num_experts: int, capacity: int, groups: int):
+    """The (token, choice) pairs of ``top_i`` (T, k) in the order the
+    grouped GEMM takes them: ``(keep (T·k,) bool, order (T·k,) int64,
+    offsets (E + 1,) int32)``.  A pair is kept when its rank among its
+    expert's pairs in its dispatch group is below ``capacity``; ``order``
+    lists the kept pairs sorted by expert (routing order within an
+    expert), then the dropped ones, and expert ``e`` owns positions
+    ``offsets[e]:offsets[e + 1]`` of it."""
+    flat_e = top_i.reshape(-1)  # pair p = token * k + choice
+    keep = (_slots(flat_e.reshape(groups, -1), num_experts) < capacity).reshape(-1)
+    # The kept pairs sorted by expert, the dropped ones after them (key E).
+    key = torch.where(keep, flat_e, num_experts)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(num_experts + 1, dtype=torch.int64, device=top_i.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    offsets = torch.cat([counts.new_zeros(1), counts[:num_experts].cumsum(0)]).to(torch.int32)
+    return keep, order, offsets
+
+
 def _expert_ffn(params: MoE, xs: torch.Tensor, offsets: torch.Tensor,
                 activation: str) -> torch.Tensor:
     """The experts' FFN on rows sorted by expert: three grouped GEMMs."""
@@ -124,15 +152,7 @@ def moe_ffn(params: MoE, x: torch.Tensor, *, num_experts: int, experts_per_token
     capacity = tg if dropless else int(
         max(1, capacity_factor * k * t / (num_experts * g)))
 
-    flat_e = top_i.reshape(t * k)  # pair p = token * k + choice
-    keep = (_slots(flat_e.reshape(g, tg * k), num_experts) < capacity).reshape(t * k)
-
-    # The kept pairs sorted by expert, the dropped ones after them (key E).
-    key = torch.where(keep, flat_e, num_experts)
-    order = torch.argsort(key, stable=True)
-    counts = torch.zeros(num_experts + 1, dtype=torch.int64, device=x.device)
-    counts.scatter_add_(0, key, torch.ones_like(key))
-    offsets = torch.cat([counts.new_zeros(1), counts[:num_experts].cumsum(0)]).to(torch.int32)
+    keep, order, offsets = _sort_pairs(top_i, num_experts, capacity, g)
     y_sorted = _expert_ffn(params, xf[order // k], offsets, activation)
     # Back to (token, choice) order; the dropped pairs' rows are zero.
     gathered = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted).reshape(t, k, d)

@@ -20,13 +20,11 @@ Entry points:
 
 Parameters are created frozen (``requires_grad=False``), as serving wants
 them; training (`repro_torch.train`) turns ``requires_grad`` on.
-Training runs ``"attention"``, ``"ssd"`` and ``"recurrent"`` layers, each
-of whose kernels has a backward: flash attention's
-(`kernels.attention.FlashAttentionFn`), the SSD scan's
-(`kernels.ssd.SsdScanFn`) and the RG-LRU scan's
-(`kernels.rglru.RglruScanFn`).  The grouped GEMM has none yet, so
-``"moe"`` layers raise `NotImplementedError` in `forward_train` (ROADMAP
-queue A item 3.2).  The reference's
+Training runs every kind of layer, each of whose kernels has a backward:
+flash attention's (`kernels.attention.FlashAttentionFn`), the SSD scan's
+(`kernels.ssd.SsdScanFn`), the RG-LRU scan's (`kernels.rglru.RglruScanFn`)
+and the grouped GEMM's (`kernels.grouped_gemm.GroupedGemmFn`, the
+``"moe"`` layers' experts).  The reference's
 ``unroll`` and ``act_spec`` are XLA knobs (analysis unrolling, a mesh
 sharding constraint) with no counterpart on one card.
 """
@@ -203,27 +201,22 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 # ---- training -----------------------------------------------------------------
 
-#: The layer kinds `forward_train` runs: every kernel they launch has a
-#: backward.  ``"moe"`` waits for the grouped GEMM's dX/dW (ROADMAP queue A
-#: item 3.2).
-TRAINABLE_KINDS = ("attention", "ssd", "recurrent")
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    untrained = sorted(set(cfg.layer_pattern) - set(TRAINABLE_KINDS))
-    if untrained:
-        raise NotImplementedError(
-            f"{cfg.name}: training {untrained} layers needs backward kernels the port "
-            "does not have yet (ROADMAP queue A item 3.2: MoE training with the grouped "
-            "GEMM's dX/dW)")
+def _moe_ffn(cfg: ModelConfig, layer: Block, h: torch.Tensor, dropless: bool = False):
+    """A ``"moe"`` layer's experts on ``h``, as the config routes them:
+    (output, router aux loss)."""
+    return moe_lib.moe_ffn(
+        layer.moe, h, num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
+        capacity_factor=cfg.moe_capacity_factor, activation=cfg.mlp_activation,
+        dropless=dropless, dispatch_groups=cfg.moe_dispatch_groups)
 
 
 def _apply_slot_train(cfg: ModelConfig, kind: str, window: int | None, layer: Block,
                       x: torch.Tensor, positions: torch.Tensor) -> tuple[torch.Tensor,
                                                                          torch.Tensor]:
-    """Residual application of an ``"attention"``, ``"ssd"`` or
+    """Residual application of an ``"attention"``, ``"moe"``, ``"ssd"`` or
     ``"recurrent"`` block (training / no cache), as the reference's
-    `_apply_slot_train`. Returns (x, aux)."""
+    `_apply_slot_train`. Returns (x, aux): a ``"moe"`` block's router aux
+    loss, zero for the others."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     if kind == "ssd":
@@ -246,7 +239,10 @@ def _apply_slot_train(cfg: ModelConfig, kind: str, window: int | None, layer: Bl
     )
     x = x + h
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
-    h = mlp(layer.mlp, h, cfg.mlp_activation)
+    if kind == "moe":
+        h, aux = _moe_ffn(cfg, layer, h)
+    else:
+        h = mlp(layer.mlp, h, cfg.mlp_activation)
     return x + h, aux
 
 
@@ -271,7 +267,6 @@ def forward_train(params: Transformer, cfg: ModelConfig, batch: dict, *,
     backward recomputes within a group and keeps the residual stream
     between groups.
     """
-    _check_trainable(cfg)
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -363,12 +358,7 @@ def _apply_layer_serve(cfg: ModelConfig, window: int | None, layer: Block,
     x = x + h
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
     if layer.kind == "moe":
-        h, _ = moe_lib.moe_ffn(
-            layer.moe, h, num_experts=cfg.num_experts,
-            experts_per_token=cfg.experts_per_token,
-            capacity_factor=cfg.moe_capacity_factor, activation=cfg.mlp_activation,
-            dropless=decode,  # decode: capacity = T, no drops
-            dispatch_groups=cfg.moe_dispatch_groups)
+        h, _ = _moe_ffn(cfg, layer, h, dropless=decode)  # decode: capacity = T, no drops
     else:
         h = mlp(layer.mlp, h, cfg.mlp_activation)
     return x + h, cache

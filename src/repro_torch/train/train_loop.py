@@ -3,8 +3,9 @@
 Mirrors `repro/train/train_loop.py` on one device (the card unless the
 caller passes ``device="cpu"``).  The reference jits its step and donates
 the state; the port runs eagerly, computes the gradients with autograd
-(the backward kernels of flash attention, the SSD scan and the RG-LRU scan
-under `FlashAttentionFn`, `SsdScanFn` and `RglruScanFn`) and updates the
+(the backward kernels of flash attention, the SSD scan, the RG-LRU scan
+and the grouped GEMM under `FlashAttentionFn`, `SsdScanFn`, `RglruScanFn`
+and `GroupedGemmFn`) and updates the
 parameters and moments in place.  Seeds go through a `torch.Generator`
 (`init_params`), so equal seeds do not give the reference's weights: the
 parity tests carry those across with `repro_torch.interop.params_from_plain`

@@ -32,22 +32,27 @@ def test_every_source_is_in_the_table():
 
 
 def test_the_table_holds_the_port_kernels():
-    """The eleven sources, the backward of flash attention, of the SSD scan
-    and of the RG-LRU scan among them, built with fused multiply-adds like
-    their forwards (no bit-identity with their plain versions is asked):
+    """The twelve sources, the backward of flash attention, of the SSD scan,
+    of the RG-LRU scan and of the grouped GEMM among them, built with fused
+    multiply-adds like their forwards (no bit-identity with their plain
+    versions is asked):
     flash's ``wgmma`` variant on the Hopper helpers its forward uses, the
     SSD's ``mma`` variant on both (its walk on the warp-level ones, its
     grads launch on wgmma), the RG-LRU's on both (its ``split`` on TMA and
-    clusters, its ``walk`` on cp.async)."""
+    clusters, its ``walk`` on cp.async), the grouped GEMM's on the header
+    it shares with its forward (the tile search and the zeroing of the
+    rows outside the segments)."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
-        "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "pack", "placement"}
+        "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "grouped_gemm_bwd", "pack", "placement"}
     assert _build.SOURCES["flash_attention_bwd"] == (
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh"))
     assert _build.SOURCES["ssd_bwd"] == (
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh"))
     assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS,
                                            ("hopper_common.cuh", "mma_common.cuh"))
+    assert _build.SOURCES["grouped_gemm_bwd"] == (_build.FMAD_FLAGS,
+                                                  ("grouped_gemm_common.cuh",))
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

@@ -822,6 +822,112 @@ def test_moe_engines_on_card_give_the_cpu_engine_tokens(cuda, arch):
     assert tokens["cpu"] == tokens[str(cuda)]
 
 
+# ---- the grouped GEMM's backward ------------------------------------------------
+#
+# dx = dy wᵀ and dw = xᵀ dy against `grouped_gemm_backward_plain` (float32
+# matmuls a segment, cast once) at the forward's limits (`TOL`).  Both
+# limits hold an output of O(1), as the forward's are: so each kernel's dy
+# is drawn so that its own output is O(1), N(0, K/F) for dx (w is N(0,
+# 1/K)) and N(0, 1/m) for dw, m the mean rows of a non-empty segment (x is
+# N(0, 1)).
+
+
+def _bwd_dy(seed, n, f, scale, dtype, device):
+    return (_normal(seed, (n, f), torch.float32, device) * scale).to(dtype)
+
+
+def _bwd_checked(x, w, offsets, dy, need_dx=True, need_dw=True):
+    """The backward kernels through the wrapper, each launch counted once;
+    dx's rows outside every segment zero."""
+    before = dict(gg.BWD_LAUNCHES_BY_VARIANT)
+    dx, dw = gg.grouped_gemm_backward(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[v] for v in before} == {
+        "dx": int(need_dx and x.shape[0] > 0), "dw": int(need_dw)}
+    if need_dx:
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        assert not dx[:lo].any() and not dx[hi:].any()
+    return dx, dw
+
+
+def _mean_rows(counts):
+    return max(1.0, float(np.mean([c for c in counts if c] or [1])))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts,k,f,tail", [
+    ([256] * 128, 2048, 768, 0),                   # qwen3's training gate/up
+    ([300, 0, 0, 171, 90, 0, 400, 63], 768, 2048, 17),  # empty experts, drops, down's shape
+    (EDGE_SEGMENTS + [0], 2048, 136, 5),           # partial tiles, an empty last expert
+    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F
+    ([0, 0, 0, 0], 64, 64, 6),                     # every expert empty: all zero
+    ([100, 200, 0, 50], 72, 64, 9),                # K = 72: a K tail of 8
+])
+def test_grouped_gemm_backward_kernels_match_plain(cuda, counts, k, f, tail, dtype):
+    x, w, offsets = _ragged(counts, k, f, dtype, cuda, tail)
+    n = x.shape[0]
+    dy_x = _bwd_dy(2, n, f, np.sqrt(k / f), dtype, cuda)
+    dy_w = _bwd_dy(3, n, f, 1.0 / np.sqrt(_mean_rows(counts)), dtype, cuda)
+    dx, none = _bwd_checked(x, w, offsets, dy_x, need_dw=False)
+    none_too, dw = _bwd_checked(x, w, offsets, dy_w, need_dx=False)
+    assert none is None and none_too is None
+    want_dx = gg.grouped_gemm_backward_plain(x, w, offsets, dy_x, need_dw=False)[0]
+    want_dw = gg.grouped_gemm_backward_plain(x, w, offsets, dy_w, need_dx=False)[1]
+    assert dx.dtype == dw.dtype == dtype
+    torch.testing.assert_close(dx.float(), want_dx.float(), **TOL[dtype])
+    torch.testing.assert_close(dw.float(), want_dw.float(), **TOL[dtype])
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    for e in np.flatnonzero(np.diff(bounds) == 0):
+        assert not dw[e].any(), e  # an empty expert's dw is written, as zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_backward_repeats_bit_for_bit(cuda, dtype):
+    """No float atomics: every element is one thread's sum in a fixed
+    order, so repeats are equal bit for bit."""
+    counts = [0] + EDGE_SEGMENTS + [2, 0]
+    x, w, offsets = _ragged(counts, 768, 2048, dtype, cuda, tail=11)
+    dy = _bwd_dy(4, x.shape[0], 2048, 1.0 / np.sqrt(_mean_rows(counts)), dtype, cuda)
+    first = _bwd_checked(x, w, offsets, dy)
+    for _ in range(5):
+        again = _bwd_checked(x, w, offsets, dy)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_grouped_gemm_fn_on_card_launches_both_kernels(cuda):
+    """`GroupedGemmFn` on the card: one forward launch, then one ``dx`` and
+    one ``dw`` launch in the backward, the gradients those of the plain
+    backward."""
+    counts = [70, 0, 129, 1, 64, 200]
+    x, w, offsets = _ragged(counts, 256, 136, torch.float32, cuda, tail=4)
+    dy = _bwd_dy(5, x.shape[0], 136, 1.0 / np.sqrt(_mean_rows(counts)), torch.float32, cuda)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (gg.LAUNCHES, dict(gg.BWD_LAUNCHES_BY_VARIANT))
+    out = gg.grouped_gemm_ragged(xg, wg, offsets)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == before[0] + 1
+    assert gg.BWD_LAUNCHES_BY_VARIANT == {v: n + 1 for v, n in before[1].items()}
+    want_dx, want_dw = gg.grouped_gemm_backward_plain(x, w, offsets, dy)
+    torch.testing.assert_close(xg.grad, want_dx, **TOL[torch.float32])
+    torch.testing.assert_close(wg.grad, want_dw, **TOL[torch.float32])
+
+
+def test_grouped_gemm_backward_raises_instead_of_falling_back(cuda):
+    x, w, offsets = _ragged([4, 4], 64, 32, torch.float32, cuda)
+    dy = _bwd_dy(6, 8, 32, 1.0, torch.float32, cuda)
+    before = gg.BWD_LAUNCHES
+    with pytest.raises(ValueError):  # not contiguous
+        gg.grouped_gemm_backward(x, w, offsets, dy.t().contiguous().t())
+    with pytest.raises(ValueError):  # another device
+        gg.grouped_gemm_backward(x, w, offsets.cpu(), dy)
+    with pytest.raises(TypeError):  # a dtype the kernels are not built for
+        gg.grouped_gemm_backward(x.half(), w.half(), offsets, dy.half())
+    with pytest.raises(ValueError):  # dy of another shape
+        gg.grouped_gemm_backward(x, w, offsets, dy[:, :16].contiguous())
+    assert gg.BWD_LAUNCHES == before
+
+
 # ---- calibration and the analysis programs ------------------------------
 
 def _random_workloads(name, n, seed):

@@ -52,6 +52,9 @@ def test_split_counts_the_card_busy_once_and_clips_to_the_wave(tpw):
     ("void (anonymous namespace)::wg::flash_bwd_dq_wgmma<256>(CUtensorMap_st, ...)",
      "flash backward"),
     ("(anonymous namespace)::grouped_gemm_simt<float>(...)", "grouped GEMM"),
+    ("void (anonymous namespace)::grouped_gemm_bwd_dx<__nv_bfloat16>(...)",
+     "grouped GEMM backward"),
+    ("void (anonymous namespace)::grouped_gemm_bwd_dw<float>(...)", "grouped GEMM backward"),
     ("void gemv2N_kernel<int, int, float, float>(...)", "library GEMM"),
     ("void (anonymous namespace)::split_kernel<__nv_bfloat16, 256>(...)", "the rest"),
 ])

@@ -189,13 +189,17 @@ def test_opt_state_round_trips_through_the_reference_form():
 #: `test_loss_and_every_gradient_match_reference`'s configs: (arch, the
 #: smoke variant's replaced fields).  recurrentgemma-9b is cut to one
 #: ("recurrent", "recurrent", "attention") group: its 19-slot smoke would
-#: triple the test for the same three kinds of layer.
+#: triple the test for the same three kinds of layer.  The MoE configs run
+#: their smoke variants as they are (two layers of attention and 4 experts,
+#: top-2; 16 dispatch groups of 5 tokens at B 2 x S 40, capacity 3: drops).
 GRAD_CASES = {
     "internlm2-1.8b": dict(num_kv_heads=2),
     "gemma2-2b": dict(num_kv_heads=2),
     "mamba2-1.3b": dict(),
     "recurrentgemma-9b": dict(layer_pattern=("recurrent", "recurrent", "attention"),
                               window_pattern=(None, None, 16), num_layers=3),
+    "qwen3-moe-30b-a3b": dict(),
+    "grok-1-314b": dict(),
 }
 
 
@@ -207,13 +211,19 @@ def test_loss_and_every_gradient_match_reference(arch):
     SSD layers; S = 40 is not a multiple of its chunk of 16, so both take
     the reference's rule, one chunk of 40); recurrentgemma-9b cut to two
     RG-LRU layers and one local-attention layer (MQA, window 16, GeGLU MLPs,
-    embeddings scaled by sqrt(d))."""
+    embeddings scaled by sqrt(d)); smoke qwen3-moe-30b-a3b (QK-norm, gated
+    SiLU experts) and grok-1-314b (attention softcap 30, gated GELU
+    experts), whose total holds the router's aux loss (weight 0.01) beside
+    the cross entropy, and whose capacity drops pairs."""
     cfg = _smoke(arch, **GRAD_CASES[arch])
     batch = make_batch(cfg, BatchSpec(2, 40), seed=1)
     (jt, jce, jg), (tt, tce, tg) = _loss_and_grads(cfg, batch)
     assert tt == pytest.approx(jt, rel=RTOL)
     assert tce == pytest.approx(jce, rel=RTOL)
     _assert_leafwise_close(tg, jg, what=arch)
+    if "moe" in cfg.layer_pattern:
+        assert tt != tce  # the aux loss is in the total
+        assert any("/moe/" in path and "router" in path for path in tg)
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "musicgen-large", "nemotron-4-15b",
@@ -298,26 +308,12 @@ def test_loss_decreases_on_fixed_batch():
     assert hist[-1]["loss"] < hist[0]["loss"] * 0.7
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
-def test_layers_without_a_backward_kernel_raise(arch):
-    """``"moe"`` layers wait for the grouped GEMM's backward: the loss, the
-    forward and `train` raise before any work."""
-    cfg = tsmoke_variant(tget_config(arch))
-    model = ttfm.init_params(cfg, seed=0, device="cpu")
-    batch = batch_to_device(make_batch(cfg, BatchSpec(1, 16)), "cpu")
-    for call in (lambda: ttfm.forward_train(model, cfg, batch),
-                 lambda: ttfm.loss_fn(model, cfg, batch, remat=True),
-                 lambda: ttrain.train(cfg, iter([make_batch(cfg, BatchSpec(1, 16))]), steps=1,
-                                      device="cpu", state={"params": model, "opt": None})):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
-            call()
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "grok-1-314b"])
 def test_launcher_trains_the_ssd_and_recurrent_families(arch, capsys):
     """``python -m repro_torch.launch.train --arch ARCH --smoke --steps 3
-    --device cpu``, in process: three finite losses, the first step's
-    logged."""
+    --device cpu``, in process, for the SSD, recurrent and MoE families:
+    three finite losses, the first step's logged."""
     from repro_torch.launch import train as launch_train
 
     out = launch_train.main(["--arch", arch, "--smoke", "--steps", "3", "--device", "cpu"])
