@@ -20,8 +20,8 @@ version.  Phases, each raising on failure:
    ``flash_bwd_{dkdv,dq}_{wgmma,simt}``, the SSD scan's
    ``ssd_bwd_walk_mma``, ``ssd_bwd_grads_wgmma``, ``ssd_bwd_simt`` and
    ``ssd_bwd_finish``, the RG-LRU scan's ``rglru_bwd_split`` and
-   ``rglru_bwd_walk``, the grouped GEMM's ``grouped_gemm_bwd_dx`` and
-   ``grouped_gemm_bwd_dw``) or in the live loop's kernels
+   ``rglru_bwd_walk``, the grouped GEMM's ``grouped_gemm_bwd_{dx,dw}_wgmma``
+   and ``grouped_gemm_bwd_{dx,dw}_simt``) or in the live loop's kernels
    (``pack_scan_warp``, ``pack_scan_global``, ``placement_scores``) fails
    the phase;
 3. knapsack kernel vs plain on the card, exact equality of ``best``, the
@@ -59,8 +59,7 @@ version.  Phases, each raising on failure:
    its empty walk (`pack.empty_walk`: the walk's n steps without their
    pair loop, the floor the dependent steps set), the placement scores
    beside an empty kernel of the same launch shape (`placement.empty_launch`,
-   the call's floor); then phase 4c's 8-cell
-   replay starts in its process, and every pack-scan launch is held
+   the call's floor); then every pack-scan launch is held
    against `pack_scan_plain` on the card, bit for bit;
 4c. the sharded controller (`core/shard.py`), each part with the live
    loop's kernel counts set to 0 just before it and read just after:
@@ -76,9 +75,13 @@ version.  Phases, each raising on failure:
    `repack()` on the live cells against `REPACK_GOLDEN`; (c) the
    500-stream cost parity on the benchmark trace's first `PARITY_EVENTS`
    events (flat, one cell equal to flat at every step, 8 cells with the
-   market, the last in a process of its own started after phase 4b's
-   timings and joined last, since its market's trial moves take minutes of host work;
-   (c) runs after (d)) against `PARITY_GOLDEN`; (d) a sharded `simulate_churn` on a
+   market), run in processes of their own and joined last, so that the
+   script keeps to its time limit: the 8-cell replay, whose market's
+   trial moves take minutes of host work, from the start of phase 2, the
+   flat and one-cell replays from the start of phase 4c; against
+   `PARITY_GOLDEN`.  So phases 4, 4b and 4c's (a), (b) and (d) are timed
+   beside one or two replay processes (each one host thread, the 8-cell
+   one launching a few knapsacks on the card); (d) a sharded `simulate_churn` on a
    spot catalog (8 cells, a consolidation policy a cell, the batched
    reset, the market) whose whole output dict must digest to
    `CHURN_GOLDEN`'s.  Each step's wall time, kernel ms by kernel (CUDA
@@ -221,19 +224,22 @@ version.  Phases, each raising on failure:
    training call (B=1, S=4096: 16 dispatch groups, capacity 20 an expert
    a group, 32,768 pairs, the dropped ones past the segments) at the
    gate/up products' (K=2048, F=768) and the down product's (K=768,
-   F=2048) shapes, in bf16 and float32, and on the same segments with
-   four experts left empty, against `grouped_gemm_backward_plain` at the
-   forward's limits, each launch counted, bit for bit over a repeat,
-   timed cold beside its bound, its plain version and
-   ``torch._grouped_mm`` (dx as (dy, wᵀ), dw as (xᵀ, dy) with the offsets
-   on the contraction; the message where it refuses);
+   F=2048) shapes, in bf16 (on ``wgmma``, and on ``simt`` forced) and
+   float32 (``simt``), and on the same segments with four experts left
+   empty, against `grouped_gemm_backward_plain` at the forward's limits,
+   each launch counted on its design, bit for bit over a repeat, timed
+   cold beside its bound, its plain version and ``torch._grouped_mm``
+   (dx as (dy, wᵀ), dw as (xᵀ, dy) with the offsets on the contraction;
+   the message where it refuses), the bf16 ``wgmma`` launch in turns with
+   ``simt`` forced on the same inputs;
    (b) float32 at full width on the card and on the CPU from the same
    weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b, mamba2-1.3b and
    qwen3-moe-30b-a3b at 2 layers, recurrentgemma-9b at 3): every gradient
-   leaf within 1e-3 of its largest |grad|, then one train step's loss,
-   grad norm and every updated weight within 1e-3, every backward on
-   ``simt`` (RG-LRU's and the grouped GEMM's one variant); the MoE
-   model's CPU runs take the card runs' expert choices, the rows that
+   leaf within 1e-3 of its largest |grad|, then (but for
+   `TRAIN_PARITY_GRADS_ONLY`) one train step's loss, grad norm and every
+   updated weight within 1e-3, every backward on
+   ``simt`` (RG-LRU's one variant; the grouped GEMM's float32 design);
+   the MoE model's CPU runs take the card runs' expert choices, the rows that
    would have chosen others counted and printed, as in phase 8; (c) bf16
    with remat at S=4096, AdamW steps on one fixed batch (`TRAIN_RUNS`):
    internlm2-1.8b and mamba2-1.3b at full width and depth, B=2, 4 steps;
@@ -243,8 +249,9 @@ version.  Phases, each raising on failure:
    count set to 0 just before and held after to `expected_train_counts`
    (one backward launch and two forward launches (remat) per layer a
    step, on the bf16 variants; a MoE layer's three grouped GEMMs six
-   times and a ``dx`` and a ``dw`` launch for each): the loss must fall, each step's wall ms split
-   by CUDA events into forward, backward and optimizer, tokens/s, the
+   times and a ``dx`` and a ``dw`` launch for each, all on ``wgmma``):
+   the loss must fall, each step's wall ms split by CUDA events into
+   forward, backward and optimizer, tokens/s, the
    last step traced with `torch.profiler` for the card's busy share,
    peak memory against the card's; (d) the launcher
    `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
@@ -262,8 +269,9 @@ CUDA card:
     python3 chip_smoke.py [--json PATH] [--kernel-only]
 
 ``--kernel-only`` runs phases 1-3 and 6.
-``--cells-parity PATH`` is how the script starts phase 4c's 8-cell replay
-in a process of its own, after phase 4b's timings.
+``--parity PART PATH`` is how the script starts phase 4c (c)'s replays
+(``cells``: the 8-cell one; ``flat``: the flat and one-cell ones) in
+processes of their own.
 """
 from __future__ import annotations
 
@@ -558,8 +566,9 @@ def check_flash_wgmma_spills() -> dict:
 #: ``pack_scan_warp`` (the scan and its empty walk, first and best fit, each
 #: for 4 dimensions and 2 choices and for any) and ``pack_scan_global``,
 #: the placement scores' ``placement_scores`` (4 dimensions and any), and
-#: the grouped GEMM's backward ``grouped_gemm_bwd_dx`` and
-#: ``grouped_gemm_bwd_dw`` per type (bf16, float32).
+#: the grouped GEMM's backward ``grouped_gemm_bwd_dx_wgmma`` and
+#: ``grouped_gemm_bwd_dw_wgmma`` (bf16) and ``grouped_gemm_bwd_dx_simt`` and
+#: ``grouped_gemm_bwd_dw_simt`` per type (bf16, float32).
 SPILL_CHECKED = {
     ("decode_attention", "decode_mma"): sum(int(np.log2(512 // d)) + 1
                                             for d in decode.HEAD_DIMS),
@@ -582,8 +591,10 @@ SPILL_CHECKED = {
     ("rglru_bwd", "rglru_bwd_split"): 1,
     ("rglru_bwd", "rglru_bwd_walk"): 3,
     ("placement", "placement_scores"): 2,
-    ("grouped_gemm_bwd", "grouped_gemm_bwd_dx"): 2,
-    ("grouped_gemm_bwd", "grouped_gemm_bwd_dw"): 2,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dx_wgmma"): 1,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dw_wgmma"): 1,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dx_simt"): 2,
+    ("grouped_gemm_bwd", "grouped_gemm_bwd_dw_simt"): 2,
 }
 
 
@@ -1424,12 +1435,10 @@ def phase_live_timing(pack_calls, largest, big) -> dict:
     return out
 
 
-def phase_live_loop(managers, after_timings) -> dict:
+def phase_live_loop(managers) -> dict:
     """Phase 4b: the live re-planning loop on the card — (a), (b), (c), then
     both new kernels timed and the placement kernel against its plain
-    version; ``after_timings()`` is called then (it starts phase 4c's
-    8-cell replay), and the pack scan is checked against its plain version
-    last."""
+    version, and the pack scan checked against its plain version last."""
     out = {}
     with LiveClock() as clock:
         out["main"] = live_main_path(managers, clock)
@@ -1441,7 +1450,6 @@ def phase_live_loop(managers, after_timings) -> dict:
     out["placement_candidates"] = {"max": max(placement_check["candidates"]),
                                    "threshold": heuristics._CUDA_MIN_CANDIDATES}
     out["timing"] = phase_live_timing(clock.pack_calls, largest, big)
-    after_timings()
     out["pack_check"] = check_pack_calls(clock.pack_calls)
     launches = {name: sum(out[part]["counts"][name]["launches"]
                           for part in ("main", "churn_replan", "growth"))
@@ -1476,9 +1484,9 @@ SHARD_WORKERS = 4
 #: the benchmark's 48-event trace, so that the 8-cell replay's market runs
 #: (after its 8th and 16th events).  A market round tries moves until 4
 #: are kept, each a pair of exact cell solves: minutes of host time, so
-#: the 8-cell replay runs in a process of its own beside the end of phase
-#: 4b (its untimed check of the pack launches) and the rest of phase 4c
-#: (`start_cells_parity`).
+#: the 8-cell replay runs in a process of its own from the start of phase
+#: 2, and the flat and one-cell replays in another from the start of phase
+#: 4c (`start_parity`), both joined at (c).
 PARITY_STREAMS = 500
 PARITY_TRACE_EVENTS = 48
 PARITY_EVENTS = 16
@@ -1691,12 +1699,8 @@ def cells_parity(pkg, tick) -> list[float]:
     return costs
 
 
-def cost_parity(pkg, tick, cells=None) -> dict:
-    """(c): `benchmarks/shard.py`'s `_cost_parity` on its trace's first
-    `PARITY_EVENTS` events: flat, one cell, and `cells_parity`; per-step
-    costs.  ``cells``: where another process runs the last replay
-    (`start_cells_parity`), a function that waits for it and returns its
-    costs, called after the other two; else the replay runs here."""
+def flat_parity(pkg, tick) -> list[list[float]]:
+    """(c)'s flat and one-cell replays: their per-step costs."""
     streams, events = parity_trace(pkg)
     tick(None)
     flat = parity_replay(pkg.FleetController(shard_manager(pkg), pkg.ST3,
@@ -1707,7 +1711,21 @@ def cost_parity(pkg, tick, cells=None) -> dict:
                                               sub_max_nodes=SHARD_SUB_MAX_NODES),
                         streams, events)
     tick("one_cell")
-    cells = cells_parity(pkg, tick) if cells is None else cells()
+    return [flat, one]
+
+
+#: (c)'s replays that `run_parity` runs in a process of their own, by name.
+PARITY_PARTS = {"cells": cells_parity, "flat": flat_parity}
+
+
+def cost_parity(pkg, tick, joins=None) -> dict:
+    """(c): `benchmarks/shard.py`'s `_cost_parity` on its trace's first
+    `PARITY_EVENTS` events: `flat_parity` (flat, one cell) and
+    `cells_parity`; per-step costs.  ``joins``: where other processes run
+    them (`start_parity`), ``{part: function}`` that waits for that part's
+    process and returns its costs; else both run here."""
+    flat, one = (flat_parity(pkg, tick) if joins is None else joins["flat"]())
+    cells = cells_parity(pkg, tick) if joins is None else joins["cells"]()
     return {"flat": floats_digest(flat), "flat_final": flat[-1], "cells": floats_digest(cells),
             "cells_final": cells[-1], "one_cell_delta": max(abs(a - b) for a, b in zip(flat, one))}
 
@@ -1926,42 +1944,44 @@ def shard_kernel_entry(sharded: dict, name: str) -> dict:
     return entry
 
 
-#: The 8-cell replay's process must end within this many seconds of its start.
-CELLS_PARITY_TIMEOUT_S = 900
+#: Each of (c)'s processes must end within this many seconds of its start.
+PARITY_TIMEOUT_S = 900
 
 
-def start_cells_parity(workdir: pathlib.Path) -> subprocess.Popen:
-    """(c)'s `cells_parity` in a process of its own (this script with
-    ``--cells-parity``), so that its market's host work runs beside the
-    end of phase 4b (after its timings) and the rest of phase 4c; its
-    outcome and its log go to ``workdir``."""
-    with open(workdir / "cells_parity.log", "w") as out:
+def start_parity(part: str, workdir: pathlib.Path) -> tuple[subprocess.Popen, float]:
+    """(c)'s replay ``part`` of `PARITY_PARTS` in a process of its own (this
+    script with ``--parity``), so that its host work runs beside this
+    process's; its outcome and its log go to ``workdir``.  Returns the
+    process and its start time."""
+    with open(workdir / f"{part}_parity.log", "w") as out:
         return subprocess.Popen(
-            [sys.executable, str(pathlib.Path(__file__).resolve()), "--cells-parity",
-             str(workdir / "cells_parity.json")],
-            stdout=out, stderr=subprocess.STDOUT, cwd=ROOT)
+            [sys.executable, str(pathlib.Path(__file__).resolve()), "--parity", part,
+             str(workdir / f"{part}_parity.json")],
+            stdout=out, stderr=subprocess.STDOUT, cwd=ROOT), time.perf_counter()
 
 
-def finish_cells_parity(proc: subprocess.Popen, workdir: pathlib.Path, t0: float) -> dict:
-    """Wait for `start_cells_parity`'s process (killed past
-    `CELLS_PARITY_TIMEOUT_S`), log its lines and return its outcome."""
+def finish_parity(part: str, started, workdir: pathlib.Path) -> dict:
+    """Wait for `start_parity`'s process of ``part`` (killed past
+    `PARITY_TIMEOUT_S`), log its lines and return its outcome."""
+    proc, t0 = started
     try:
-        rc = proc.wait(timeout=max(1.0, CELLS_PARITY_TIMEOUT_S - (time.perf_counter() - t0)))
+        rc = proc.wait(timeout=max(1.0, PARITY_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
         rc = "killed past its time limit"
-    for line in (workdir / "cells_parity.log").read_text().splitlines():
-        log(f"  [cells] {line}")
+    for line in (workdir / f"{part}_parity.log").read_text().splitlines():
+        log(f"  [{part}] {line}")
     if rc != 0:
-        raise AssertionError(f"(c) the {PARITY_CELLS}-cell replay's process: exit {rc}")
-    return json.loads((workdir / "cells_parity.json").read_text())
+        raise AssertionError(f"(c) the {part} replay's process: exit {rc}")
+    return json.loads((workdir / f"{part}_parity.json").read_text())
 
 
-def run_cells_parity(path: str) -> int:
-    """``--cells-parity PATH``: `cells_parity` on the card, the live loop's
-    kernel counts set to 0 just before it and read just after, every
-    kernel launch of it against its plain version; the outcome to PATH."""
+def run_parity(part: str, path: str) -> int:
+    """``--parity PART PATH``: (c)'s replay ``part`` of `PARITY_PARTS` on the
+    card, the live loop's kernel counts set to 0 just before it and read
+    just after, every kernel launch of it against its plain version; the
+    outcome to PATH."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -1969,7 +1989,7 @@ def run_cells_parity(path: str) -> int:
     steps: dict = {}
     with ShardClock() as clock:
         reset_live_counts()
-        costs = cells_parity(port_package(), card_tick(clock, steps, "c"))
+        costs = PARITY_PARTS[part](port_package(), card_tick(clock, steps, "c"))
         counts = live_counts()
     out = {"costs": costs, "steps": steps, "counts": counts,
            "knapsack_check": (check_knapsack_calls(clock.knapsack_calls)
@@ -1985,10 +2005,11 @@ def add_counts(a: dict, b: dict) -> dict:
     return {k: add_counts(v, b[k]) if isinstance(v, dict) else v + b[k] for k, v in a.items()}
 
 
-def sharded_parts(pkg, out: dict, proc, workdir: pathlib.Path, t0: float) -> "ShardClock":
-    """Phase 4c's parts, (a), (b), (d), (c), into ``out``; (c)'s 8-cell
-    replay is `start_cells_parity`'s process ``proc``, joined last.
-    Returns the clock with the launches made in this process."""
+def sharded_parts(pkg, out: dict, parity: dict, workdir: pathlib.Path) -> "ShardClock":
+    """Phase 4c's parts, (a), (b), (d), (c), into ``out``; (c)'s replays
+    are `start_parity`'s processes ``parity`` (``{part: (process, start
+    time)}``), joined last.  Returns the clock with the launches made in
+    this process."""
     with ShardClock() as clock:
         reset_live_counts()
         big, batched = big_replay(pkg, card_tick(clock, out["steps"], "a"))
@@ -2014,36 +2035,41 @@ def sharded_parts(pkg, out: dict, proc, workdir: pathlib.Path, t0: float) -> "Sh
         out["d"] = {**churn, "counts": live_counts()}
         log(f"  (d) {churn}")
         check_golden("(d)", churn, CHURN_GOLDEN)
-        reset_live_counts()
-        cells: dict = {}
+        joined: dict = {}
 
-        def join() -> list[float]:
-            cells.update(finish_cells_parity(proc, workdir, t0))
-            return cells["costs"]
+        def join(part):
+            def wait():
+                joined[part] = finish_parity(part, parity[part], workdir)
+                return joined[part]["costs"]
+            return wait
 
-        parity = cost_parity(pkg, card_tick(clock, out["steps"], "c"), cells=join)
-        out["c"] = {**parity, "counts": add_counts(live_counts(), cells["counts"])}
-        out["steps"].update(cells["steps"])
-        out["c_checks"] = {"knapsack": cells["knapsack_check"], "pack": cells["pack_check"]}
-        log(f"  (c) flat ${parity['flat_final']:.4f}/h, {PARITY_CELLS} cells "
-            f"${parity['cells_final']:.4f}/h, one cell delta {parity['one_cell_delta']}")
-        check_golden("(c)", parity, PARITY_GOLDEN)
+        costs = cost_parity(pkg, None, joins={part: join(part) for part in PARITY_PARTS})
+        out["c"] = {**costs, "counts": add_counts(*(r["counts"] for r in joined.values()))}
+        for r in joined.values():
+            out["steps"].update(r["steps"])
+        out["c_checks"] = {kind: {"checked": sum(r[f"{kind}_check"]["checked"]
+                                                 for r in joined.values()),
+                                  "max_abs_err": max(r[f"{kind}_check"]["max_abs_err"]
+                                                     for r in joined.values())}
+                           for kind in ("knapsack", "pack")}
+        log(f"  (c) flat ${costs['flat_final']:.4f}/h, {PARITY_CELLS} cells "
+            f"${costs['cells_final']:.4f}/h, one cell delta {costs['one_cell_delta']}")
+        check_golden("(c)", costs, PARITY_GOLDEN)
     return clock
 
 
-def phase_sharded(proc, workdir: pathlib.Path, t0: float) -> dict:
+def phase_sharded(parity: dict, workdir: pathlib.Path) -> dict:
     """Phase 4c: the sharded controller on the card — (a) the 100k replay,
-    (b) the batched repair, (c) the cost parity (its 8-cell replay is
-    `start_cells_parity`'s process ``proc``, started at ``t0`` after phase
-    4b's timings, writing to ``workdir``), (d) a sharded churn replay, each with the
-    live loop's kernel counts set to 0 just before it and read just after,
-    each against the reference's goldens; then every pack and knapsack
-    launch of the phase against its plain version on the card (the 8-cell
-    replay's, in its process), and both timed at the phase's largest
-    launch."""
+    (b) the batched repair, (c) the cost parity (its replays are
+    `start_parity`'s processes ``parity``, writing to ``workdir``), (d) a
+    sharded churn replay, each with the live loop's kernel counts set to 0
+    just before it and read just after, each against the reference's
+    goldens; then every pack and knapsack launch of the phase against its
+    plain version on the card ((c)'s, in their processes), and both timed
+    at the phase's largest launch."""
     pkg = port_package()
     out: dict = {"steps": {}}
-    clock = sharded_parts(pkg, out, proc, workdir, t0)
+    clock = sharded_parts(pkg, out, parity, workdir)
     for part in ("a", "b"):
         if out[part]["counts"]["pack_scan"]["launches"] == 0:
             raise AssertionError(f"({part}) launched pack_scan 0 times")
@@ -3882,7 +3908,7 @@ def reset_train_counts() -> None:
             mod.LAUNCHES_BY_VARIANT[k] = 0
     ssd.BWD_LAUNCHES = rglru.BWD_LAUNCHES = gg.BWD_LAUNCHES = 0
     for counts in (ssd.BWD_LAUNCHES_BY_VARIANT, rglru.BWD_LAUNCHES_BY_VARIANT,
-                   gg.BWD_LAUNCHES_BY_VARIANT):
+                   gg.BWD_LAUNCHES_BY_VARIANT, gg.BWD_LAUNCHES_BY_DESIGN):
         for k in counts:
             counts[k] = 0
 
@@ -3901,7 +3927,8 @@ def train_counts() -> dict:
             "rglru_scan": rglru.LAUNCHES, "rglru_scan_backward": rglru.BWD_LAUNCHES,
             "grouped_gemm": gg.LAUNCHES, "grouped_gemm_by_variant": dict(gg.LAUNCHES_BY_VARIANT),
             "grouped_gemm_bwd": gg.BWD_LAUNCHES,
-            "grouped_gemm_bwd_by_variant": dict(gg.BWD_LAUNCHES_BY_VARIANT)}
+            "grouped_gemm_bwd_by_variant": dict(gg.BWD_LAUNCHES_BY_VARIANT),
+            "grouped_gemm_bwd_by_design": dict(gg.BWD_LAUNCHES_BY_DESIGN)}
 
 
 def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
@@ -3911,7 +3938,8 @@ def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
     variant of the model's dtype; a ``"moe"`` layer's attention counts as
     an attention layer's, and its experts are three grouped GEMMs a
     forward (gate, up, down) with a ``dx`` and a ``dw`` launch each in the
-    backward."""
+    backward, all on the design of the model's dtype (``wgmma`` for bf16,
+    ``simt`` for float32)."""
     dtype = tfm.torch_dtype(cfg)
     kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(cfg.num_layers)]
     n_ssd, n_rec, n_moe = (kinds.count(k) for k in ("ssd", "recurrent", "moe"))
@@ -3941,7 +3969,10 @@ def expected_train_counts(cfg, steps: int, remat: bool) -> dict:
                                           3 * fwd * steps * n_moe),
             "grouped_gemm_bwd": 6 * steps * n_moe,
             "grouped_gemm_bwd_by_variant": {k: 3 * steps * n_moe
-                                            for k in gg.BWD_LAUNCHES_BY_VARIANT}}
+                                            for k in gg.BWD_LAUNCHES_BY_VARIANT},
+            "grouped_gemm_bwd_by_design": by(gg.BWD_LAUNCHES_BY_DESIGN,
+                                             gg._bwd_variant(cfg.d_model, cfg.d_ff, dtype),
+                                             6 * steps * n_moe)}
 
 
 def bwd_bound(q, k, window) -> dict:
@@ -4299,17 +4330,22 @@ def gg_bwd_bound(kernel, x, w, offsets) -> dict:
             "experts_touched": touched}
 
 
-def gg_bwd_launch(kernel, x, w, offsets, dy) -> torch.Tensor:
-    """One backward kernel through `gg._dispatch_bwd`, checked to have
-    launched once; dx's rows outside every segment checked zero."""
-    before = dict(gg.BWD_LAUNCHES_BY_VARIANT)
+def gg_bwd_launch(kernel, x, w, offsets, dy, variant=None) -> torch.Tensor:
+    """One backward kernel through `gg._dispatch_bwd` (``variant`` forces a
+    design; None: the one `gg._bwd_variant` picks), checked to have
+    launched once, on that design; dx's rows outside every segment checked
+    zero."""
+    design = variant or gg._bwd_variant(w.shape[1], w.shape[2], x.dtype)
+    before = (dict(gg.BWD_LAUNCHES_BY_VARIANT), dict(gg.BWD_LAUNCHES_BY_DESIGN))
     dx, dw = gg._dispatch_bwd(x, w, offsets, dy, need_dx=kernel == "dx",
-                              need_dw=kernel == "dw")
+                              need_dw=kernel == "dw", variant=variant)
     torch.cuda.synchronize()
-    rose = {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[v] for v in before}
-    if rose != {v: int(v == kernel) for v in before}:
-        raise AssertionError(f"grouped_gemm backward: expected one {kernel} launch, "
-                             f"counted {rose}")
+    rose = {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[0][v] for v in before[0]}
+    rose_design = {v: gg.BWD_LAUNCHES_BY_DESIGN[v] - before[1][v] for v in before[1]}
+    if rose != {v: int(v == kernel) for v in before[0]} or rose_design != {
+            v: int(v == design) for v in before[1]}:
+        raise AssertionError(f"grouped_gemm backward: expected one {kernel} launch on "
+                             f"{design}, counted {rose}, {rose_design}")
     if kernel == "dw":
         return dw
     lo, hi = int(offsets[0]), int(offsets[-1])
@@ -4352,14 +4388,17 @@ def _grouped_mm_bwd_yardstick(kernel, x, w, offsets, dy, want, n_kept) -> dict:
 
 def phase_gg_backward_vs_plain() -> tuple[list, dict]:
     """(a): the grouped GEMM's ``dx`` and ``dw`` kernels on (a)'s routing
-    (`gg_training_routing`) at each `GG_BWD_SHAPES` product, in bf16 and
-    float32, against `grouped_gemm_backward_plain` at the forward's limits
-    (`TOLERANCE`), each launch counted, repeated bit for bit, and timed cold
-    beside its bound, its plain version and ``torch._grouped_mm``; then the
-    same with the experts `GG_BWD_EMPTY` left empty (their dw zero).  Both
-    limits are for outputs of O(1), so each kernel's dy makes its output
-    O(1): N(0, K/F) for dx (w is N(0, 1/K)), N(0, 1/m) for dw (x is N(0,
-    1)), m the mean rows of a non-empty segment."""
+    (`gg_training_routing`) at each `GG_BWD_SHAPES` product, in bf16 (on
+    ``wgmma``, and on ``simt`` forced) and float32 (``simt``), against
+    `grouped_gemm_backward_plain` at the forward's limits (`TOLERANCE`),
+    each launch counted on its design, repeated bit for bit; each timed
+    cold beside its bound, its plain version and ``torch._grouped_mm``, the
+    bf16 ``wgmma`` launch in turns with ``simt`` forced on the same inputs
+    (wgmma, simt, simt, wgmma); then the same with the experts
+    `GG_BWD_EMPTY` left empty (their dw zero).  Both limits are for outputs
+    of O(1), so each kernel's dy makes its output O(1): N(0, K/F) for dx (w
+    is N(0, 1/K)), N(0, 1/m) for dw (x is N(0, 1)), m the mean rows of a
+    non-empty segment."""
     offsets, pairs, kept = gg_training_routing()
     counts = np.diff(offsets.cpu().numpy())
     mean_rows = float(counts[counts > 0].mean())
@@ -4381,46 +4420,71 @@ def phase_gg_backward_vs_plain() -> tuple[list, dict]:
             x, w = x32.to(dtype), w32.to(dtype)
             dys = {kernel: dy.to(dtype) for kernel, dy in dy32.items()}
             name = str(dtype).replace("torch.", "")
+            design = gg._bwd_variant(k, f, dtype)
+            designs = [design] + (["simt"] if design != "simt" else [])
             for case, offs in (("routing", offsets), ("empty experts", empty)):
                 for kernel in ("dx", "dw"):
                     dy = dys[kernel]
-                    got = gg_bwd_launch(kernel, x, w, offs, dy)
                     want = gg.grouped_gemm_backward_plain(
                         x, w, offs, dy, need_dx=kernel == "dx",
                         need_dw=kernel == "dw")[0 if kernel == "dx" else 1]
-                    check = {"kernel": f"grouped_gemm_bwd_{kernel}", "case": case, **_compare(
-                        f"grouped_gemm backward {kernel} {label} ({case})", dtype, got, want)}
-                    if not torch.equal(got, gg_bwd_launch(kernel, x, w, offs, dy)):
-                        raise AssertionError(f"{check['label']} {dtype}: a repeat differs")
-                    if kernel == "dw":
-                        bounds = offs.cpu().numpy()
-                        for ex in np.flatnonzero(np.diff(bounds) == 0):
-                            if bool(got[ex].any()):
-                                raise AssertionError(f"{check['label']}: empty expert {ex}'s "
-                                                     "dw is not zero")
-                    checks.append(check)
-                    log(f"  {check['label']} {name}: max abs err {check['max_abs_err']:.3g} "
-                        f"(largest {check['max_abs_want']:.3g}); bit-equal repeat")
+                    errs = {}
+                    for variant in designs:
+                        got = gg_bwd_launch(kernel, x, w, offs, dy, variant)
+                        check = {"kernel": f"grouped_gemm_bwd_{kernel}", "case": case,
+                                 "variant": variant, **_compare(
+                                     f"grouped_gemm backward {kernel} {label} ({case}) "
+                                     f"[{variant}]", dtype, got, want)}
+                        if not torch.equal(got, gg_bwd_launch(kernel, x, w, offs, dy, variant)):
+                            raise AssertionError(f"{check['label']} {dtype}: a repeat differs")
+                        if kernel == "dw":
+                            bounds = offs.cpu().numpy()
+                            for ex in np.flatnonzero(np.diff(bounds) == 0):
+                                if bool(got[ex].any()):
+                                    raise AssertionError(f"{check['label']}: empty expert "
+                                                         f"{ex}'s dw is not zero")
+                        checks.append(check)
+                        errs[variant] = check["max_abs_err"]
+                        log(f"  {check['label']} {name}: max abs err "
+                            f"{check['max_abs_err']:.3g} (largest {check['max_abs_want']:.3g}); "
+                            "bit-equal repeat")
+                        del got
                     if case != "routing":
-                        del got, want
+                        del want
                         continue
                     t = {"shape": [pairs, k, f], "dtype": name, "mean_rows": mean_rows,
-                         **gg_bwd_bound(kernel, x, w, offs)}
+                         "variant": design, **gg_bwd_bound(kernel, x, w, offs)}
                     need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
-                    t["ms"] = time_cold_ms(lambda: gg._dispatch_bwd(x, w, offs, dy, **need), reps=5)
+
+                    def run(variant):
+                        return time_cold_ms(lambda: gg._dispatch_bwd(
+                            x, w, offs, dy, **need, variant=variant), reps=5)
+
+                    if design == "simt":
+                        t["ms"] = run(design)
+                    else:  # in turns with simt forced on the same inputs
+                        turns = [(v, run(v)) for v in (design, "simt", "simt", design)]
+                        t["ms"] = float(np.mean([ms for v, ms in turns if v == design]))
+                        t["simt_ms"] = float(np.mean([ms for v, ms in turns if v == "simt"]))
+                        t["turns_ms"] = [[v, ms] for v, ms in turns]
+                        t["simt_max_abs_err"] = errs["simt"]
+                    t["max_abs_err"] = errs[design]
                     t["plain_ms"] = time_cold_ms(lambda: gg.grouped_gemm_backward_plain(
                         x, w, offs, dy, **need), reps=2)
                     t.update(_grouped_mm_bwd_yardstick(kernel, x, w, offs, dy, want, t["rows"]))
                     key = f"{kernel} {label} {name}"
                     timing[key] = t
-                    check["timing"] = key
+                    checks[-len(designs)]["timing"] = key
                     lib = ("none" if t["library_ms"] is None else
                            f"{t['library_ms']:.4f} ms")
-                    log(f"  grouped_gemm_bwd {key}: {t['ms']:.4f} ms, plain "
+                    simt = (f", simt forced {t['simt_ms']:.4f} (turns "
+                            + ", ".join(f"{v} {ms:.4f}" for v, ms in t["turns_ms"]) + ")"
+                            if "simt_ms" in t else "")
+                    log(f"  grouped_gemm_bwd {key} [{design}]: {t['ms']:.4f} ms{simt}, plain "
                         f"{t['plain_ms']:.4f}, torch._grouped_mm {lib}, bound "
                         f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB, "
                         f"{t['ops'] / 1e9:.1f} GFLOP)")
-                    del got, want
+                    del want
             del x, w, dys
             torch.cuda.empty_cache()
         del x32, w32, dy32
@@ -4829,16 +4893,26 @@ def scan_backward_entries(training: dict) -> list[dict]:
 
 def gg_backward_entries(training: dict) -> list[dict]:
     """The grouped GEMM's backward kernels' entries of the kernels line:
-    launches in (c) (qwen3-moe-30b-a3b's), the largest error of (a), and
-    the times at qwen3-moe-30b-a3b's bf16 gate/up product, every (a) timing
-    beside under ``shapes``."""
+    launches in (c) (qwen3-moe-30b-a3b's), by kernel and by design, the
+    largest error of (a) on the design the dtype picks, and the times at
+    qwen3-moe-30b-a3b's bf16 gate/up product; ``variants`` gives each
+    design's times and largest error (``simt`` forced in bf16, and in
+    float32), every (a) timing beside under ``shapes``."""
     runs = training["full_width"]
+    checks = training["kernel_checks"]
     out = []
     for kernel in ("dx", "dw"):
         name = f"grouped_gemm_bwd_{kernel}"
         t = training["gg_timing"][f"{kernel} gate/up bfloat16"]
-        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_error",
-                  "library_max_abs_err", "rows", "experts_touched")
+        t32 = training["gg_timing"][f"{kernel} gate/up float32"]
+        fields = ("variant", "ms", "simt_ms", "turns_ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "library_error", "library_max_abs_err", "rows",
+                  "experts_touched")
+
+        def err(variant, dtype):
+            return max(c["max_abs_err"] for c in checks if c["kernel"] == name
+                       and c["variant"] == variant and c["dtype"] == dtype)
+
         out.append({
             "name": name,
             "route": "cuda",
@@ -4847,17 +4921,27 @@ def gg_backward_entries(training: dict) -> list[dict]:
             "replaces_note": "no Pallas kernel: jax.grad of moe_ffn's capacity-buffer "
                              "einsums, whose forward the Pallas grouped_gemm "
                              "(src/repro/kernels/grouped_gemm.py:32) computes",
+            "variant": t["variant"],
             "launches": runs[GG_BWD_ARCH]["launches"]["grouped_gemm_bwd_by_variant"][kernel],
             "launches_by_run": {arch: r["launches"]["grouped_gemm_bwd_by_variant"][kernel]
                                 for arch, r in runs.items()},
-            "max_abs_err": max(c["max_abs_err"] for c in training["kernel_checks"]
-                               if c["kernel"] == name),
+            "launches_by_design": {arch: r["launches"]["grouped_gemm_bwd_by_design"]
+                                   for arch, r in runs.items()
+                                   if r["launches"]["grouped_gemm_bwd"]},
+            "max_abs_err": err(t["variant"], "bfloat16"),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library": t["library"],
+            "variants": {
+                t["variant"]: {"dtype": "bfloat16", "ms": t["ms"],
+                               "max_abs_err": err(t["variant"], "bfloat16")},
+                "simt": {"bfloat16_ms": t.get("simt_ms"), "float32_ms": t32["ms"],
+                         "float32_bound_ms": t32["bound_ms"],
+                         "bfloat16_max_abs_err": err("simt", "bfloat16"),
+                         "float32_max_abs_err": err("simt", "float32")}},
             "shapes": {key.split(" ", 1)[1]: {f: row[f] for f in fields if f in row}
                        for key, row in training["gg_timing"].items()
                        if key.startswith(kernel + " ")},
@@ -4890,12 +4974,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write the measurements to this file")
     ap.add_argument("--kernel-only", action="store_true",
                     help="run only phases 1-3 and 6 (build and kernel checks)")
-    ap.add_argument("--cells-parity", metavar="PATH",
-                    help="run only phase 4c (c)'s 8-cell replay and write its outcome to PATH "
-                         "(phase 4c starts the script so)")
+    ap.add_argument("--parity", nargs=2, metavar=("PART", "PATH"),
+                    help="run only phase 4c (c)'s replay PART (cells, flat) and write its "
+                         "outcome to PATH (the script starts itself so)")
     args = ap.parse_args(argv)
-    if args.cells_parity:
-        return run_cells_parity(args.cells_parity)
+    if args.parity:
+        return run_parity(*args.parity)
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -4912,43 +4996,42 @@ def main(argv=None) -> int:
     log(f"  {name} x{count}; torch {torch.__version__} CUDA {torch.version.cuda}")
     log(smi)
 
-    timer.begin("phase 2", "build")
-    t0 = time.perf_counter()
-    _build.build_all()
-    build_wall = time.perf_counter() - t0
-    for src, info in _build.BUILD_INFO.items():
-        log(f"  {src}.cu built in {info['seconds']:.2f} s -> {info['path']}")
-        for line in info["log"].splitlines():
-            if "ptxas" in line or "spill" in line:
-                log(f"    {line.strip()}")
-    log(f"  all sources built in {build_wall:.2f} s (in parallel)")
-    flash_wgmma_ptxas = check_flash_wgmma_spills()
-    spill_checks = check_instance_spills()
+    # Phase 4c (c)'s replays run in processes of their own: the 8-cell one
+    # (minutes of host work, one thread) from here, beside the build and
+    # phases 3-4b, so that the script keeps to its time; the flat and
+    # one-cell ones from the start of phase 4c.  Phases 4, 4b and 4c's
+    # timings are taken beside them.
+    parity_dir = tempfile.TemporaryDirectory()
+    workdir = pathlib.Path(parity_dir.name)
+    parity = {} if args.kernel_only else {"cells": start_parity("cells", workdir)}
+    try:
+        timer.begin("phase 2", "build")
+        t0 = time.perf_counter()
+        _build.build_all()
+        build_wall = time.perf_counter() - t0
+        for src, info in _build.BUILD_INFO.items():
+            log(f"  {src}.cu built in {info['seconds']:.2f} s -> {info['path']}")
+            for line in info["log"].splitlines():
+                if "ptxas" in line or "spill" in line:
+                    log(f"    {line.strip()}")
+        log(f"  all sources built in {build_wall:.2f} s (in parallel)")
+        flash_wgmma_ptxas = check_flash_wgmma_spills()
+        spill_checks = check_instance_spills()
 
-    result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
-              "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-              "flash_wgmma_ptxas": flash_wgmma_ptxas, "ptxas": spill_checks,
-              "flash_bwd_ptxas": {f: r for f, r in ptxas_report(
-                  _build.BUILD_INFO["flash_attention_bwd"]["log"]).items()}}
-    timer.begin("phase 3", "knapsack kernel vs plain on the card")
-    fleet_problem = ResourceManager(
-        paper_ec2_catalog(), paper_profile_table()
-    ).formulate(camera_fleet(N_CAMERAS), ST3)
-    checks = phase_kernel_vs_plain(fleet_problem)
-    log(f"  {len(checks)} comparisons exact")
-    result["checks"] = checks
+        result = {"device": name, "nvidia_smi": smi, "build_s": build_wall,
+                  "build": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
+                  "flash_wgmma_ptxas": flash_wgmma_ptxas, "ptxas": spill_checks,
+                  "flash_bwd_ptxas": {f: r for f, r in ptxas_report(
+                      _build.BUILD_INFO["flash_attention_bwd"]["log"]).items()}}
+        timer.begin("phase 3", "knapsack kernel vs plain on the card")
+        fleet_problem = ResourceManager(
+            paper_ec2_catalog(), paper_profile_table()
+        ).formulate(camera_fleet(N_CAMERAS), ST3)
+        checks = phase_kernel_vs_plain(fleet_problem)
+        log(f"  {len(checks)} comparisons exact")
+        result["checks"] = checks
 
-    if not args.kernel_only:
-        # Phase 4c's 8-cell replay (minutes of host work, one thread) runs in
-        # a process of its own from the end of phase 4b's timings.
-        parity_dir = tempfile.TemporaryDirectory()
-        parity = {}
-
-        def start_replay():
-            parity["t0"] = time.perf_counter()
-            parity["proc"] = start_cells_parity(pathlib.Path(parity_dir.name))
-
-        try:
+        if not args.kernel_only:
             timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras)")
             result["quickstart_savings"] = phase_quickstart()
             main_path = phase_main_path()
@@ -4957,19 +5040,20 @@ def main(argv=None) -> int:
             result["main_path"] = main_path
             timer.begin("phase 4b", "live re-planning loop: (a) the 500-camera fleet's churn, "
                         "(b) churn_replan, (c) lifecycle experiment 3")
-            result["live_loop"] = phase_live_loop(managers, start_replay)
+            result["live_loop"] = phase_live_loop(managers)
             del managers
             timer.begin("phase 4c", f"sharded controller: (a) {SHARD_STREAMS:,} streams over "
                         f"{SHARD_CELLS} cells, (b) the batched repair, (c) cost parity at "
                         f"{PARITY_STREAMS} streams, (d) a sharded churn replay")
-            result["sharded"] = phase_sharded(parity["proc"], pathlib.Path(parity_dir.name),
-                                              parity["t0"])
-        finally:
-            proc = parity.get("proc")
-            if proc is not None and proc.poll() is None:
+            parity["flat"] = start_parity("flat", workdir)
+            result["sharded"] = phase_sharded(parity, workdir)
+    finally:
+        for proc, _ in parity.values():
+            if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-            parity_dir.cleanup()
+        parity_dir.cleanup()
+    if not args.kernel_only:
         torch.cuda.empty_cache()
         timer.begin("phase 5", "knapsack timing at the manager path's largest call")
         result["timing"] = phase_timing(largest)

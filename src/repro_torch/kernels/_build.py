@@ -51,7 +51,7 @@ SOURCES: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "rglru": (FMAD_FLAGS, ("hopper_common.cuh",)),
     "rglru_bwd": (FMAD_FLAGS, ("hopper_common.cuh", "mma_common.cuh")),
     "grouped_gemm": (FMAD_FLAGS, ("grouped_gemm_common.cuh", "hopper_common.cuh")),
-    "grouped_gemm_bwd": (FMAD_FLAGS, ("grouped_gemm_common.cuh",)),
+    "grouped_gemm_bwd": (FMAD_FLAGS, ("grouped_gemm_common.cuh", "hopper_common.cuh")),
     "pack": (NVCC_FLAGS, ()),
     "placement": (NVCC_FLAGS, ()),
 }

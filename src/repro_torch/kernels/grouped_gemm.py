@@ -27,9 +27,11 @@ The backward (``csrc/grouped_gemm_bwd.cu``), for ``dy`` ``(N, F)``: ``dx[r]
 = dy[r] @ w[e(r)]ᵀ`` ``(N, K)``, zero on the rows outside every segment,
 and ``dw[e] = x[seg_e]ᵀ @ dy[seg_e]`` ``(E, K, F)``, zero for an expert
 with no rows; both in x's type, float32 sums rounded once.  Two kernels,
-``"dx"`` and ``"dw"``, each one launch a call, float32 FMAs for both
-types (tensor cores are later work), no float atomics: a repeat is bit
-for bit.
+``"dx"`` and ``"dw"``, each one launch a call, no float atomics: a
+repeat is bit for bit.  Each comes in two designs, picked like the
+forward's variants (`_bwd_variant`): ``"wgmma"`` for bf16 that TMA can
+address (tensor cores fed by TMA rings; ``dw`` persistent, its tiles
+stored by TMA) and ``"simt"`` (float32 FMAs) for the rest.
 
 Functions:
 
@@ -59,8 +61,8 @@ import torch
 
 from ..device import KernelError
 
-__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_VARIANT", "GroupedGemmFn", "LAUNCHES",
-           "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_backward",
+__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_DESIGN", "BWD_LAUNCHES_BY_VARIANT", "GroupedGemmFn",
+           "LAUNCHES", "LAUNCHES_BY_VARIANT", "grouped_gemm", "grouped_gemm_backward",
            "grouped_gemm_backward_plain", "grouped_gemm_plain", "grouped_gemm_ragged",
            "pad_and_sort_tokens"]
 
@@ -74,6 +76,8 @@ LAUNCHES_BY_VARIANT = {"wgmma": 0, "simt": 0}
 BWD_LAUNCHES = 0
 #: The same launches by kernel.
 BWD_LAUNCHES_BY_VARIANT = {"dx": 0, "dw": 0}
+#: The same launches by design (`_bwd_variant`).
+BWD_LAUNCHES_BY_DESIGN = {"wgmma": 0, "simt": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: The variants' codes in the C interface.
@@ -91,6 +95,16 @@ def _variant(k: int, f: int, dtype: torch.dtype, *, aligned: bool = True) -> str
     if aligned and dtype == torch.bfloat16 and k % 8 == 0 and f % 8 == 0:
         return "wgmma"
     return "simt"
+
+
+def _bwd_variant(k: int, f: int, dtype: torch.dtype, *, aligned: bool = True) -> str:
+    """The backward's design for x ``(N, k)``, w ``(E, k, f)`` and dy ``(N,
+    f)`` of ``dtype``: its TMA maps take what the forward's do, so
+    ``"wgmma"`` for bf16 whose rows TMA can address (k and f multiples of
+    8, x, w and dy starting on 16-byte boundaries: ``aligned``), else
+    ``"simt"`` (float32, whose 2e-5 limit TF32 would break, and bf16 shapes
+    such as K 100 or F 77).  The offsets are never read."""
+    return _variant(k, f, dtype, aligned=aligned)
 
 
 def _bounds(offsets, n: int) -> list[int]:
@@ -210,8 +224,9 @@ def grouped_gemm_backward(x, w, offsets, dy, *, need_dx: bool = True, need_dw: b
     dispatched by device (None where not ``need_*``).
 
     CPU tensors run `grouped_gemm_backward_plain`; CUDA tensors launch the
-    ``dx`` and ``dw`` kernels on the current stream, one launch each, and
-    anything they do not take raises, as the forward's wrapper does.
+    ``dx`` and ``dw`` kernels of the design `_bwd_variant` picks on the
+    current stream, one launch each, and anything they do not take raises,
+    as the forward's wrapper does.
     """
     _check_inputs(x, w, offsets)
     if dy.dtype != x.dtype:
@@ -252,24 +267,24 @@ def _dispatch(x, w, offsets, variant: str | None = None):
     return out
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
 def _bwd_kernel_fn(kernel: str, dtype: torch.dtype):
     """The C function that launches backward ``kernel`` ("dx" or "dw") for
-    ``dtype``."""
+    ``dtype`` (it takes the design's code among its arguments)."""
     from ._build import load_library
 
     lib = load_library("grouped_gemm_bwd")
     fn = getattr(lib, f"grouped_gemm_{kernel}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
-    fn.argtypes = _BWD_ARGTYPES
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True):
+def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True,
+                  variant: str | None = None):
     """`grouped_gemm_backward` after its checks: the plain version or the
-    kernels.  Each launch records a kernel's count after it succeeds."""
+    kernels.  ``variant`` forces a design (for tests and measurements); one
+    that does not take the shapes raises before any launch.  Each launch
+    records its counts after it succeeds."""
     global BWD_LAUNCHES
     if x.device.type == "cpu":
         return grouped_gemm_backward_plain(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
@@ -278,6 +293,13 @@ def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True)
             raise ValueError(f"grouped_gemm backward: {name} must be contiguous on CUDA")
     n, k = x.shape
     e, _, f = w.shape
+    takes = _bwd_variant(k, f, x.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, w, dy)))
+    if variant is None:
+        variant = takes
+    elif variant not in _VARIANT_CODES or (variant == "wgmma" and takes != "wgmma"):
+        raise ValueError(f"grouped_gemm backward: the {variant!r} design does not take "
+                         f"{x.dtype} at K {k}, F {f}")
     dx = dw = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -292,12 +314,13 @@ def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True)
                 continue
             rc = _bwd_kernel_fn(kernel, x.dtype)(args[0].data_ptr(), args[1].data_ptr(),
                                                  offsets.data_ptr(), out.data_ptr(), n, k, f,
-                                                 e, stream)
+                                                 e, _VARIANT_CODES[variant], stream)
             if rc != 0:
-                raise KernelError(f"grouped_gemm backward {kernel} kernel launch failed: "
-                                  f"CUDA error {rc}")
+                raise KernelError(f"grouped_gemm backward {kernel} [{variant}] kernel launch "
+                                  f"failed: CUDA error {rc}")
             BWD_LAUNCHES += 1
             BWD_LAUNCHES_BY_VARIANT[kernel] += 1
+            BWD_LAUNCHES_BY_DESIGN[variant] += 1
     return dx, dw
 
 

@@ -41,7 +41,9 @@ def test_the_table_holds_the_port_kernels():
     grads launch on wgmma), the RG-LRU's on both (its ``split`` on TMA and
     clusters, its ``walk`` on cp.async), the grouped GEMM's on the header
     it shares with its forward (the tile search and the zeroing of the
-    rows outside the segments)."""
+    rows outside the segments) and, for its ``wgmma`` design, on the Hopper
+    helpers (``hopper_common.cuh``: TMA, mbarriers, wgmma) as its
+    forward's bf16 kernel."""
     assert set(_build.SOURCES) == {
         "knapsack", "flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
         "ssd_bwd", "rglru", "rglru_bwd", "grouped_gemm", "grouped_gemm_bwd", "pack", "placement"}
@@ -51,8 +53,8 @@ def test_the_table_holds_the_port_kernels():
         _build.FMAD_FLAGS, ("attention_common.cuh", "hopper_common.cuh", "mma_common.cuh"))
     assert _build.SOURCES["rglru_bwd"] == (_build.FMAD_FLAGS,
                                            ("hopper_common.cuh", "mma_common.cuh"))
-    assert _build.SOURCES["grouped_gemm_bwd"] == (_build.FMAD_FLAGS,
-                                                  ("grouped_gemm_common.cuh",))
+    assert _build.SOURCES["grouped_gemm_bwd"] == (
+        _build.FMAD_FLAGS, ("grouped_gemm_common.cuh", "hopper_common.cuh"))
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

@@ -836,14 +836,23 @@ def _bwd_dy(seed, n, f, scale, dtype, device):
     return (_normal(seed, (n, f), torch.float32, device) * scale).to(dtype)
 
 
-def _bwd_checked(x, w, offsets, dy, need_dx=True, need_dw=True):
-    """The backward kernels through the wrapper, each launch counted once;
-    dx's rows outside every segment zero."""
-    before = dict(gg.BWD_LAUNCHES_BY_VARIANT)
-    dx, dw = gg.grouped_gemm_backward(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
+def _bwd_checked(x, w, offsets, dy, need_dx=True, need_dw=True, variant=None):
+    """The backward kernels through the wrapper (or with the design
+    ``variant`` forced), each launch counted once, by kernel and on the
+    design `_bwd_variant` picks (or the forced one); dx's rows outside
+    every segment zero."""
+    k, f = w.shape[1:]
+    design = variant or gg._bwd_variant(k, f, x.dtype)
+    before = (dict(gg.BWD_LAUNCHES_BY_VARIANT), dict(gg.BWD_LAUNCHES_BY_DESIGN))
+    if variant is None:
+        dx, dw = gg.grouped_gemm_backward(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
+    else:
+        dx, dw = gg._dispatch_bwd(x, w, offsets, dy, need_dx, need_dw, variant=variant)
     torch.cuda.synchronize()
-    assert {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[v] for v in before} == {
-        "dx": int(need_dx and x.shape[0] > 0), "dw": int(need_dw)}
+    launched = {"dx": int(need_dx and x.shape[0] > 0), "dw": int(need_dw)}
+    assert {v: gg.BWD_LAUNCHES_BY_VARIANT[v] - before[0][v] for v in before[0]} == launched
+    assert {v: gg.BWD_LAUNCHES_BY_DESIGN[v] - before[1][v] for v in before[1]} == {
+        v: sum(launched.values()) * int(v == design) for v in before[1]}
     if need_dx:
         lo, hi = int(offsets[0]), int(offsets[-1])
         assert not dx[:lo].any() and not dx[hi:].any()
@@ -854,22 +863,31 @@ def _mean_rows(counts):
     return max(1.0, float(np.mean([c for c in counts if c] or [1])))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("counts,k,f,tail", [
+#: The backward's segment layouts: (counts, K, F, rows past the last segment).
+BWD_LAYOUTS = [
     ([256] * 128, 2048, 768, 0),                   # qwen3's training gate/up
     ([300, 0, 0, 171, 90, 0, 400, 63], 768, 2048, 17),  # empty experts, drops, down's shape
     (EDGE_SEGMENTS + [0], 2048, 136, 5),           # partial tiles, an empty last expert
-    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F
+    ([5, 0, 3, 9], 100, 77, 3),                    # ragged K and F: simt only
     ([0, 0, 0, 0], 64, 64, 6),                     # every expert empty: all zero
     ([100, 200, 0, 50], 72, 64, 9),                # K = 72: a K tail of 8
-])
-def test_grouped_gemm_backward_kernels_match_plain(cuda, counts, k, f, tail, dtype):
+]
+
+
+@pytest.mark.parametrize("counts,k,f,tail,dtype,variant", [
+    (*layout, dtype, variant)
+    for layout in BWD_LAYOUTS for dtype in (torch.float32, torch.bfloat16)
+    for variant in ("wgmma", "simt")
+    if variant == "simt" or gg._bwd_variant(layout[1], layout[2], dtype) == variant])
+def test_grouped_gemm_backward_kernels_match_plain(cuda, counts, k, f, tail, dtype, variant):
+    """Every layout through every design that takes it (``wgmma``: bf16 with
+    K and F multiples of 8), on the same inputs."""
     x, w, offsets = _ragged(counts, k, f, dtype, cuda, tail)
     n = x.shape[0]
     dy_x = _bwd_dy(2, n, f, np.sqrt(k / f), dtype, cuda)
     dy_w = _bwd_dy(3, n, f, 1.0 / np.sqrt(_mean_rows(counts)), dtype, cuda)
-    dx, none = _bwd_checked(x, w, offsets, dy_x, need_dw=False)
-    none_too, dw = _bwd_checked(x, w, offsets, dy_w, need_dx=False)
+    dx, none = _bwd_checked(x, w, offsets, dy_x, need_dw=False, variant=variant)
+    none_too, dw = _bwd_checked(x, w, offsets, dy_w, need_dx=False, variant=variant)
     assert none is None and none_too is None
     want_dx = gg.grouped_gemm_backward_plain(x, w, offsets, dy_x, need_dw=False)[0]
     want_dw = gg.grouped_gemm_backward_plain(x, w, offsets, dy_w, need_dx=False)[1]
@@ -881,17 +899,62 @@ def test_grouped_gemm_backward_kernels_match_plain(cuda, counts, k, f, tail, dty
         assert not dw[e].any(), e  # an empty expert's dw is written, as zeros
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_grouped_gemm_backward_repeats_bit_for_bit(cuda, dtype):
-    """No float atomics: every element is one thread's sum in a fixed
-    order, so repeats are equal bit for bit."""
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.float32, "simt"), (torch.bfloat16, "wgmma"), (torch.bfloat16, "simt")])
+def test_grouped_gemm_backward_repeats_bit_for_bit(cuda, dtype, variant):
+    """No float atomics: every element is one thread's (one warpgroup's)
+    sum in a fixed order, so repeats are equal bit for bit, on either
+    design."""
     counts = [0] + EDGE_SEGMENTS + [2, 0]
     x, w, offsets = _ragged(counts, 768, 2048, dtype, cuda, tail=11)
     dy = _bwd_dy(4, x.shape[0], 2048, 1.0 / np.sqrt(_mean_rows(counts)), dtype, cuda)
-    first = _bwd_checked(x, w, offsets, dy)
+    first = _bwd_checked(x, w, offsets, dy, variant=variant)
     for _ in range(5):
-        again = _bwd_checked(x, w, offsets, dy)
+        again = _bwd_checked(x, w, offsets, dy, variant=variant)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("k,f", [(2048, 768), (768, 2048), (2048, 136)])
+def test_grouped_gemm_backward_designs_agree_in_bf16(cuda, k, f):
+    """``wgmma`` and ``simt`` forced on the same bf16 inputs (the edge
+    segments, a leading empty expert, dropped rows): each rounds its own
+    float32 sum once, so they agree within the bf16 limit."""
+    counts = [0] + EDGE_SEGMENTS + [2, 0]
+    x, w, offsets = _ragged(counts, k, f, torch.bfloat16, cuda, tail=11)
+    n = x.shape[0]
+    dy_x = _bwd_dy(7, n, f, np.sqrt(k / f), torch.bfloat16, cuda)
+    dy_w = _bwd_dy(8, n, f, 1.0 / np.sqrt(_mean_rows(counts)), torch.bfloat16, cuda)
+    got = {v: (_bwd_checked(x, w, offsets, dy_x, need_dw=False, variant=v)[0],
+               _bwd_checked(x, w, offsets, dy_w, need_dx=False, variant=v)[1])
+           for v in ("wgmma", "simt")}
+    for a, b in zip(got["wgmma"], got["simt"]):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.float32, "simt"), (torch.bfloat16, "wgmma"), (torch.bfloat16, "simt")])
+def test_grouped_gemm_backward_keeps_other_rows_out_of_the_sums(cuda, dtype, variant):
+    """Inf in the next expert's dy and NaN in the rows outside every
+    segment (x and dy) reach no other expert's dx or dw: a ``dw`` step that
+    reaches past its segment zeroes those rows in both operands
+    (``wgmma``) or masks them as it loads them (``simt``), so no 0 * Inf
+    enters a sum, and ``dx`` masks them at the store."""
+    counts = [70, 129, 1, 64, 200]
+    x, w, offsets = _ragged(counts, 768, 2048, dtype, cuda, tail=11)
+    n = x.shape[0]
+    dy = _bwd_dy(9, n, 2048, 1.0 / np.sqrt(_mean_rows(counts)), dtype, cuda)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    dy[bounds[1]:bounds[2]] = float("inf")  # expert 1's: expert 0's last step reaches them
+    x[bounds[-1]:] = float("nan")            # outside every segment: expert 4's last step
+    dy[bounds[-1]:] = float("nan")
+    dx, dw = _bwd_checked(x, w, offsets, dy, variant=variant)
+    want_dx, want_dw = gg.grouped_gemm_backward_plain(x, w, offsets, dy)
+    for e in (0, 2, 3, 4):
+        assert torch.isfinite(dw[e]).all(), e
+        torch.testing.assert_close(dw[e].float(), want_dw[e].float(), **TOL[dtype])
+    others = torch.ones(n, dtype=torch.bool, device=cuda)
+    others[bounds[1]:bounds[2]] = False
+    torch.testing.assert_close(dx[others].float(), want_dx[others].float(), **TOL[dtype])
 
 
 def test_grouped_gemm_fn_on_card_launches_both_kernels(cuda):
@@ -925,6 +988,12 @@ def test_grouped_gemm_backward_raises_instead_of_falling_back(cuda):
         gg.grouped_gemm_backward(x.half(), w.half(), offsets, dy.half())
     with pytest.raises(ValueError):  # dy of another shape
         gg.grouped_gemm_backward(x, w, offsets, dy[:, :16].contiguous())
+    with pytest.raises(ValueError):  # wgmma forced on float32
+        gg._dispatch_bwd(x, w, offsets, dy, variant="wgmma")
+    xb, wb, offs_b = _ragged([4, 4], 100, 32, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):  # wgmma forced on K = 100: no TMA row stride
+        gg._dispatch_bwd(xb, wb, offs_b, _bwd_dy(6, 8, 32, 1.0, torch.bfloat16, cuda),
+                         variant="wgmma")
     assert gg.BWD_LAUNCHES == before
 
 

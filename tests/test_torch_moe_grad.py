@@ -150,6 +150,25 @@ def test_backward_checks_dy():
         gg.grouped_gemm_backward(x, w, offsets, dy.double())
 
 
+@pytest.mark.parametrize("k,f,dtype,aligned,want", [
+    (2048, 768, torch.bfloat16, True, "wgmma"),   # qwen3-moe-30b-a3b's gate and up
+    (768, 2048, torch.bfloat16, True, "wgmma"),   # ... and down
+    (72, 64, torch.bfloat16, True, "wgmma"),      # K = 72: a K tail of 8
+    (8, 8, torch.bfloat16, True, "wgmma"),
+    (2048, 768, torch.bfloat16, False, "simt"),   # x, w or dy off a 16-byte boundary
+    (2048, 768, torch.float32, True, "simt"),     # float32: TF32 would break 2e-5
+    (768, 2048, torch.float32, True, "simt"),
+    (100, 77, torch.bfloat16, True, "simt"),      # no TMA row stride for K or F
+    (100, 64, torch.bfloat16, True, "simt"),
+    (2048, 764, torch.bfloat16, True, "simt"),
+    (100, 77, torch.float32, True, "simt"),
+])
+def test_bwd_variant_follows_dtype_shape_and_alignment(k, f, dtype, aligned, want):
+    """The backward's design, picked before the launch from dtype, K, F and
+    alignment alone (never the rows or the offsets)."""
+    assert gg._bwd_variant(k, f, dtype, aligned=aligned) == want
+
+
 # ---- moe_ffn against jax.grad -------------------------------------------------------
 
 

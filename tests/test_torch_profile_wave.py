@@ -55,6 +55,12 @@ def test_split_counts_the_card_busy_once_and_clips_to_the_wave(tpw):
     ("void (anonymous namespace)::grouped_gemm_bwd_dx<__nv_bfloat16>(...)",
      "grouped GEMM backward"),
     ("void (anonymous namespace)::grouped_gemm_bwd_dw<float>(...)", "grouped GEMM backward"),
+    ("void (anonymous namespace)::grouped_gemm_bwd_dx_wgmma(CUtensorMap_st, ...)",
+     "grouped GEMM backward"),
+    ("void (anonymous namespace)::grouped_gemm_bwd_dw_wgmma(CUtensorMap_st, ...)",
+     "grouped GEMM backward"),
+    ("void (anonymous namespace)::simt::grouped_gemm_bwd_dw_simt<float>(...)",
+     "grouped GEMM backward"),
     ("void gemv2N_kernel<int, int, float, float>(...)", "library GEMM"),
     ("void (anonymous namespace)::split_kernel<__nv_bfloat16, 256>(...)", "the rest"),
 ])
