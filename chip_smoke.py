@@ -33,7 +33,7 @@ version.  Phases, each raising on failure:
    as `_variant` picks it, ``global`` forced), and a grid past 16 slices
    (217,800 states, ``global`` by shape);
 4. manager path: the quickstart's paper scenario 1 under ST1-ST3 (61%
-   headline), then a 500-camera, 10-kind fleet allocated on the card
+   headline), by `examples/torch_quickstart.py`'s `main`, then a 500-camera, 10-kind fleet allocated on the card
    (routes to branch-and-price), with the kernel's launches counted by
    variant (all on ``cluster``), each pricing call's wall time split into
    the host's binary split, the kernel, the wait for it, the copy of
@@ -160,7 +160,11 @@ version.  Phases, each raising on failure:
    grouped GEMM launch on its ``wgmma`` variant, every flash-decode and
    SSD launch on ``mma``) and CUDA events around
    every launch and every forward call.  Each model is freed before the
-   next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else;
+   next: qwen3-moe-30b-a3b's 61 GB leave room for nothing else; (c)
+   gemma2-2b with (b)'s weights serves one wave of 4 prompts and 4 decode
+   steps through `launch/steps.py`'s `make_prefill_setup` and
+   `make_decode_setup` on the (1, 1) mesh, launches counted, every logit
+   bit-equal to `forward_prefill` and `forward_decode` called directly;
 8. kernel timing and the models against their plain paths: each kernel
    held against its plain version on phase 7(b)'s own served inputs
    (attention gemma2-2b's, recurrentgemma-9b's and qwen3-moe-30b-a3b's,
@@ -253,9 +257,22 @@ version.  Phases, each raising on failure:
    the loss must fall, each step's wall ms split by CUDA events into
    forward, backward and optimizer, tokens/s, the
    last step traced with `torch.profiler` for the card's busy share,
-   peak memory against the card's; (d) the launcher
+   peak memory against the card's; every step built by `launch/steps.py`'s
+   `make_train_setup` on the (1, 1) mesh of a one-rank process group;
+   (d) the launcher
    `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
-   process of its own, its checkpoint restored.
+   process of its own (its step built the same way), its checkpoint
+   restored; (e) gradient accumulation: one internlm2-1.8b step at full
+   width and depth (bf16, remat, B=2, S=4096) with 2 micro-batches and
+   one with 1, from the same seed-0 weights and batch: loss within 1e-3
+   and grad norm within 1e-2 relative, each step's launches held to
+   `expected_train_counts` (2 micro-batches: twice the launches at half
+   the rows), both wall times printed;
+10. dry-run: `launch/dryrun.py`'s `run_one` (nothing saved) on
+   qwen3-moe-30b-a3b train_4k 16x16, gemma2-2b long_500k 2x16x16 and
+   yi-34b decode_32k 16x16: each step's leaves placed on meta over a fake
+   process group of 256 or 512 ranks, every shard even, rank 0's bytes a
+   device printed by kind (CPU arithmetic; nothing runs on the card).
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Every kernel time is taken with a cold L2 by `time_cold_ms`,
@@ -305,7 +322,6 @@ from repro_torch.core import streams as port_streams  # noqa: E402
 from repro_torch.core.binpack import colgen  # noqa: E402
 from repro_torch.core.binpack import heuristics  # noqa: E402
 from repro_torch.core.binpack.arcflow import group_items  # noqa: E402
-from repro_torch.core.binpack.problem import BinType  # noqa: E402
 from repro_torch.core.catalog import (  # noqa: E402
     paper_ec2_catalog, tpu_cloud_catalog, with_spot_variants)
 from repro_torch.core.controller import FleetController  # noqa: E402
@@ -314,7 +330,7 @@ from repro_torch.core.manager import ResourceManager  # noqa: E402
 from repro_torch.core.profiler import paper_profile_table  # noqa: E402
 from repro_torch.core.policy import ActingAutoscaler, ConsolidationPolicy  # noqa: E402
 from repro_torch.core.simulator import simulate_churn, simulate_plan  # noqa: E402
-from repro_torch.core.strategies import ALL_STRATEGIES, ST1, ST3  # noqa: E402
+from repro_torch.core.strategies import ST3  # noqa: E402
 from repro_torch.core.streams import AnalysisProgram, FrameSize, StreamSpec  # noqa: E402
 from repro_torch.interop import plan_to_plain, replan_result_to_plain  # noqa: E402
 from repro_torch.kernels import _build, knapsack, pack, placement  # noqa: E402
@@ -322,7 +338,9 @@ from repro_torch.kernels import attention as flash  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rglru, ssd  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch.mesh import destroy_process_group, make_local_mesh  # noqa: E402
 from repro_torch.models import analysis_programs  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import init_dense  # noqa: E402
@@ -332,7 +350,7 @@ from repro_torch.data import BatchSpec, make_batch  # noqa: E402
 from repro_torch.interop import param_leaves  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state  # noqa: E402
-from repro_torch.train.train_loop import batch_to_device, make_train_step, train  # noqa: E402
+from repro_torch.train.train_loop import batch_to_device, train  # noqa: E402
 
 #: The JAX reference's result for the 500-camera fleet on a CPU, for the
 #: reader: $/h and instance count (repro.core.manager, numpy pricing).
@@ -825,31 +843,26 @@ class LaunchRecorder:
         return float(sum(s.elapsed_time(e) for s, e in self.events))
 
 
+def load_example(name: str) -> types.ModuleType:
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_quickstart() -> float:
-    catalog = (
-        BinType("c4.2xlarge", (8, 15, 0, 0), 0.419),
-        BinType("g2.2xlarge", (8, 15, 1536, 4), 0.650),
-    )
-    table = paper_profile_table()
-    manager = ResourceManager(catalog, table)
-    streams = [StreamSpec("cam-vgg", VGG, 0.25)] + [
-        StreamSpec(f"cam-zf{i}", ZF, 0.55) for i in range(3)
-    ]
-    costs = {}
-    for strategy in ALL_STRATEGIES:
-        plan = manager.allocate(streams, strategy)
-        plan.solution.validate()
-        sim = simulate_plan(plan, table, target=manager.utilization_cap)
-        if not sim["meets_target"]:
-            raise AssertionError(f"{strategy.name}: simulated performance misses")
-        costs[strategy.name] = plan.hourly_cost
-        log(f"  scenario 1 {strategy.name}: ${plan.hourly_cost:.3f}/h "
-            f"{plan.instance_counts()} optimal={plan.optimal}")
-    savings = 1 - costs[ST3.name] / costs[ST1.name]
-    if abs(savings - 0.61) > 0.005:
-        raise AssertionError(f"ST3 saves {savings:.3f} vs ST1, not 0.61")
-    log(f"  ST3 saves {savings:.1%} vs ST1 (paper: 61%)")
-    return savings
+    """`examples/torch_quickstart.py`'s `main` on the card: scenario 1
+    under ST1-ST3, each plan validated and simulated to its target, and
+    ST3's saving against ST1 held to the paper's 61% (it raises
+    otherwise)."""
+    out = load_example("torch_quickstart").main([])
+    for strategy, cost in out["costs"].items():
+        log(f"  scenario 1 {strategy}: ${cost:.3f}/h")
+    log(f"  ST3 saves {out['savings']:.1%} vs ST1 (paper: 61%), "
+        "by examples/torch_quickstart.py")
+    return out["savings"]
 
 
 def phase_main_path() -> dict:
@@ -3025,6 +3038,70 @@ def phase_frame_analysis(arch: str, params) -> dict:
     return out
 
 
+#: Phase 7 (c): the arch served through the step builders, and its decode steps.
+BUILDER_ARCH = "gemma2-2b"
+BUILDER_DECODE_STEPS = 4
+
+
+def serve_through_builders(arch: str, params) -> dict:
+    """(c): one prefill wave of `SLOTS` `PROMPT_TOKENS`-token prompts and
+    `BUILDER_DECODE_STEPS` greedy decode steps of ``arch`` at full width,
+    with phase (b)'s weights, through `steps.make_prefill_setup` and
+    `steps.make_decode_setup` on the (1, 1) mesh, every kernel count set
+    to 0 just before and held after to `expected_launches`; then the same
+    through `forward_prefill` and `forward_decode` called directly on fresh
+    caches: every logit bit-equal."""
+    cfg = get_config(arch)
+    prompt = PROMPT_TOKENS[arch]
+    cache_len = prompt + BUILDER_DECODE_STEPS
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (SLOTS, prompt))).to("cuda")
+
+    def serve_wave(prefill, decode_step) -> tuple[list, float]:
+        caches = tfm.init_serve_cache(cfg, SLOTS, cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill({"tokens": tokens}, caches)
+        rows = [logits]
+        tok = logits[:, -1:].argmax(-1)
+        for pos in range(prompt, cache_len):
+            logits, caches = decode_step(tok, pos, caches)
+            rows.append(logits)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
+    with local_mesh() as mesh:
+        prefill, _, _ = steps_lib.make_prefill_setup(cfg, mesh, multi_pod=False, batch=SLOTS,
+                                                     seq_len=cache_len)
+        decode_step, _, _ = steps_lib.make_decode_setup(
+            cfg, mesh, multi_pod=False, batch=SLOTS, cache_len=cache_len, long_context=False)
+        _reset_serve_counts()
+        built, built_s = serve_wave(lambda b, c: prefill(params, b, c),
+                                    lambda t, pos, c: decode_step(params, t, pos, c))
+        counts = _serve_counts()
+    expect = expected_launches(cfg, 1, BUILDER_DECODE_STEPS)
+    if counts != expect:
+        raise AssertionError(f"(c) {arch} through the builders: launches {counts}, "
+                             f"expected {expect}")
+    direct, direct_s = serve_wave(
+        lambda b, c: tfm.forward_prefill(params, cfg, b, c),
+        lambda t, pos, c: tfm.forward_decode(params, cfg, t, pos, c))
+    unequal = [i for i, (a, b) in enumerate(zip(built, direct)) if not torch.equal(a, b)]
+    if unequal or not bool(torch.isfinite(built[0]).all()):
+        raise AssertionError(f"(c) {arch}: builder logits differ from the direct calls' at "
+                             f"forwards {unequal} (0 = the prefill)")
+    log(f"  (c) {arch} through make_prefill_setup/make_decode_setup: 1 wave of {SLOTS} x "
+        f"{prompt} tokens, {BUILDER_DECODE_STEPS} decode steps in {built_s:.3f} s "
+        f"(direct {direct_s:.3f} s); launches "
+        f"{ {k: v for k, v in counts.items() if v} }; logits bit-equal to the direct calls")
+    del built, direct
+    torch.cuda.empty_cache()
+    return {"arch": arch, "slots": SLOTS, "prompt_tokens": prompt,
+            "decode_steps": BUILDER_DECODE_STEPS, "launches": counts, "wall_s": built_s,
+            "direct_wall_s": direct_s, "bit_equal": True}
+
+
 # --------------------------------------------------------------- phase 8
 
 
@@ -3890,6 +3967,21 @@ TRAIN_RUNS = {
 }
 #: (d) the launcher's smoke run.
 LAUNCH_TRAIN_STEPS = 3
+#: (e) gradient accumulation: micro-batches, and the limits on M's loss and
+#: grad norm against one batch's (relative).
+ACCUM_MICROBATCHES = 2
+ACCUM_LOSS_RTOL, ACCUM_GNORM_RTOL = 1e-3, 1e-2
+
+
+@contextlib.contextmanager
+def local_mesh():
+    """The launcher's (1, 1) mesh on the card, over a one-rank process
+    group that is destroyed on leaving."""
+    mesh = make_local_mesh("cuda")
+    try:
+        yield mesh
+    finally:
+        destroy_process_group()
 
 
 def _bwd_reset() -> None:
@@ -4655,14 +4747,19 @@ def split_trace(trace_path: pathlib.Path, annotation: str) -> dict:
     return mod.split_trace(json.loads(trace_path.read_text()), annotation)
 
 
-def train_full_width(arch: str) -> dict:
+def train_full_width(arch: str, mesh=None) -> dict:
     """(c): ``arch`` in bf16 with remat, cut as `TRAIN_RUNS` says, AdamW
-    steps on one fixed batch of S `TRAIN_SEQ`, every kernel count set to 0
-    just before and read just after (one launch of each layer's forward
-    kernel twice a step, remat recomputing it, and one of its backward
-    kernel); each step's wall time split by CUDA events into forward,
+    steps of `steps.make_train_setup`'s train step on the (1, 1) mesh
+    ``mesh`` (without one, on a `local_mesh` of its own, as
+    `scripts/torch_ab.py` calls it) on one fixed batch of S `TRAIN_SEQ`,
+    every kernel count set to 0 just before and read just after (one
+    launch of each layer's forward kernel twice a step, remat recomputing
+    it, and one of its backward kernel); each step's wall time split by CUDA events into forward,
     backward and optimizer; the last step traced for the card's busy
     share; peak memory."""
+    if mesh is None:
+        with local_mesh() as mesh:
+            return train_full_width(arch, mesh)
     cut, batch_size, n_steps = TRAIN_RUNS[arch]
     full = get_config(arch)
     cfg = _train_cfg(arch, **cut)
@@ -4674,8 +4771,9 @@ def train_full_width(arch: str) -> dict:
     model = tfm.init_params(cfg, seed=0)
     state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
     batch = batch_to_device(make_batch(cfg, BatchSpec(batch_size, TRAIN_SEQ), seed=0), "cuda")
-    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                               total_steps=n_steps), remat=True)
+    step_fn, _, _ = steps_lib.make_train_setup(
+        cfg, mesh, multi_pod=False, batch=batch_size, seq_len=TRAIN_SEQ,
+        opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=n_steps))
     trace = ROOT / "build" / "profile" / f"train-step-trace-{arch}.json"
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
@@ -4748,10 +4846,62 @@ def train_full_width(arch: str) -> dict:
             "peak_memory_bytes": peak, "card_memory_bytes": total, "traced_step": traced}
 
 
+def train_accumulation(mesh) -> dict:
+    """(e): one step of `TRAIN_ARCH` at full width and depth, bf16, remat,
+    B `TRAIN_BATCH` x S `TRAIN_SEQ`, from the seed-0 init on the seed-0
+    batch, with `ACCUM_MICROBATCHES` micro-batches and with one
+    (`steps.make_train_setup` on the (1, 1) mesh): the loss within
+    `ACCUM_LOSS_RTOL` and the grad norm within `ACCUM_GNORM_RTOL`
+    relative, each step's launches held to `expected_train_counts` (M
+    micro-batches launch M times one step's kernels, at 1/M of its rows)
+    and its wall ms printed beside the other's; no limit on the times."""
+    cfg = _train_cfg(TRAIN_ARCH)
+    batch = batch_to_device(make_batch(cfg, BatchSpec(TRAIN_BATCH, TRAIN_SEQ), seed=0), "cuda")
+    runs = {}
+    for m in (1, ACCUM_MICROBATCHES):
+        model = tfm.init_params(cfg, seed=0)
+        state = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+        step_fn, _, _ = steps_lib.make_train_setup(
+            cfg, mesh, multi_pod=False, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=1), microbatches=m)
+        torch.cuda.synchronize()
+        reset_train_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = train_counts()
+        expected = expected_train_counts(cfg, m, remat=True)
+        if launches != expected:
+            raise AssertionError(f"(e) M={m}: launches {launches}, expected {expected}")
+        runs[m] = {"microbatches": m, "rows_per_microbatch": TRAIN_BATCH // m,
+                   "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                   "wall_ms": wall_ms, "launches": launches}
+        log(f"  (e) {TRAIN_ARCH} M={m} ({TRAIN_BATCH // m} rows a micro-batch): loss "
+            f"{runs[m]['loss']:.6f} gnorm {runs[m]['grad_norm']:.6f}; wall {wall_ms:.1f} ms; "
+            f"flash launches {launches['flash_attention']} forward, "
+            f"{launches['flash_attention_bwd']} backward")
+        del state, model, step_fn
+        torch.cuda.empty_cache()
+    one, acc = runs[1], runs[ACCUM_MICROBATCHES]
+    loss_rel = abs(acc["loss"] - one["loss"]) / abs(one["loss"])
+    gnorm_rel = abs(acc["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+    if not (np.isfinite(acc["loss"]) and loss_rel <= ACCUM_LOSS_RTOL
+            and gnorm_rel <= ACCUM_GNORM_RTOL):
+        raise AssertionError(f"(e) M={ACCUM_MICROBATCHES} vs M=1: loss {loss_rel:.3e} "
+                             f"(limit {ACCUM_LOSS_RTOL}), grad norm {gnorm_rel:.3e} "
+                             f"(limit {ACCUM_GNORM_RTOL}) relative")
+    log(f"  (e) M={ACCUM_MICROBATCHES} vs M=1: loss {loss_rel:.3e}, grad norm "
+        f"{gnorm_rel:.3e} relative (limits {ACCUM_LOSS_RTOL}, {ACCUM_GNORM_RTOL})")
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "runs": list(runs.values()),
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel}
+
+
 def train_launcher(workdir: pathlib.Path) -> dict:
     """(d): ``python -m repro_torch.launch.train --arch internlm2-1.8b
-    --smoke --steps 3 --ckpt ...`` in a process of its own, then its
-    checkpoint restored into the smoke model."""
+    --smoke --steps 3 --ckpt ...`` in a process of its own (its step built
+    by `steps.make_train_setup` on its (1, 1) mesh), then its checkpoint
+    restored into the smoke model."""
     path = workdir / "launch-train"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
@@ -4765,6 +4915,8 @@ def train_launcher(workdir: pathlib.Path) -> dict:
         log(f"    | {line}")
     if proc.returncode != 0:
         raise AssertionError(f"(d) launcher exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    if "mesh={'data': 1, 'model': 1}" not in proc.stdout:
+        raise AssertionError("(d) the launcher did not train on its (1, 1) mesh")
     cfg = smoke_variant(get_config(TRAIN_ARCH))
     like = tfm.init_params(cfg, seed=0)
     restored = ckpt.restore(str(path), like, cfg=cfg)
@@ -4788,7 +4940,9 @@ def phase_training() -> dict:
     gg_checks, out["gg_timing"] = phase_gg_backward_vs_plain()
     out["kernel_checks"] += gg_checks
     out["card_vs_cpu"] = {arch: train_card_vs_cpu(arch) for arch in TRAIN_PARITY}
-    out["full_width"] = {arch: train_full_width(arch) for arch in TRAIN_RUNS}
+    with local_mesh() as mesh:
+        out["full_width"] = {arch: train_full_width(arch, mesh) for arch in TRAIN_RUNS}
+        out["accumulation"] = train_accumulation(mesh)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         out["launcher"] = train_launcher(pathlib.Path(tmp))
     return out
@@ -4949,6 +5103,29 @@ def gg_backward_entries(training: dict) -> list[dict]:
     return out
 
 
+#: Phase 10: one (arch, shape, multi-pod) of each step kind.
+DRYRUN_COMBOS = (("qwen3-moe-30b-a3b", "train_4k", False), ("gemma2-2b", "long_500k", True),
+                 ("yi-34b", "decode_32k", False))
+
+
+def phase_dryrun() -> list[dict]:
+    """`dryrun.run_one` on `DRYRUN_COMBOS` (nothing saved): each step's
+    leaves placed on meta over a fake process group of the production
+    mesh's size, every shard even, rank 0's bytes a device by kind.  CPU
+    arithmetic: nothing runs on the card."""
+    out = []
+    for arch, shape, multi_pod in DRYRUN_COMBOS:
+        rec = dryrun.run_one(arch, shape, multi_pod, save=False)
+        gb = {k: v / 1e9 for k, v in rec["bytes_per_device"].items()}
+        log(f"  {rec['arch']} {shape} {rec['mesh']}: GB a device params {gb['params']:.3f}, "
+            f"optimizer {gb['opt']:.3f}, batch {gb['batch']:.4f}, caches {gb['caches']:.3f}, "
+            f"total {gb['total']:.3f} ({'fits' if rec['fits_device'] else 'does not fit'} "
+            f"80 GB); placed in {rec['place_s']:.2f} s")
+        out.append({k: rec[k] for k in ("arch", "shape", "mesh", "kind", "n_chips",
+                                        "bytes_per_device", "fits_device", "roofline")})
+    return out
+
+
 class PhaseTimer:
     """Prints each phase's title as it begins and its seconds as it ends."""
 
@@ -5076,6 +5253,8 @@ def main(argv=None) -> int:
         for arch in SERVE_ARCHS:
             params = tfm.init_params(get_config(arch), seed=0)
             frames[arch] = phase_frame_analysis(arch, params)
+            if arch == BUILDER_ARCH:
+                result["serve_builders"] = serve_through_builders(arch, params)
             del params
             served[arch] = frames[arch].pop("_args")
             torch.cuda.empty_cache()
@@ -5110,6 +5289,8 @@ def main(argv=None) -> int:
                     f"{', '.join(TRAIN_RUNS)}, the launcher")
         training = result["training"] = phase_training()
         kernel_checks += [c for c in training["kernel_checks"] if c["kernel"] == "flash_attention"]
+        timer.begin("phase 10", "dry-run on meta under fake process groups (CPU arithmetic)")
+        result["dryrun"] = phase_dryrun()
 
         timing = result["timing"]
         result["kernels"] = [{

@@ -1,15 +1,21 @@
-"""Training launcher: the train step on one device.
+"""Training launcher: the train step of `launch/steps.py` over a mesh.
 
 Mirrors `repro/launch/train.py` with the reference's flags (``--arch``,
-``--smoke``, ``--steps``, ``--batch``, ``--seq-len``, ``--lr``, ``--ckpt``)
-plus ``--remat`` (activation checkpointing of each layer group, as the
-reference's production step trains) and ``--device``: it runs on the card
-unless ``--device cpu`` is given.  The reference's ``--production-mesh``
-and ``--multi-pod`` build TPU meshes; the port trains on one card and has
-no mesh yet (ROADMAP queue A).  Every config trains: attention, SSD
-(mamba2-1.3b), recurrent (recurrentgemma-9b) and MoE (qwen3-moe-30b-a3b,
-grok-1-314b, whose experts' gradients come from the grouped GEMM's
-backward kernels).
+``--smoke``, ``--steps``, ``--batch``, ``--seq-len``, ``--lr``,
+``--production-mesh``, ``--multi-pod``, ``--ckpt``) plus ``--device``: it
+runs on the card unless ``--device cpu`` is given.  The step is
+`steps.make_train_setup`'s (activation checkpointing of each layer group
+on, as the reference's production step trains) over the local mesh, the
+reference's non-production branch: (world size, 1) over ``("data",
+"model")``, so (1, 1) in one process, where the launcher creates a
+one-rank process group and destroys it at the end.  ``--production-mesh``
+builds the (16, 16) mesh (``--multi-pod``: (2, 16, 16)) over the
+initialized process group and fails at once, naming both numbers, when
+that group is not 256 (512) ranks; a step over more than one rank is not
+ported yet (ROADMAP queue A item 4) and raises.  Every config trains:
+attention, SSD (mamba2-1.3b), recurrent (recurrentgemma-9b) and MoE
+(qwen3-moe-30b-a3b, grok-1-314b, whose experts' gradients come from the
+grouped GEMM's backward kernels).
 The checkpoint is written in the reference's format
 (`repro_torch.train.checkpoint`).
 
@@ -26,12 +32,17 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+import torch.distributed as dist
+
 from ..configs import ARCH_IDS, get_config, smoke_variant
 from ..data import BatchSpec, make_batch
 from ..device import resolve_device
 from ..train.checkpoint import save
 from ..train.optimizer import AdamWConfig
-from ..train.train_loop import batch_to_device, init_state, make_train_step
+from ..train.train_loop import batch_to_device, init_state
+from . import steps as steps_lib
+from .mesh import destroy_process_group, make_local_mesh, make_production_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,9 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt", default="")
-    ap.add_argument("--remat", action="store_true",
-                    help="recompute each layer group in the backward (activation checkpointing)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda:0)")
     return ap.parse_args(argv)
@@ -57,12 +68,28 @@ def main(argv=None) -> dict:
     if args.smoke:
         cfg = smoke_variant(cfg)
     dev = resolve_device(args.device)
-    print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M device={dev} "
-          f"remat={args.remat}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    owned = not dist.is_initialized()
+    try:
+        if args.production_mesh:
+            mesh = make_production_mesh(multi_pod=args.multi_pod, device_type=dev.type)
+        else:
+            mesh = make_local_mesh(dev.type)
+        return _train(args, cfg, dev, mesh)
+    finally:
+        if owned:
+            destroy_process_group()
 
+
+def _train(args, cfg, dev, mesh) -> dict:
+    print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M device={dev} "
+          f"mesh={steps_lib.mesh_axes(mesh)}")
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
-    step_fn = make_train_step(cfg, opt_cfg, remat=args.remat)
+    step_fn, _, _ = steps_lib.make_train_setup(
+        cfg, mesh, multi_pod=args.multi_pod and args.production_mesh,
+        batch=args.batch, seq_len=args.seq_len, opt_cfg=opt_cfg)
     state = init_state(0, cfg, device=dev)
     losses = []
     t0 = time.perf_counter()

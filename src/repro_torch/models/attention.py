@@ -26,7 +26,7 @@ from torch import nn
 
 from ..kernels.attention import flash_attention
 from ..kernels.decode_attention import decode_attention
-from .layers import apply_rope, init_dense, init_rms_norm, rms_norm, rope
+from .layers import apply_rope, draw_device, init_dense, init_rms_norm, rms_norm, rope
 
 __all__ = [
     "Attention",
@@ -55,8 +55,8 @@ def init_attention(gen: torch.Generator, d_model: int, num_heads: int,
     wk = init_dense(gen, d_model, num_kv_heads * head_dim, dtype)
     wv = init_dense(gen, d_model, num_kv_heads * head_dim, dtype)
     wo = init_dense(gen, num_heads * head_dim, d_model, dtype)
-    norms = ((init_rms_norm(head_dim, dtype, gen.device),
-              init_rms_norm(head_dim, dtype, gen.device)) if qk_norm else (None, None))
+    norms = ((init_rms_norm(head_dim, dtype, draw_device(gen)),
+              init_rms_norm(head_dim, dtype, draw_device(gen))) if qk_norm else (None, None))
     return Attention(wq, wk, wv, wo, *norms)
 
 

@@ -24,17 +24,25 @@ __all__ = [
     "mlp",
     "init_mlp",
     "init_dense",
+    "draw_device",
     "softcap",
     "activation_fn",
 ]
 
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int,
+def draw_device(gen: torch.Generator | None) -> torch.device:
+    """The device the init functions draw on: ``gen``'s, or the meta device
+    when there is no generator (a meta init: shapes and dtypes, no draws)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def init_dense(gen: torch.Generator | None, d_in: int, d_out: int,
                dtype=torch.bfloat16) -> torch.Tensor:
     """``N(0, 1/d_in)`` weights of shape (d_in, d_out), drawn in float32 on
-    the generator's device and cast to ``dtype``."""
+    the generator's device and cast to ``dtype`` (on meta, without a
+    generator: see `draw_device`)."""
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=draw_device(gen))
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 

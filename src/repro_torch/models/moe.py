@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ..kernels.grouped_gemm import grouped_gemm_ragged
-from .layers import activation_fn, init_dense
+from .layers import activation_fn, draw_device, init_dense
 
 __all__ = ["FLOAT32_PARAMS", "MoE", "init_moe", "moe_ffn", "router_aux_loss"]
 
@@ -65,7 +65,7 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int, ga
 
     def expert_stack(d_in, d_out):
         w = torch.randn((num_experts, d_in, d_out), generator=gen, dtype=torch.float32,
-                        device=gen.device)
+                        device=draw_device(gen))
         return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
 
     router = init_dense(gen, d_model, num_experts, torch.float32)

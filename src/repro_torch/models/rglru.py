@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rglru import rglru_scan, rglru_scan_train
-from .layers import activation_fn, init_dense
+from .layers import activation_fn, draw_device, init_dense
 
 __all__ = [
     "FLOAT32_PARAMS",
@@ -72,7 +72,7 @@ def init_rglru_block(gen: torch.Generator, d_model: int, width: int, conv_width:
     if width % _NB:
         raise ValueError(f"lru width {width} is not a multiple of {_NB}")
     blk = width // _NB
-    dev = gen.device
+    dev = draw_device(gen)
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd import ssd_scan, ssd_scan_plain, ssd_scan_train
-from .layers import init_dense, init_rms_norm, rms_norm
+from .layers import draw_device, init_dense, init_rms_norm, rms_norm
 
 __all__ = [
     "FLOAT32_PARAMS",
@@ -94,7 +94,7 @@ class Mamba2(nn.Module):
 def init_mamba2(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
                 head_dim: int, conv_width: int, dtype=torch.bfloat16) -> Mamba2:
     nheads = d_inner // head_dim
-    dev = gen.device
+    dev = draw_device(gen)
 
     def conv_w(channels):
         return (torch.randn((conv_width, channels), generator=gen, dtype=torch.float32,

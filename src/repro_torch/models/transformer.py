@@ -44,7 +44,7 @@ from . import ssm as ssm_lib
 from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import MLP, init_dense, init_mlp, init_rms_norm, mlp, rms_norm
+from .layers import MLP, draw_device, init_dense, init_mlp, init_rms_norm, mlp, rms_norm
 
 __all__ = [
     "Block",
@@ -111,11 +111,16 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     """Random weights with the reference's shapes and scales, drawn from a
-    `torch.Generator` seeded with ``seed`` on ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    `torch.Generator` seeded with ``seed`` on ``device`` (default: the card).
+    ``device="meta"`` gives the shapes and dtypes with no memory and no
+    generator (the dry-run's parameters)."""
     dt = torch_dtype(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if str(device) == "meta":
+        dev, gen = torch.device("meta"), None
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     embed_shape = (cfg.num_codebooks, cfg.vocab_size, cfg.d_model)
     embed = (torch.randn(embed_shape, generator=gen, dtype=torch.float32, device=dev)
              * 0.02).to(dt)
@@ -132,7 +137,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dt: torch.dtype) -> Block:
-    d, dev = cfg.d_model, gen.device
+    d, dev = cfg.d_model, draw_device(gen)
     ln1 = init_rms_norm(d, dt, dev)
     if kind == "ssd":
         return Block(kind, ln1, ssm_lib.init_mamba2(

@@ -1,14 +1,21 @@
 """Analytic roofline terms of a model configuration.
 
 The analytic half of `repro/roofline/analysis.py` (its lines 30-38 and
-112-139): the hardware record and the per-token model FLOPs, KV-cache and
-HBM byte counts that the serving launcher's profile is built from.  The
-reference's `parse_collectives` and `roofline_terms` read XLA HLO and wait
-for the launch-and-sharding slice (ROADMAP queue A).
+91-139): the hardware records, the three-term roofline, and the per-token
+model FLOPs, KV-cache and HBM byte counts that the serving launcher's
+profile is built from.
 
 `HW` is the reference's default hardware record, a TPU v5e, kept because
 the launcher's profile (and so the manager's plan) is defined against it;
-it describes no measurement of the port.
+it describes no measurement of the port.  `H100` is the card the port
+runs on, at the peaks `chip_smoke.py`'s bounds use; the dry-run
+(`repro_torch.launch.dryrun`) computes its terms against it.
+
+The reference's `parse_collectives` reads the collectives out of XLA's
+partitioned HLO.  No compiler partitions the port's program, so there is
+nothing to parse: the dry-run records no collectives until sharded
+execution counts them (`torch.distributed.tensor.debug.CommDebugMode`,
+ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ import dataclasses
 
 __all__ = [
     "HW",
+    "H100",
+    "H100_MEMORY_BYTES",
     "Hardware",
+    "roofline_terms",
     "model_flops",
     "model_kv_bytes",
     "model_hbm_bytes",
@@ -32,6 +42,32 @@ class Hardware:
 
 
 HW = Hardware()
+
+#: One NVIDIA H100 80GB HBM3 (SXM) at 700 W: dense bf16 tensor-core peak,
+#: HBM3 rate, and NVLink 4's 450 GB/s a direction over all its links (so
+#: ``links_per_chip=1``); its device memory below.
+H100 = Hardware(name="h100-80gb-hbm3-700w", peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9)
+H100_MEMORY_BYTES = 80e9
+
+
+def roofline_terms(
+    *,
+    hlo_flops_per_device: float,
+    hlo_bytes_per_device: float,
+    collective_bytes_per_device: float,
+    hw: Hardware = HW,
+    links_per_chip: int = 4,
+) -> dict[str, float]:
+    """Seconds of compute, memory and collective traffic per device, and
+    the dominant term.  All inputs are per device."""
+    compute = hlo_flops_per_device / hw.peak_flops
+    memory = hlo_bytes_per_device / hw.hbm_bw
+    collective = collective_bytes_per_device / (links_per_chip * hw.link_bw)
+    terms = {"compute_s": compute, "memory_s": memory, "collective_s": collective}
+    terms["dominant"] = max(
+        ("compute_s", "memory_s", "collective_s"), key=lambda k: terms[k]
+    )
+    return terms
 
 
 def model_flops(cfg, tokens: int) -> float:

@@ -35,7 +35,18 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, remat: bool = False) -> Callable:
+def _micro_batches(batch: dict, microbatches: int) -> list[dict]:
+    """``batch`` cut on its batch dim into ``microbatches`` equal parts, in
+    order (the reference's reshape to (M, B/M, ...))."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % microbatches:
+        raise ValueError(f"batch of {rows} rows does not split into {microbatches} micro-batches")
+    n = rows // microbatches
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()} for i in range(microbatches)]
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, remat: bool = False,
+                    microbatches: int = 1) -> Callable:
     """``step(state, batch, events=None) -> (state, metrics)``.
 
     ``batch`` holds tensors on the model's device.  ``events``, four CUDA
@@ -43,27 +54,70 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, remat: bool = Fal
     forward, backward and optimizer update (for timing them apart).
     Metrics (``loss``, ``ce``, ``router_aux``, ``grad_norm``, ``lr``) are
     0-d tensors on the device: reading one waits for the step.
+
+    ``microbatches=M > 1`` accumulates the gradients of M sequential
+    micro-batches (the batch cut on its batch dim) as the reference's
+    `launch/steps.py` does: summed in float32 and divided by M, the loss
+    and its parts averaged over the micro-batches, then one AdamW update,
+    which so gets float32 gradients (with M = 1 it gets them in the
+    parameters' type, as the reference's does).  With M > 1 the forwards
+    and backwards interleave: events 1 and 2 are both recorded after the
+    last backward.
     """
+    if microbatches < 1:
+        raise ValueError(f"microbatches={microbatches}")
+
     def record(events, i):
         if events is not None:
             events[i].record()
+
+    def grad(p):
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def per_tensor(fn, leaf):
+        return fn(leaf) if isinstance(leaf, torch.Tensor) else [fn(p) for p in leaf]
+
+    def accumulate(params, batch):
+        """(mean loss, mean parts, float32 gradients / M) over the micro-batches."""
+        leaves = param_leaves(cfg, params)
+        sums = {path: per_tensor(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), leaf)
+                for path, leaf in leaves.items()}
+        totals, parts = [], []
+        for one in _micro_batches(batch, microbatches):
+            total, part = tfm.loss_fn(params, cfg, one, remat=remat)
+            total.backward()
+            for path, leaf in leaves.items():
+                pairs = ([(sums[path], leaf)] if isinstance(leaf, torch.Tensor)
+                         else zip(sums[path], leaf))
+                for acc, p in pairs:
+                    if p.grad is not None:
+                        acc.add_(p.grad)  # widened to float32 exactly
+            params.zero_grad(set_to_none=True)
+            totals.append(total.detach())
+            parts.append({k: v.detach() for k, v in part.items()})
+        grads = {path: per_tensor(lambda acc: acc.div_(microbatches), leaf)
+                 for path, leaf in sums.items()}
+        total = sum(totals[1:], totals[0]) / microbatches
+        parts = {k: torch.stack([row[k] for row in parts]).mean() for k in parts[0]}
+        return total, parts, leaves, grads
 
     def train_step(state: TrainState, batch: dict, events=None):
         params = state["params"]
         params.requires_grad_(True)
         params.zero_grad(set_to_none=True)
         record(events, 0)
-        total, parts = tfm.loss_fn(params, cfg, batch, remat=remat)
-        record(events, 1)
-        total.backward()
-        record(events, 2)
-        leaves = param_leaves(cfg, params)
-
-        def grad(p):
-            return p.grad if p.grad is not None else torch.zeros_like(p)
-
-        grads = {path: grad(leaf) if isinstance(leaf, torch.Tensor) else [grad(p) for p in leaf]
-                 for path, leaf in leaves.items()}
+        if microbatches == 1:
+            total, parts = tfm.loss_fn(params, cfg, batch, remat=remat)
+            record(events, 1)
+            total.backward()
+            record(events, 2)
+            leaves = param_leaves(cfg, params)
+            grads = {path: per_tensor(grad, leaf) for path, leaf in leaves.items()}
+        else:
+            total, parts, leaves, grads = accumulate(params, batch)
+            record(events, 1)
+            record(events, 2)
         _, opt, opt_metrics = adamw_update(opt_cfg, leaves, grads, state["opt"])
         params.zero_grad(set_to_none=True)  # frees the gradients before the next forward
         record(events, 3)

@@ -1,9 +1,12 @@
 """The port stands alone: no jax, no `repro`, and no silent CPU fallback.
 
-`repro_torch`, `chip_smoke.py` and the port's example must import with
+`repro_torch`, `chip_smoke.py` and the port's examples must import with
 `jax`, `repro` and the reference's `benchmarks` blocked, and an entry
-point given no device must insist on the card.  The training launcher and
-`examples/torch_train_small.py` run on the CPU with the three blocked.  The sharded controller (`core/shard.py`) and
+point given no device must insist on the card.  The training launcher,
+`examples/torch_train_small.py` and the three ported examples (quickstart,
+allocation demo, camera serving) run on the CPU with the three blocked;
+the launcher's ``--production-mesh`` fails in one process, naming the
+ranks it needs.  The sharded controller (`core/shard.py`) and
 `chip_smoke.py`'s phase 4c, which runs `benchmarks/shard.py`'s scenarios
 from its own copy of their builders, run with the three blocked.  Of the
 port's scripts only the two that compute `chip_smoke.py`'s goldens import
@@ -74,7 +77,8 @@ print("ok", len({PORT_MODULES!r}))
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "examples/torch_train_small.py"],
+    + ["chip_smoke.py", "examples/torch_train_small.py", "examples/torch_quickstart.py",
+       "examples/torch_allocation_demo.py", "examples/torch_serve_cameras.py"],
 )
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -164,6 +168,53 @@ print("ok")
     for name in ("launch", "example"):
         assert (tmp_path / f"{name}.npz").is_file()
         assert (tmp_path / f"{name}.manifest.json").is_file()
+
+
+def test_examples_run_with_the_reference_blocked():
+    """The three ported examples on the CPU with `jax`, `repro` and
+    `benchmarks` blocked: the quickstart's 61% saving, the allocation
+    demo's three backends agreeing, and the camera fleet served."""
+    body = f"""
+import runpy
+out = {{}}
+for name in ("torch_quickstart", "torch_allocation_demo", "torch_serve_cameras"):
+    mod = runpy.run_path({str(ROOT / "examples")!r} + "/" + name + ".py", run_name=name)
+    out[name] = mod["main"](["--device", "cpu"])
+assert abs(out["torch_quickstart"]["savings"] - 0.61) < 0.005
+demo = out["torch_allocation_demo"]
+assert abs(demo["exact"] - demo["arcflow"]) < 1e-6 and demo["ffd"] >= demo["exact"]
+assert sum(n for n, _ in out["torch_serve_cameras"]["served"].values()) == 9
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+    proc = _run_blocked(body, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ok")
+
+
+def test_production_mesh_needs_its_ranks():
+    """``--production-mesh`` (and with ``--multi-pod``) in one process
+    fails at once, naming the ranks the mesh needs and the ranks there
+    are, and leaves no process group behind."""
+    body = """
+import torch.distributed as dist
+from repro_torch.launch import train
+for flags, need in (([], 256), (["--multi-pod"], 512)):
+    try:
+        train.main(["--arch", "internlm2-1.8b", "--smoke", "--steps", "1", "--device", "cpu",
+                    "--production-mesh", *flags])
+    except RuntimeError as exc:
+        assert f"needs {need} ranks" in str(exc) and "has 1" in str(exc), exc
+        print("raised:", exc)
+    else:
+        raise SystemExit("no error with one rank")
+    assert not dist.is_initialized()
+"""
+    proc = _run_blocked(body)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert proc.stdout.count("raised: the ") == 2
 
 
 def test_training_launcher_without_device_needs_the_card():

@@ -323,6 +323,22 @@ def test_init_params_has_the_reference_shapes(arch):
         int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(jp))
 
 
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_meta_init_has_the_cpu_init_shapes_and_types(arch):
+    """``init_params(cfg, device="meta")``: every tensor on meta (no memory,
+    no generator), with the shape and type of a CPU init's, and the same
+    `interop.plain_shapes`."""
+    from repro_torch.interop import plain_shapes
+
+    cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+    cpu = ttfm.init_params(cfg, seed=0, device="cpu")
+    meta = ttfm.init_params(cfg, device="meta")
+    assert {p.device.type for p in meta.parameters()} == {"meta"}
+    assert plain_shapes(cfg, meta) == plain_shapes(cfg, cpu)
+    assert [(k, v.shape, v.dtype) for k, v in meta.state_dict().items()] == [
+        (k, v.shape, v.dtype) for k, v in cpu.state_dict().items()]
+
+
 def test_params_from_plain_keeps_the_reference_types():
     """Carried across, each leaf takes the reference's type: bf16, and
     float32 for the SSD, RG-LRU and MoE (``router``) leaves that the
