@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
-Drives the port's three paths — the paper's resource manager, with
+Drives the port's paths — the paper's resource manager, with
 branch-and-price pricing on the card, the serving path of the analysis
 programs at the full width of gemma2-2b, mamba2-1.3b, recurrentgemma-9b
 and qwen3-moe-30b-a3b, and training at the full width and depth of
 internlm2-1.8b and mamba2-1.3b and at the full width of recurrentgemma-9b
-and qwen3-moe-30b-a3b — and holds every CUDA kernel of those paths against its plain torch
-version.  Phases, each raising on failure:
+and qwen3-moe-30b-a3b, and those four configs' steps sharded over four
+ranks on a (2, 2) mesh — and holds every CUDA kernel of those paths
+against its plain torch version.  Phases, each raising on failure:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel, from ``src/repro_torch/kernels/csrc``, one nvcc
@@ -192,9 +193,9 @@ version.  Phases, each raising on failure:
    again with every kernel's dispatch patched to its plain version (flash
    attention, flash-decode and the SSD scan on their ``simt`` variants,
    checked), logits compared:
-   gemma2-2b, mamba2-1.3b and recurrentgemma-9b at full depth,
-   qwen3-moe-30b-a3b at 8 of its 48 layers (full depth in float32 would
-   take 122 GB).  Routing is a discontinuous function of float32 sums, so
+   gemma2-2b at 12 layers, mamba2-1.3b at 24, recurrentgemma-9b at one
+   19-layer group, qwen3-moe-30b-a3b at 4 of its 48 layers (`MODEL_LAYERS`;
+   full depth in float32 would take 122 GB).  Routing is a discontinuous function of float32 sums, so
    the plain run takes the kernel run's expert choices (its own
    probabilities at them) and counts the choices it would have made
    otherwise;
@@ -238,7 +239,7 @@ version.  Phases, each raising on failure:
    ``simt`` forced on the same inputs;
    (b) float32 at full width on the card and on the CPU from the same
    weights, B=1, S=256 (`TRAIN_PARITY`: internlm2-1.8b, mamba2-1.3b and
-   qwen3-moe-30b-a3b at 2 layers, recurrentgemma-9b at 3): every gradient
+   qwen3-moe-30b-a3b at 1 layer, recurrentgemma-9b at 3): every gradient
    leaf within 1e-3 of its largest |grad|, then (but for
    `TRAIN_PARITY_GRADS_ONLY`) one train step's loss, grad norm and every
    updated weight within 1e-3, every backward on
@@ -246,7 +247,7 @@ version.  Phases, each raising on failure:
    the MoE model's CPU runs take the card runs' expert choices, the rows that
    would have chosen others counted and printed, as in phase 8; (c) bf16
    with remat at S=4096, AdamW steps on one fixed batch (`TRAIN_RUNS`):
-   internlm2-1.8b and mamba2-1.3b at full width and depth, B=2, 4 steps;
+   internlm2-1.8b and mamba2-1.3b at full width and depth, B=2, 3 steps;
    recurrentgemma-9b at full width, its depth cut to 6 layers, and
    qwen3-moe-30b-a3b at full width, its depth cut from 48 layers to 6
    (`QWEN_TRAIN_LAYERS`; the cuts printed), B=1, 3 steps; every kernel
@@ -260,7 +261,7 @@ version.  Phases, each raising on failure:
    peak memory against the card's; every step built by `launch/steps.py`'s
    `make_train_setup` on the (1, 1) mesh of a one-rank process group;
    (d) the launcher
-   `python -m repro_torch.launch.train --smoke --steps 3 --ckpt ...` in a
+   `python -m repro_torch.launch.train --smoke --steps 2 --ckpt ...` in a
    process of its own (its step built the same way), its checkpoint
    restored; (e) gradient accumulation: one internlm2-1.8b step at full
    width and depth (bf16, remat, B=2, S=4096) with 2 micro-batches and
@@ -272,7 +273,27 @@ version.  Phases, each raising on failure:
    qwen3-moe-30b-a3b train_4k 16x16, gemma2-2b long_500k 2x16x16 and
    yi-34b decode_32k 16x16: each step's leaves placed on meta over a fake
    process group of 256 or 512 ranks, every shard even, rank 0's bytes a
-   device printed by kind (CPU arithmetic; nothing runs on the card).
+   device printed by kind, and each step run on those meta shards to
+   count its collectives (CPU arithmetic; nothing runs on the card);
+11. sharded execution: the kernels built, four processes share the card
+   over gloo on a (2, 2) ("data", "model") mesh (`SHARD_ARCHS`:
+   internlm2-1.8b, qwen3-moe-30b-a3b (expert-parallel, 64 of 128 experts
+   a rank) and mamba2-1.3b at one layer, recurrentgemma-9b at one
+   (recurrent, recurrent, attention) group, all at full width; each rank
+   draws the whole model in turn and keeps its shard): in bf16 a train
+   step (B 4 x S 1024, 2 rows a data rank), a prefill and 4 decode steps
+   (recurrentgemma-9b's one KV head leaves its decode caches' slots split
+   over model, merged by `decode_attention`'s lse), internlm2-1.8b and
+   recurrentgemma-9b also in float32 (forward, prefill, decode); every
+   launch count and collective counter set to 0 before, each rank's
+   launches by kernel and design and the collectives gloo took on CUDA
+   tensors printed, every model kernel and backward launched on every
+   rank; then one rank on the card does the same work: the train step's
+   loss within 1e-2 and grad norm within 5e-2 relative, bf16 logits
+   (the prompt's last 16 positions, each decode step's) within 0.15 or
+   one bf16 ulp of the largest |logit| (the MoE by the reference test's
+   mean error under 0.02 and share over 0.2 under 0.02), float32 within
+   1e-3 of the largest |logit|.
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Every kernel time is taken with a cold L2 by `time_cold_ms`,
@@ -299,6 +320,7 @@ import dataclasses
 import hashlib
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import re
@@ -475,9 +497,12 @@ N_REQUESTS = 8
 #: of them.
 MODEL_ATOL = {"gemma2-2b": 1e-3, "mamba2-1.3b": 1e-3, "recurrentgemma-9b": 1e-3,
               "qwen3-moe-30b-a3b": 1e-3}
-#: Phase 8's depth cut: the float32 model's layers where full depth does
-#: not fit the card (qwen3-moe-30b-a3b: 122 GB at 48 layers).
-MODEL_LAYERS = {"qwen3-moe-30b-a3b": 8}
+#: Phase 8's depth cut: the float32 models at about half their depth
+#: (recurrentgemma-9b one of its two 19-layer groups), which gives back
+#: some of phase 11's seconds; qwen3-moe-30b-a3b at 4 of its 48 layers
+#: (full depth in float32 would take 122 GB).
+MODEL_LAYERS = {"gemma2-2b": 12, "mamba2-1.3b": 24, "recurrentgemma-9b": 19,
+                "qwen3-moe-30b-a3b": 4}
 
 VGG = AnalysisProgram("VGG-16", "vgg16")
 ZF = AnalysisProgram("ZF", "zf")
@@ -2374,6 +2399,8 @@ DECODE_CASES = [
     ("R=20, two row groups, window binds", 2, 2, 20, 128, 300, 290, 100, 50.0, False),
     ("no valid slot: the mean of v", 2, 2, 4, 256, 700, -1, None, None, False),
 ]
+#: decode_attention's lse against the plain version's: (atol, rtol).
+DECODE_LSE_TOL = (2e-5, 0.0)
 #: The decode exact case's head_dims and query heads a KV group.
 DECODE_EXACT = ((64, 2), (128, 8), (256, 16), (128, 20))
 #: (label, B, S, H, P, N, chunk, with h0)
@@ -2657,6 +2684,17 @@ def phase_kernels_vs_plain() -> list[dict]:
                                                  logit_softcap=cap)
             rows.append({"kernel": "decode_attention", "variant": variant,
                          **_compare(f"decode {label} [{variant}]", dtype, got, want)})
+            # With the log-sum-exp of each row (context-parallel decode's
+            # merge): the output at the same limits, lse within 2e-5.
+            variant, (got, lse) = counted_launch(decode, lambda: decode.decode_attention(
+                q, k, v, pos, cur, window=window, logit_softcap=cap, return_lse=True), dtype)
+            want, want_lse = decode.decode_attention_plain(
+                q, k, v, pos, cur, window=window, logit_softcap=cap, return_lse=True)
+            rows.append({"kernel": "decode_attention", "variant": variant,
+                         **_compare(f"decode {label} with lse [{variant}]", dtype, got, want)})
+            rows.append({"kernel": "decode_attention_lse", "variant": variant,
+                         **_compare(f"decode {label} lse [{variant}]", torch.float32, lse,
+                                    want_lse, tol=DECODE_LSE_TOL)})
         if dtype == torch.bfloat16:
             rows += [compare_decode_exact(d, r) for d, r in DECODE_EXACT]
         for i, (label, b, s, h, p, n, chunk, with_h0) in enumerate(SSD_CASES):
@@ -3372,6 +3410,9 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
           "softcap": dcap, "dtype": str(dq.dtype).replace("torch.", ""),
           "variant": decode._variant(dq.dtype)}
     dd.update(time_decode_parts((dq, dk, dv, pos, cur, dwin, dcap), reps=50))
+    # With each row's log-sum-exp written too (context-parallel decode).
+    dd["lse_ms"] = time_cold_ms(lambda: decode._dispatch(dq, dk, dv, pos, cur, dwin, dcap,
+                                                         with_lse=True), 50)
     dd["plain_ms"] = time_cold_ms(lambda: decode.decode_attention_plain(
         dq, dk, dv, pos, cur, window=dwin, logit_softcap=dcap), reps=20)
     dd.update(decode_bound(dq, dk, pos, cur, dwin))
@@ -3386,7 +3427,9 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
         decode.decode_attention_plain(dq32, dk32, dv32, pos, cur, window=dwin,
                                       logit_softcap=dcap))})
     dd["float32"] = {"variant": variant32, **decode_bound(dq32, dk32, pos, cur, dwin),
-                     **time_decode_parts((dq32, dk32, dv32, pos, cur, dwin, dcap), reps=20)}
+                     **time_decode_parts((dq32, dk32, dv32, pos, cur, dwin, dcap), reps=20),
+                     "lse_ms": time_cold_ms(lambda: decode._dispatch(
+                         dq32, dk32, dv32, pos, cur, dwin, dcap, with_lse=True), 20)}
     del dq32, dk32, dv32, got32
 
     # internlm2-1.8b's shapes: no window, no softcap, so SDPA computes the
@@ -3428,8 +3471,9 @@ def phase_attention_timing(flash_args, decode_args) -> dict:
         + (f"{f32['library_ms']:.4f} ms" if f32["library_ms"] is not None
            else f32["library_error"]))
     log(f"  decode_attention at {dd['shape']} float32 [{dd['float32']['variant']}]: kernel "
-        f"{dd['float32']['ms']:.4f} ms{_passes(dd['float32'])}, bound "
-        f"{dd['float32']['bound_ms']:.4f} ms; bf16{_passes(dd)}")
+        f"{dd['float32']['ms']:.4f} ms{_passes(dd['float32'])}, with lse "
+        f"{dd['float32']['lse_ms']:.4f} ms, bound {dd['float32']['bound_ms']:.4f} ms; "
+        f"bf16{_passes(dd)}, with lse {dd['lse_ms']:.4f} ms")
     for name, t in (("flash_attention", f), ("decode_attention", dd)):
         i = t["internlm2"]
         log(f"  {name} at {t['shape']} {t['dtype']}: kernel {t['ms']:.4f} ms, plain "
@@ -3914,7 +3958,8 @@ LSE_TOLERANCE = (2e-5, 2e-5)
 #: lr (1e-3), so the weights alone cannot tell a wrong gradient from a
 #: right one of the same sign: the gradients are what hold the backward.
 TRAIN_ARCH = "internlm2-1.8b"
-TRAIN_PARITY_LAYERS = 2
+#: One layer a config in (b) (two before phase 11 took their seconds).
+TRAIN_PARITY_LAYERS = 1
 TRAIN_PARITY_SEQ = 256
 TRAIN_ATOL = 1e-3
 #: recurrentgemma-9b cut in depth for training on one card: its 8.5 B
@@ -3945,7 +3990,7 @@ TRAIN_PARITY = {
 #: one): it trains only in the CPU tests' smoke variant.
 QWEN_TRAIN_LAYERS = 6
 #: (b)'s configs held by their gradients alone, with no train step after:
-#: qwen3-moe-30b-a3b's 1.9 B float32 parameters (2 layers, 151,936 words)
+#: qwen3-moe-30b-a3b's 1.2 B float32 parameters (1 layer, 151,936 words)
 #: make an AdamW step on the CPU take some 50 s, which the 1,200 s limit
 #: cannot spare, for the optimizer the other configs' steps already hold.
 #: Its launch counts are read around the card's gradient call (one forward
@@ -3958,7 +4003,7 @@ TRAIN_PARITY_GRADS_ONLY = ("qwen3-moe-30b-a3b",)
 #: depth cut from 38 layers to two groups of `RG_TRAIN_CUT` (6 layers), at
 #: B 1; qwen3-moe-30b-a3b at full width, its depth cut to
 #: `QWEN_TRAIN_LAYERS`, at B 1.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 4, 1e-3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 3, 1e-3
 TRAIN_RUNS = {
     TRAIN_ARCH: (dict(), TRAIN_BATCH, TRAIN_STEPS),
     "mamba2-1.3b": (dict(), TRAIN_BATCH, TRAIN_STEPS),
@@ -3966,7 +4011,7 @@ TRAIN_RUNS = {
     "qwen3-moe-30b-a3b": (dict(num_layers=QWEN_TRAIN_LAYERS), 1, 3),
 }
 #: (d) the launcher's smoke run.
-LAUNCH_TRAIN_STEPS = 3
+LAUNCH_TRAIN_STEPS = 2
 #: (e) gradient accumulation: micro-batches, and the limits on M's loss and
 #: grad norm against one batch's (relative).
 ACCUM_MICROBATCHES = 2
@@ -4899,7 +4944,7 @@ def train_accumulation(mesh) -> dict:
 
 def train_launcher(workdir: pathlib.Path) -> dict:
     """(d): ``python -m repro_torch.launch.train --arch internlm2-1.8b
-    --smoke --steps 3 --ckpt ...`` in a process of its own (its step built
+    --smoke --steps 2 --ckpt ...`` in a process of its own (its step built
     by `steps.make_train_setup` on its (1, 1) mesh), then its checkpoint
     restored into the smoke model."""
     path = workdir / "launch-train"
@@ -4933,18 +4978,32 @@ def train_launcher(workdir: pathlib.Path) -> dict:
 
 
 def phase_training() -> dict:
-    out = {}
+    out = {"part_seconds": {}}
+    t = time.perf_counter()
+
+    def part(name):
+        nonlocal t
+        now = time.perf_counter()
+        out["part_seconds"][name] = now - t
+        log(f"  ({name}: {now - t:.1f} s)")
+        t = now
+
     out["kernel_checks"], out["timing"] = phase_backward_vs_plain()
     scan_checks, out["scan_timing"] = phase_scan_backward_vs_plain()
     out["kernel_checks"] += scan_checks
     gg_checks, out["gg_timing"] = phase_gg_backward_vs_plain()
     out["kernel_checks"] += gg_checks
+    part("a")
     out["card_vs_cpu"] = {arch: train_card_vs_cpu(arch) for arch in TRAIN_PARITY}
+    part("b")
     with local_mesh() as mesh:
         out["full_width"] = {arch: train_full_width(arch, mesh) for arch in TRAIN_RUNS}
+        part("c")
         out["accumulation"] = train_accumulation(mesh)
+        part("e")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         out["launcher"] = train_launcher(pathlib.Path(tmp))
+    part("d")
     return out
 
 
@@ -5125,6 +5184,316 @@ def phase_dryrun() -> list[dict]:
                                         "bytes_per_device", "fits_device", "roofline")})
     return out
 
+# ---- phase 11: sharded execution --------------------------------------------------
+
+#: Phase 11's ranks (processes on the one card) and their ("data", "model") mesh.
+SHARD_RANKS, SHARD_MESH = 4, (2, 2)
+#: The configs at full width, each cut to one layer group (recurrentgemma-9b's
+#: group to phase 9's (recurrent, recurrent, attention)).
+SHARD_ARCHS = {
+    "internlm2-1.8b": dict(num_layers=1),
+    "qwen3-moe-30b-a3b": dict(num_layers=1),
+    "mamba2-1.3b": dict(num_layers=1),
+    "recurrentgemma-9b": dict(RG_TRAIN_CUT, num_layers=3),
+}
+#: The batch (2 rows a data rank), the decode steps after the prefill, the
+#: caches' slots, and the prompt's last positions whose logits are compared
+#: (all of a 4 x 1024 prefill's over qwen3's 151,936 words is 2.5 GB).
+SHARD_B, SHARD_S, SHARD_DECODE, SHARD_CACHE, SHARD_TAIL = 4, 1024, 4, 1032, 16
+#: The configs also run in float32: forward, prefill and decode.
+SHARD_F32 = ("internlm2-1.8b", "recurrentgemma-9b")
+#: bf16 logits against one rank's: the reference test's 0.15
+#: (tests/test_sharding.py:159), or one bf16 ulp of the largest |logit|
+#: where that is coarser; the MoE by its mean and large-error share
+#: (:150-157).  float32: 1e-3 of the largest |logit|.  The train step's loss
+#: and grad norm, relative.
+SHARD_BF16_ATOL, SHARD_F32_RTOL = 0.15, 1e-3
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 1e-2, 5e-2
+SHARD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+#: The kernels every rank must have launched in the phase.
+SHARD_KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+                 "ssd_scan_backward", "rglru_scan", "rglru_scan_backward", "grouped_gemm",
+                 "grouped_gemm_bwd")
+
+
+def _shard_cfg(arch: str, dtype: str):
+    return dataclasses.replace(get_config(arch), dtype=dtype, **SHARD_ARCHS[arch])
+
+
+def _shard_counts() -> dict:
+    return {**train_counts(), "decode_attention": decode.LAUNCHES,
+            "decode_attention_by_variant": dict(decode.LAUNCHES_BY_VARIANT)}
+
+
+def _tail(dt, n: int) -> torch.Tensor:
+    """The last ``n`` positions (dim 1) of a sharded step's logits, whole,
+    on the CPU."""
+    from repro_torch.sharding import execute as ex
+
+    local = dt.to_local()[:, -n:].contiguous()
+    shape = (dt.shape[0], n) + tuple(dt.shape[2:])
+    return ex.full(ex._dtensor(local, ex._spec_of(dt), dt.device_mesh, shape)).cpu()
+
+
+def _in_turn(make):
+    """``make()`` on each rank in turn, the card's memory freed after each:
+    the four ranks share one card, and each draws the whole model before it
+    keeps its shard."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = make()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _serve_setups(cfg, mesh):
+    """Phase 11's prefill and decode builders: (prefill, decode, param specs,
+    batch specs, cache specs, decode's input specs)."""
+    kw = dict(multi_pod=False, batch=SHARD_B)
+    pre, _, (pspecs, bspecs, cspecs) = steps_lib.make_prefill_setup(cfg, mesh, seq_len=SHARD_S,
+                                                                    **kw)
+    dec, _, (_, in_specs, _) = steps_lib.make_decode_setup(cfg, mesh, cache_len=SHARD_CACHE,
+                                                           long_context=False, **kw)
+    return pre, dec, pspecs, bspecs, cspecs, in_specs
+
+
+def _shard_serve(cfg, mesh, counted, batch, params) -> dict:
+    """A prefill and `SHARD_DECODE` decode steps through the builders on
+    ``mesh`` with ``params`` (at the prefill builder's specs): the prompt's
+    last logits and each step's."""
+    from repro_torch.sharding import execute as ex
+
+    pre, dec, _, bspecs, cspecs, in_specs = _serve_setups(cfg, mesh)
+    caches = ex.place_caches(tfm.init_serve_cache(cfg, SHARD_B, SHARD_CACHE), cspecs, cfg, mesh)
+    logits, caches = counted(pre, params, ex.place_tree({"tokens": batch["tokens"]}, bspecs,
+                                                        mesh), caches)
+    out = {"prefill": _tail(logits, SHARD_TAIL), "decode": []}
+    tok = out["prefill"][:, -1:].argmax(-1).to(torch.int32).cuda()
+    for i in range(SHARD_DECODE):
+        logits, caches = counted(dec, params, ex.place(tok, in_specs["tokens"], mesh),
+                                 SHARD_S + i, caches)
+        out["decode"].append(ex.full(logits).cpu())
+        tok = out["decode"][-1].argmax(-1).to(torch.int32).cuda()
+    return out
+
+
+def sharded_rank(rank: int, world: int, run_dir: str) -> None:
+    """One of phase 11's ranks: gloo on the card, a (2, 2) mesh, each
+    config's sharded steps; its results, launches and collectives to
+    ``rank<r>.pt``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import execute as ex
+    from repro_torch.sharding.parallel import CollectiveCounter
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(f"{run_dir}/store", world),
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cuda", SHARD_MESH, mesh_dim_names=("data", "model"))
+    collectives: dict = {}
+
+    def counted(fn, *args):
+        with CollectiveCounter() as counter:
+            out = fn(*args)
+        for op, v in counter.counts.items():
+            if v["count"]:
+                c = collectives.setdefault(op, {"count": 0, "bytes": 0.0})
+                c["count"] += v["count"]
+                c["bytes"] += v["bytes"]
+        return out
+
+    out = {"bf16": {}, "float32": {}}
+    reset_train_counts()
+    decode.LAUNCHES = 0
+    for k in decode.LAUNCHES_BY_VARIANT:
+        decode.LAUNCHES_BY_VARIANT[k] = 0
+    for arch in SHARD_ARCHS:
+        cfg = _shard_cfg(arch, "bfloat16")
+        batch = batch_to_device(make_batch(cfg, BatchSpec(SHARD_B, SHARD_S), seed=0), "cuda")
+        step, _, (state_specs, bspecs) = steps_lib.make_train_setup(
+            cfg, mesh, multi_pod=False, batch=SHARD_B, seq_len=SHARD_S,
+            opt_cfg=AdamWConfig(**SHARD_OPT))
+        serve_specs = _serve_setups(cfg, mesh)[2]
+
+        def place():  # the train state and the serving weights from one draw
+            model = tfm.init_params(cfg, seed=0)
+            return (ex.place_train_state(cfg, model, state_specs, mesh),
+                    ex.place_params(cfg, model, serve_specs, mesh))
+
+        state, params = _in_turn(place)
+        res = {"resident_bytes": ex.resident_bytes(state)}
+        _, metrics = counted(step, state, ex.place_tree(batch, bspecs, mesh))
+        res.update({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+        del state
+        res.update(_shard_serve(cfg, mesh, counted, batch, params))
+        del params
+        out["bf16"][arch] = res
+        torch.cuda.empty_cache()
+    for arch in SHARD_F32:
+        cfg = _shard_cfg(arch, "float32")
+        batch = batch_to_device(make_batch(cfg, BatchSpec(SHARD_B, SHARD_S), seed=0), "cuda")
+        pspecs = _serve_setups(cfg, mesh)[2]  # the forward's plan: no FSDP, as prefill's
+        bspecs = {"tokens": ("data", None)}
+        fwd = ex.sharded_forward_train(cfg, mesh, pspecs, bspecs)
+        params = _in_turn(lambda: ex.place_params(cfg, tfm.init_params(cfg, seed=0), pspecs,
+                                                  mesh))
+        logits, _ = counted(fwd, params, ex.place_tree({"tokens": batch["tokens"]}, bspecs,
+                                                        mesh))
+        res = {"forward": _tail(logits, SHARD_TAIL)}
+        del logits
+        res.update(_shard_serve(cfg, mesh, counted, batch, params))
+        del params
+        out["float32"][arch] = res
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["launches"] = _shard_counts()
+    out["collectives"] = collectives
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(out, f"{run_dir}/rank{rank}.pt")
+
+
+def _one_rank_serve(cfg, model, sharded: dict, batch) -> dict:
+    """`_shard_serve`'s work on one rank: the same prompt, then the sharded
+    run's tokens."""
+    caches = tfm.init_serve_cache(cfg, SHARD_B, SHARD_CACHE)
+    logits, caches = tfm.forward_prefill(model, cfg, {"tokens": batch["tokens"]}, caches)
+    out = {"prefill": logits[:, -SHARD_TAIL:].cpu(), "decode": []}
+    del logits
+    for i in range(SHARD_DECODE):
+        src = sharded["prefill"] if i == 0 else sharded["decode"][i - 1]
+        tok = src[:, -1:].argmax(-1).to(torch.int32).cuda()
+        logits, caches = tfm.forward_decode(model, cfg, tok, SHARD_S + i, caches)
+        out["decode"].append(logits.cpu())
+    return out
+
+
+def _shard_compare(label, got, want, moe: bool, dtype: str) -> float:
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if dtype == "float32":
+        bound = SHARD_F32_RTOL * float(want.abs().max())
+        if err > bound:
+            raise AssertionError(f"{label}: sharded vs one rank {err:.3g} > {bound:.3g}")
+    elif moe:
+        mean, large = float(diff.mean()), float((diff > 0.2).float().mean())
+        if mean >= 0.02 or large >= 0.02:
+            raise AssertionError(f"{label}: mean err {mean:.3g}, share > 0.2 {large:.3g}")
+    else:
+        # bf16 logits: the reference's 0.15, or one bf16 ulp of the largest
+        # |logit| where that is coarser (recurrentgemma-9b's reach some 40
+        # at init, where a product summed in another order may round a
+        # whole ulp, 0.25, away).
+        largest = float(want.abs().max())
+        bound = max(SHARD_BF16_ATOL, 2.0 ** (math.floor(math.log2(largest)) - 7))
+        if err > bound:
+            raise AssertionError(f"{label}: sharded vs one rank {err:.3g} > {bound:.3g} "
+                                 f"(largest |logit| {largest:.3g})")
+    return err
+
+
+def phase_sharded_execution() -> dict:
+    """Phase 11: four ranks on a (2, 2) mesh sharing the card over gloo (the
+    kernels are built; the ranks load them), each config's train step,
+    prefill and decode held against one rank's on the card."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    # Four processes share the card: their caches grow in segments.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
+            mp.start_processes(sharded_rank, args=(SHARD_RANKS, run_dir), nprocs=SHARD_RANKS,
+                               start_method="spawn")
+            ranks = [torch.load(f"{run_dir}/rank{r}.pt") for r in range(SHARD_RANKS)]
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    t_ranks = time.perf_counter() - t0
+    log(f"  the ranks: {t_ranks:.1f} s from the spawn to the last's exit")
+    out = {"ranks_s": t_ranks, "rank_s": [r["seconds"] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks], "launches": [], "collectives": [],
+           "bf16": {}, "float32": {}}
+    for r, res in enumerate(ranks):
+        launches = res["launches"]
+        missing = [k for k in SHARD_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"phase 11 rank {r}: no launch of {missing}")
+        out["launches"].append(launches)
+        out["collectives"].append(res["collectives"])
+        log(f"  rank {r}: {res['seconds']:.1f} s, peak {res['peak_gb']:.1f} GB; launches "
+            + ", ".join(f"{k} {launches[k]} {launches.get(k + '_by_variant', '')}".rstrip()
+                        for k in SHARD_KERNELS))
+        log(f"  rank {r}: gloo collectives on CUDA tensors "
+            + ", ".join(f"{op} x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
+                        for op, v in res["collectives"].items()))
+    for dtype, archs in (("bf16", SHARD_ARCHS), ("float32", SHARD_F32)):
+        for arch in archs:
+            t_arch = time.perf_counter()
+            cfg = _shard_cfg(arch, "bfloat16" if dtype == "bf16" else "float32")
+            got = ranks[0][dtype][arch]
+            moe = cfg.num_experts > 0
+            batch = batch_to_device(make_batch(cfg, BatchSpec(SHARD_B, SHARD_S), seed=0),
+                                    "cuda")
+            row = {}
+            if dtype == "bf16":
+                model = tfm.init_params(cfg, seed=0)
+                with local_mesh() as mesh:
+                    step, _, _ = steps_lib.make_train_setup(
+                        cfg, mesh, multi_pod=False, batch=SHARD_B, seq_len=SHARD_S,
+                        opt_cfg=AdamWConfig(**SHARD_OPT))
+                    model.requires_grad_(True)
+                    _, metrics = step({"params": model,
+                                       "opt": init_opt_state(param_leaves(cfg, model))}, batch)
+                for key, rtol in (("loss", SHARD_LOSS_RTOL), ("grad_norm", SHARD_GNORM_RTOL)):
+                    want = float(metrics[key])
+                    row[key] = (got[key], want)
+                    if abs(got[key] - want) > rtol * abs(want):
+                        raise AssertionError(f"phase 11 {arch} {key}: {got[key]} vs {want}")
+                del model, metrics
+                torch.cuda.empty_cache()
+            else:
+                model = tfm.init_params(cfg, seed=0)
+                with torch.no_grad():
+                    logits, _ = tfm.forward_train(model, cfg, {"tokens": batch["tokens"]})
+                row["forward"] = _shard_compare(f"{arch} float32 forward", got["forward"],
+                                                logits[:, -SHARD_TAIL:].cpu(), moe, dtype)
+                del model, logits
+            model = tfm.init_params(cfg, seed=0)
+            with torch.no_grad():
+                want = _one_rank_serve(cfg, model, got, batch)
+            del model
+            torch.cuda.empty_cache()
+            row["prefill"] = _shard_compare(f"{arch} {dtype} prefill", got["prefill"],
+                                            want["prefill"], moe, dtype)
+            row["decode"] = [_shard_compare(f"{arch} {dtype} decode {i}", g, w, moe, dtype)
+                             for i, (g, w) in enumerate(zip(got["decode"], want["decode"]))]
+            if dtype == "bf16":
+                row["resident_gb"] = [r["bf16"][arch]["resident_bytes"] / 1e9 for r in ranks]
+            out[dtype][arch] = row
+            row["one_rank_s"] = time.perf_counter() - t_arch
+            log(f"  {arch} {dtype} ({row['one_rank_s']:.1f} s on one rank): " + ", ".join(
+                f"{k} {v[0]:.4f} vs {v[1]:.4f}" if isinstance(v, tuple) else
+                f"{k} err {max(v) if isinstance(v, list) else v:.3g}"
+                for k, v in row.items() if k not in ("resident_gb", "one_rank_s"))
+                + (f"; rank 0 holds {row['resident_gb'][0]:.2f} GB of state"
+                   if "resident_gb" in row else ""))
+    return out
+
 
 class PhaseTimer:
     """Prints each phase's title as it begins and its seconds as it ends."""
@@ -5291,6 +5660,9 @@ def main(argv=None) -> int:
         kernel_checks += [c for c in training["kernel_checks"] if c["kernel"] == "flash_attention"]
         timer.begin("phase 10", "dry-run on meta under fake process groups (CPU arithmetic)")
         result["dryrun"] = phase_dryrun()
+        torch.cuda.empty_cache()
+        timer.begin("phase 11", "sharded execution: four ranks on a (2, 2) mesh sharing the card")
+        result["sharded_execution"] = phase_sharded_execution()
 
         timing = result["timing"]
         result["kernels"] = [{
@@ -5373,7 +5745,7 @@ def main(argv=None) -> int:
             # The passes of a two-pass kernel, timed apart; RG-LRU's other
             # variant and CTA width, forced.
             parts = ("split_ms", "combine_ms", "cb_ms", "per_head_ms", "passes", "lanes",
-                     "cp_async_ms", "lanes_64_ms", "lanes_128_ms")
+                     "cp_async_ms", "lanes_64_ms", "lanes_128_ms", "lse_ms")
             entry.update({k: t[k] for k in parts if k in t})
             for shapes in ("internlm2", "recurrentgemma", "qwen3"):
                 if shapes in t:
@@ -5404,6 +5776,12 @@ def main(argv=None) -> int:
         result["kernels"] += gg_backward_entries(training)
         result["cold_timings"] = COLD_TIMINGS
     result["phase_seconds"] = timer.finish()
+    if not args.kernel_only:
+        sec, parts = result["phase_seconds"], result["training"]["part_seconds"]
+        log(f"  phase 11 took {sec['phase 11']:.1f} s; the phases cut to give it back: "
+            f"8 {sec['phase 8']:.1f} s (its float32 models at about half depth), 9 (b) "
+            f"{parts['b']:.1f} s (one layer a config, not two), (c) {parts['c']:.1f} s (3 "
+            f"steps, not 4), (d) {parts['d']:.1f} s (2 steps, not 3)")
     result["seconds"] = time.perf_counter() - t_start
     if args.json:
         path = pathlib.Path(args.json)

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-__all__ = ["KernelError", "on_card", "resolve_device", "sm_count"]
+__all__ = ["KernelError", "local_card", "on_card", "resolve_device", "sm_count"]
 
 
 class KernelError(RuntimeError):
@@ -23,15 +23,33 @@ class KernelError(RuntimeError):
     this type: every other error prices nothing, as in the reference."""
 
 
+def local_card() -> int:
+    """The card of this process: ``cuda:0``, or, in an initialized process
+    group on a host with several cards, this rank's own, ``LOCAL_RANK``'s
+    (as ``torchrun`` sets it; else the rank modulo the cards).  Ranks that
+    share one card all get ``cuda:0``."""
+    import os
+
+    import torch.distributed as dist
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards <= 1 or not dist.is_initialized():
+        return 0
+    local = os.environ.get("LOCAL_RANK")
+    return (int(local) if local is not None else dist.get_rank()) % cards
+
+
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     """The device an entry point runs on.
 
-    ``None`` means the card, ``cuda:0``, and raises when torch sees no CUDA
-    device.  ``"cpu"`` (or any explicit device) is returned as given; an
-    explicit CUDA device also raises (`KernelError`) when no card is
-    present.
+    ``None`` means the card, `local_card`'s (``cuda:0`` on a host with one),
+    and raises when torch sees no CUDA device.  ``"cpu"`` (or any explicit
+    device) is returned as given; an explicit CUDA device also raises
+    (`KernelError`) when no card is present.
     """
-    dev = torch.device("cuda:0" if device is None else device)
+    if device is None and not torch.cuda.is_available():
+        device = "cuda:0"
+    dev = torch.device(f"cuda:{local_card()}" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise KernelError(
             f"device {dev} requested but torch sees no CUDA device; "

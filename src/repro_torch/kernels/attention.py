@@ -193,7 +193,7 @@ def _bwd_ranges_on(device, s, bq, bk, window):
 
 
 def _check_inputs(q, k, v, window, logit_softcap) -> None:
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q must be bfloat16 or float32, got {q.dtype}")
@@ -281,6 +281,9 @@ def _dispatch(q, k, v, window, logit_softcap, with_lse=False):
         return flash_attention_plain(q, k, v, window=window, logit_softcap=logit_softcap,
                                      return_lse=with_lse)
     b, s, h, d = q.shape
+    if q.device.type == "meta":  # shapes only: the dry-run's abstract step
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="meta")
+        return (torch.empty_like(q), lse) if with_lse else torch.empty_like(q)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS} on CUDA")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -335,6 +338,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, window=None, logit_softcap=
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, window=window,
                                               logit_softcap=logit_softcap)
+    if q.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _dispatch_bwd(q, k, v, o, lse, do.contiguous(), window, logit_softcap)
 
 

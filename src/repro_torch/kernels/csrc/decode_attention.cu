@@ -74,6 +74,10 @@
 //    Each CTA writes its (max, sum, unnormalised accumulator) to a float32
 //    scratch, and decode_combine, one thread per output element, merges
 //    the splits by log-sum-exp.
+// Either design also writes, when asked (a non-null lse), each row's
+// log-sum-exp of its scores: a context-parallel decode, whose ranks each
+// hold a run of the cache's slots, merges their outputs by it.  Its cost is
+// one float a (b, g, r) row, written once by one thread.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -264,8 +268,8 @@ template <int D, int NG>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ o_out,
-               int L, int KV, int R, int cur, int chunk, float scale, float softcap,
-               int window) {
+               float* __restrict__ lse, int L, int KV, int R, int cur, int chunk, float scale,
+               float softcap, int window) {
   using Lay = Layout<D, NG>;
   constexpr int BL = Lay::BL, RP = Lay::RP, LDP = Lay::LDP;
   constexpr int NT = BL / 32;  // n8 fragments of slots a warp scores
@@ -550,6 +554,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         sum += *cluster.map_shared_rank(pl + r, t) * w;
       }
     den[r] = fmaxf(sum, kMinDenom);
+    // The row's log-sum-exp of the scores, for a merge with other slots.
+    if (lse != nullptr && split == 0)
+      lse[(static_cast<size_t>(b) * KV + g) * R + r] = mx + logf(den[r]);
   }
   __syncthreads();
   const int rd = R * D;
@@ -571,8 +578,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 // (b, g)).
 template <typename T>
 __global__ void __launch_bounds__(attn::kThreads)
-    decode_combine(const float* __restrict__ part, T* __restrict__ o, int R, int D,
-                   int n_split) {
+    decode_combine(const float* __restrict__ part, T* __restrict__ o, float* __restrict__ lse,
+                   int R, int D, int n_split) {
   using attn::kMinDenom;
   using attn::kNegInf;
   const int rd = R * D;
@@ -591,6 +598,9 @@ __global__ void __launch_bounds__(attn::kThreads)
     acc += ps[2 * R + i] * w;
   }
   attn::store(o + static_cast<size_t>(blockIdx.x) * rd + i, acc / fmaxf(sum, kMinDenom));
+  // The row's log-sum-exp of the scores, for a merge with other slots.
+  if (lse != nullptr && i % D == 0)
+    lse[static_cast<size_t>(blockIdx.x) * R + r] = mx + logf(fmaxf(sum, kMinDenom));
 }
 
 struct Args {
@@ -600,6 +610,7 @@ struct Args {
   const int* pos;
   void* o;
   float* part;
+  float* lse;
   int B, L, KV, R, cur, n_split, chunk;
   float scale, softcap;
   int window;
@@ -611,8 +622,8 @@ int launch_combine(const Args& a, int D, cudaEvent_t mid, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   if (mid != nullptr && (err = cudaEventRecord(mid, stream)) != cudaSuccess) return (int)err;
   const dim3 grid(a.B * a.KV, (a.R * D + attn::kThreads - 1) / attn::kThreads);
-  decode_combine<T><<<grid, attn::kThreads, 0, stream>>>(a.part, static_cast<T*>(a.o), a.R, D,
-                                                         a.n_split);
+  decode_combine<T><<<grid, attn::kThreads, 0, stream>>>(a.part, static_cast<T*>(a.o), a.lse,
+                                                         a.R, D, a.n_split);
   return (int)cudaGetLastError();
 }
 
@@ -659,8 +670,8 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(a.q),
                            static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v), a.pos,
-                           static_cast<bf16*>(a.o), a.L, a.KV, a.R, a.cur, a.chunk, a.scale,
-                           a.softcap, a.window);
+                           static_cast<bf16*>(a.o), a.lse, a.L, a.KV, a.R, a.cur, a.chunk,
+                           a.scale, a.softcap, a.window);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -711,7 +722,10 @@ bool valid(const Args& a, int unit) {
 }  // namespace
 
 // q (B, KV, R, D), k and v (B, L, KV, D), pos (L,) int32, o (B, KV, R, D),
-// scratch B*KV*n_split*R*(D+2) floats, all contiguous and 16-byte aligned.
+// scratch B*KV*n_split*R*(D+2) floats, all contiguous and 16-byte aligned;
+// lse, null or (B, KV, R) float32, takes each row's log-sum-exp of its
+// scaled, capped and masked scores (max + log of the merged sum), so that
+// the output can be merged with attention over other slots.
 // Split s covers slots [s*chunk, min(L, (s+1)*chunk)); every split holds
 // a slot.  softcap <= 0 means none, window <= 0 means none.  `mid`, a
 // cudaEvent_t or null, is recorded between the split pass and the combine
@@ -720,9 +734,10 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* pos, void* o, void* scratch, int B, int L,
                                     int KV, int R, int D, int cur, int n_split, int chunk,
                                     float scale, float softcap, int window, void* mid,
-                                    void* stream) {
+                                    void* lse, void* stream) {
   const Args a{q, k, v, static_cast<const int*>(pos), o, static_cast<float*>(scratch),
-               B, L, KV, R, cur, n_split, chunk, scale, softcap, window};
+               static_cast<float*>(lse), B, L, KV, R, cur, n_split, chunk, scale, softcap,
+               window};
   if (!valid(a, attn::tile_rows<float>())) return (int)cudaErrorInvalidValue;
   const cudaEvent_t ev = static_cast<cudaEvent_t>(mid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -754,9 +769,10 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      const void* pos, void* o, void* scratch, int B, int L,
                                      int KV, int R, int D, int cur, int n_split, int chunk,
                                      float scale, float softcap, int window, void* mid,
-                                     void* stream) {
+                                     void* lse, void* stream) {
   const Args a{q, k, v, static_cast<const int*>(pos), o, static_cast<float*>(scratch),
-               B, L, KV, R, cur, n_split, chunk, scale, softcap, window};
+               static_cast<float*>(lse), B, L, KV, R, cur, n_split, chunk, scale, softcap,
+               window};
   if (!valid(a, 1) || n_split > tc::kMaxSplits) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {

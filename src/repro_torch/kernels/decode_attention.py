@@ -76,8 +76,11 @@ def _variant(dtype: torch.dtype) -> str:
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
-def decode_attention_plain(q, k, v, pos, cur_pos, *, window=None, logit_softcap=None):
-    """Plain torch one-token attention over the cache; any device."""
+def decode_attention_plain(q, k, v, pos, cur_pos, *, window=None, logit_softcap=None,
+                           return_lse=False):
+    """Plain torch one-token attention over the cache; any device.  With
+    ``return_lse``, also each row's float32 log-sum-exp of its masked
+    scores (B, KV, R)."""
     d = q.shape[-1]
     scores = torch.einsum("bgrd,blgd->bgrl", q.float(), k.float()) * (d ** -0.5)
     if logit_softcap is not None:
@@ -87,7 +90,10 @@ def decode_attention_plain(q, k, v, pos, cur_pos, *, window=None, logit_softcap=
         mask &= pos > cur_pos - window
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bgrl,blgd->bgrd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bgrl,blgd->bgrd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1)
 
 
 def splits(b: int, kv: int, cache_len: int, target_ctas: int) -> tuple[int, int]:
@@ -113,7 +119,7 @@ def mma_splits(b: int, kv: int, cache_len: int, target_ctas: int,
 
 
 def _check_inputs(q, k, v, pos, cur_pos, window, logit_softcap) -> None:
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"decode_attention: q must be bfloat16 or float32, got {q.dtype}")
@@ -148,6 +154,7 @@ def _check_inputs(q, k, v, pos, cur_pos, window, logit_softcap) -> None:
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
 ]
 
 
@@ -188,10 +195,14 @@ def _kernel_fn(dtype: torch.dtype):
     return fn
 
 
-def decode_attention(q, k, v, pos, cur_pos, *, window=None, logit_softcap=None):
+def decode_attention(q, k, v, pos, cur_pos, *, window=None, logit_softcap=None,
+                     return_lse=False):
     """``(B, KV, R, D)`` attention of q ``(B, KV, R, D)`` over k/v
     ``(B, L, KV, D)`` with slot positions ``pos (L,)`` int32, at the host
-    integer ``cur_pos``, dispatched by device.
+    integer ``cur_pos``, dispatched by device.  With ``return_lse``,
+    ``(out, lse)``: lse (B, KV, R) float32, each row's log-sum-exp of its
+    masked scores, by which outputs over disjoint runs of slots merge
+    (`repro_torch.models.attention.merge_by_lse`).
 
     CPU tensors run `decode_attention_plain`; CUDA tensors launch the split
     pass `_variant` picks and the combine pass on the current stream, and
@@ -200,10 +211,13 @@ def decode_attention(q, k, v, pos, cur_pos, *, window=None, logit_softcap=None):
     head_dim other than 64, 128 or 256, ``R * D`` above 8192.
     """
     _check_inputs(q, k, v, pos, cur_pos, window, logit_softcap)
+    if return_lse:
+        return _dispatch(q, k, v, pos, int(cur_pos), window, logit_softcap, with_lse=True)
     return _dispatch(q, k, v, pos, int(cur_pos), window, logit_softcap)
 
 
-def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None):
+def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None,
+              with_lse=False):
     """`decode_attention` after its checks: the plain version or the kernels.
     ``mid_event`` (a `torch.cuda.Event`), for measurements, is recorded
     between the ``simt`` variant's split pass and combine pass (the ``mma``
@@ -211,8 +225,11 @@ def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None):
     global LAUNCHES
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, cur_pos, window=window,
-                                      logit_softcap=logit_softcap)
+                                      logit_softcap=logit_softcap, return_lse=with_lse)
     b, kv, r, d = q.shape
+    if q.device.type == "meta":  # shapes only: the dry-run's abstract step
+        lse = torch.empty((b, kv, r), dtype=torch.float32, device="meta")
+        return (torch.empty_like(q), lse) if with_lse else torch.empty_like(q)
     cache_len = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {d} not in {HEAD_DIMS} on CUDA")
@@ -228,6 +245,7 @@ def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None):
     fn = _kernel_fn(q.dtype)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        lse = torch.empty((b, kv, r), dtype=torch.float32, device=q.device) if with_lse else None
         if variant == "mma":
             n_split, chunk = mma_splits(b, kv, cache_len, target, _max_mma_splits(d, r))
             scratch, mid = None, None
@@ -245,10 +263,11 @@ def _dispatch(q, k, v, pos, cur_pos, window, logit_softcap, *, mid_event=None):
             b, cache_len, kv, r, d, cur_pos, n_split, chunk, d ** -0.5,
             0.0 if logit_softcap is None else float(logit_softcap),
             0 if window is None else int(window), mid,
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise KernelError(f"decode_attention {variant} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
-    return out
+    return (out, lse) if with_lse else out

@@ -147,7 +147,7 @@ def grouped_gemm_backward_plain(x, w, offsets, dy, *, need_dx: bool = True,
 
 
 def _check_inputs(x, w, offsets) -> None:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"grouped_gemm: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"grouped_gemm: x must be bfloat16 or float32, got {x.dtype}")
@@ -246,6 +246,8 @@ def _dispatch(x, w, offsets, variant: str | None = None):
     global LAUNCHES
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, offsets)
+    if x.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device="meta")
     for name, t in (("x", x), ("w", w), ("offsets", offsets)):
         if not t.is_contiguous():
             raise ValueError(f"grouped_gemm: {name} must be contiguous on CUDA")
@@ -288,6 +290,8 @@ def _dispatch_bwd(x, w, offsets, dy, need_dx: bool = True, need_dw: bool = True,
     global BWD_LAUNCHES
     if x.device.type == "cpu":
         return grouped_gemm_backward_plain(x, w, offsets, dy, need_dx=need_dx, need_dw=need_dw)
+    if x.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return (torch.empty_like(x) if need_dx else None), (torch.empty_like(w) if need_dw else None)
     for name, t in (("x", x), ("w", w), ("offsets", offsets), ("dy", dy)):
         if not t.is_contiguous():
             raise ValueError(f"grouped_gemm backward: {name} must be contiguous on CUDA")

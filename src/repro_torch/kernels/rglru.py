@@ -102,7 +102,7 @@ def rglru_scan_plain(a, b, h0=None):
 
 
 def _check_inputs(a, b, h0) -> None:
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     for name, t in (("a", a), ("b", b), ("h0", h0)):
         if t is None:
@@ -209,6 +209,8 @@ def _dispatch(a, b, h0):
     global LAUNCHES
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
+    if a.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return torch.empty(a.shape, dtype=torch.float32, device="meta")
     for name, t in (("a", a), ("b", b), ("h0", h0)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"rglru_scan: {name} must be contiguous on CUDA")
@@ -261,6 +263,8 @@ def rglru_scan_backward(a, h, dh):
                          f"on {a.device}), got {tuple(dh.shape)} {dh.dtype} on {dh.device}")
     if a.device.type == "cpu":
         return rglru_scan_backward_plain(a, h, dh)
+    if a.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return torch.empty_like(a), torch.empty_like(a)
     return _dispatch_bwd(a, h, dh.contiguous())
 
 

@@ -145,7 +145,7 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
 
 
 def _check_inputs(x, dt, A, Bm, Cm, h0, chunk) -> None:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: x must be bfloat16 or float32, got {x.dtype}")
@@ -222,6 +222,8 @@ def _dispatch(x, dt, A, Bm, Cm, h0, chunk, *, mid_event=None):
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
     b, s, h, p = x.shape
     n = Bm.shape[-1]
+    if x.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return torch.empty_like(x), torch.empty((b, h, p, n), dtype=torch.float32, device="meta")
     if p not in HEAD_DIMS or n not in STATES or chunk not in CHUNKS:
         raise ValueError(f"ssd_scan: (P, N, chunk) = {(p, n, chunk)} not built on CUDA "
                          f"(P in {HEAD_DIMS}, N in {STATES}, chunk in {CHUNKS})")
@@ -513,6 +515,8 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, *, chunk=128):
                          f"on {x.device}), got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
+    if x.device.type == "meta":  # shapes only: the dry-run's abstract step
+        return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
     return _dispatch_bwd(x, dt, A, Bm, Cm, dy.contiguous(), chunk)
 
 

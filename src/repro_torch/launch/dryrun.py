@@ -16,16 +16,23 @@ so the port proves what it can without one.  Per combination, `run_one`:
      and checks that every shard is even (`_check_divisible` strips
      "model" where a dim does not divide; any other uneven shard is an
      error);
-  4. records rank 0's bytes per device by kind (params, optimizer state,
+  4. runs the step itself on those meta shards under the fake group
+     (`count_collectives`): the sharded step of
+     `repro_torch.sharding.execute`, its kernels on their shape-only
+     path, with a dispatch mode that counts every functional collective
+     rank 0 issues and its result bytes.  As the reference compiles 1-
+     and 2-group variants and extrapolates, so does this: total = F(1) +
+     (G - 1) (F(2) - F(1));
+  5. records rank 0's bytes per device by kind (params, optimizer state,
      batch, caches), whether their sum fits the card's 80 GB, the model
-     FLOPs, and the roofline's compute and memory terms on the H100
-     record, in ``build/dryrun/<arch>__<shape>__<mesh>.json``;
-  5. destroys the group.
+     FLOPs, the collectives, and the roofline's compute, memory and
+     collective terms on the H100 record, in
+     ``build/dryrun/<arch>__<shape>__<mesh>.json``;
+  6. destroys the group.
 
-Two of the reference's numbers have no counterpart: ``collectives`` (XLA's
-partitioned HLO) and the compiled program's temp memory.  The record
-holds ``null`` for each, with the reason.  All of it is arithmetic on
-shapes; nothing runs on a device.
+One of the reference's numbers has no counterpart: the compiled
+program's temp memory.  The record holds ``null`` for it, with the
+reason.  Nothing runs on a device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
@@ -34,6 +41,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -46,6 +54,7 @@ import torch.distributed as dist
 from ..configs import ARCH_IDS, get_config
 from ..interop import param_leaves
 from ..roofline.analysis import H100, H100_MEMORY_BYTES, model_flops, roofline_terms
+from ..sharding import parallel
 from ..sharding.specs import placements
 from . import steps as steps_lib
 from .mesh import MESH_SHAPES, destroy_process_group, make_production_mesh
@@ -55,9 +64,6 @@ ARTIFACT_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 #: long_500k policy: archs that run it natively.
 NATIVE_LONG = {"mamba2-1.3b", "recurrentgemma-9b", "gemma2-2b"}
 
-NO_COLLECTIVES = ("not counted: no compiler partitions the port's program, so there is no "
-                  "partitioned HLO to read; sharded execution (ROADMAP queue A item 4) counts "
-                  "them with CommDebugMode")
 NO_TEMP = ("not counted: no compiler analyses the port's program; eager PyTorch's temp "
            "memory shows only when a step runs")
 
@@ -118,6 +124,65 @@ def place(tree, specs, mesh) -> int:
     return total
 
 
+def _abstract_run(cfg, kind: str, mesh, *, multi_pod: bool, batch: int, seq_len: int,
+                  microbatches: int, long_context: bool) -> None:
+    """Build the step for ``mesh`` and run it once on meta shards of its
+    abstract arguments."""
+    from ..sharding import execute
+
+    kw = dict(multi_pod=multi_pod, batch=batch)
+    if kind == "train":
+        step, (state, inputs), (state_specs, in_specs) = steps_lib.make_train_setup(
+            cfg, mesh, seq_len=seq_len, microbatches=microbatches, **kw)
+        placed = execute.place_train_state(cfg, state["params"], state_specs, mesh,
+                                           opt=state["opt"])
+        step(placed, execute.place_tree(inputs, in_specs, mesh))
+    elif kind == "prefill":
+        step, (params, inputs, caches), (pspecs, in_specs, cspecs) = (
+            steps_lib.make_prefill_setup(cfg, mesh, seq_len=seq_len, **kw))
+        step(execute.place_params(cfg, params, pspecs, mesh),
+             execute.place_tree(inputs, in_specs, mesh),
+             execute.place_caches(caches, cspecs, cfg, mesh))
+    else:
+        step, (params, toks, _, caches), (pspecs, in_specs, cspecs) = (
+            steps_lib.make_decode_setup(cfg, mesh, cache_len=seq_len,
+                                        long_context=long_context, **kw))
+        step(execute.place_params(cfg, params, pspecs, mesh),
+             execute.place(toks, in_specs["tokens"], mesh), seq_len - 1,
+             execute.place_caches(caches, cspecs, cfg, mesh))
+
+
+def count_collectives(cfg, kind: str, mesh, *, multi_pod: bool, batch: int, seq_len: int,
+                      microbatches: int = 1, long_context: bool = False) -> dict:
+    """``{op: {"count", "bytes"}, "total": ...}``: the functional
+    collectives one rank of ``mesh`` issues in one step of ``kind`` and
+    their result bytes, counted on meta tensors (under a fake process group
+    nothing is sent).  Depth is extrapolated from 1- and 2-group variants
+    of ``cfg``, as the reference's dry-run does; a config of at most 2
+    groups runs whole."""
+    def one(groups: int) -> dict:
+        small = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern) * groups)
+        with parallel.CollectiveCounter() as counter:
+            _abstract_run(small, kind, mesh, multi_pod=multi_pod, batch=batch,
+                          seq_len=seq_len, microbatches=microbatches,
+                          long_context=long_context)
+        return counter.counts
+
+    g = cfg.num_groups
+    if g <= 2:
+        coll = one(g)
+    else:
+        f1, f2 = one(1), one(2)
+        coll = {op: {"count": int(f1[op]["count"]
+                                  + (g - 1) * max(f2[op]["count"] - f1[op]["count"], 0)),
+                     "bytes": f1[op]["bytes"]
+                     + (g - 1) * max(f2[op]["bytes"] - f1[op]["bytes"], 0.0)}
+                for op in f1}
+    coll["total"] = {"count": sum(v["count"] for v in coll.values()),
+                     "bytes": sum(v["bytes"] for v in coll.values())}
+    return coll
+
+
 def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dict:
     cfg = get_config(arch)
     seq_len, batch, kind = steps_lib.SHAPES[shape]
@@ -160,6 +225,17 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dic
                    "caches": (place(stacked_caches(cfg, caches), cspecs, mesh)
                               if caches is not None else 0)}
         t_place = time.perf_counter() - t0 - t_build
+        rows = batch // (n_chips // steps_lib.mesh_axes(mesh)["model"])
+        coll, coll_reason = None, None
+        if kind == "train" and rows % microbatches:
+            # The sharded step cuts each rank's rows into the micro-batches.
+            coll_reason = (f"not counted: a data rank's {rows} rows do not cut into "
+                           f"{microbatches} micro-batches")
+        else:
+            coll = count_collectives(cfg, kind, mesh, multi_pod=multi_pod, batch=batch,
+                                     seq_len=seq_len, microbatches=microbatches,
+                                     long_context=long_context)
+        t_coll = time.perf_counter() - t0 - t_build - t_place
     finally:
         destroy_process_group()
     by_kind["total"] = sum(by_kind.values())
@@ -167,10 +243,13 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dic
     tokens = batch * (1 if kind == "decode" else seq_len)
     mf = model_flops(cfg, tokens) * (3 if kind == "train" else 1)
     # Compute from the model FLOPs spread evenly; memory from each resident
-    # byte touched once a step (a floor on the traffic); no collectives.
+    # byte touched once a step (a floor on the traffic); the collectives'
+    # result bytes over NVLink.
     terms = roofline_terms(hlo_flops_per_device=mf / n_chips,
                            hlo_bytes_per_device=by_kind["total"],
-                           collective_bytes_per_device=0.0, hw=H100, links_per_chip=1)
+                           collective_bytes_per_device=coll["total"]["bytes"] if coll else 0.0,
+                           hw=H100,
+                           links_per_chip=1)
     record = {
         "arch": arch + variant,
         "shape": shape,
@@ -182,6 +261,7 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dic
         "microbatches": microbatches if kind == "train" else None,
         "build_s": t_build,
         "place_s": t_place,
+        "collectives_s": t_coll,
         "bytes_per_device": by_kind,
         "device_memory_bytes": H100_MEMORY_BYTES,
         "fits_device": by_kind["total"] <= H100_MEMORY_BYTES,
@@ -189,8 +269,8 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dic
         "model_flops": mf,
         "model_flops_per_device": mf / n_chips,
         "roofline": terms,
-        "collectives": None,
-        "collectives_reason": NO_COLLECTIVES,
+        "collectives": coll,
+        "collectives_reason": coll_reason,
         "temp": None,
         "temp_reason": NO_TEMP,
         "params": cfg.param_count(),
@@ -212,7 +292,10 @@ def _fmt(record: dict) -> str:
         f"caches {gb['caches']:7.3f} total {gb['total']:7.3f} "
         f"{'fits' if record['fits_device'] else 'OVER'} 80 GB | "
         f"t_comp {r['compute_s'] * 1e3:9.2f}ms t_mem {r['memory_s'] * 1e3:8.2f}ms "
-        f"-> {r['dominant']} | place {record['place_s']:.2f}s"
+        f"t_coll {r['collective_s'] * 1e3:8.2f}ms -> {r['dominant']} | "
+        + (f"coll/dev {record['collectives']['total']['bytes'] / 1e9:.3f} GB | "
+           if record["collectives"] else f"{record['collectives_reason']} | ") +
+        f"place {record['place_s']:.2f}s count {record['collectives_s']:.2f}s"
     )
 
 

@@ -6,7 +6,8 @@ group this process has initialized: the production meshes need 256 or
 other world size rather than build a smaller mesh.  `make_local_mesh` is
 the reference launcher's non-production mesh, (world size, 1) over
 ``("data", "model")``: (1, 1) on one card, where it first creates a
-one-rank group from an in-process store if none exists.
+one-rank group from an in-process store if none exists (or, under
+``torchrun``, the group its environment describes).
 `destroy_process_group` tears down whatever group is initialized.
 """
 from __future__ import annotations
@@ -45,20 +46,34 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
 
 
 def make_local_mesh(device_type: str = "cuda"):
-    """(world size, 1) over ``("data", "model")``; without an initialized
-    process group, a one-rank group (gloo, in-process store) first."""
+    """(world size, 1) over ``("data", "model")``.  Without an initialized
+    process group: the one ``torchrun`` describes in the environment
+    (``WORLD_SIZE`` > 1; NCCL when each rank has a card of its own, else
+    gloo, which also takes CUDA tensors where ranks share a card), else a
+    one-rank group (gloo, in-process store)."""
+    import os
+
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world > 1:
+            own_card = device_type == "cuda" and torch.cuda.device_count() >= world
+            dist.init_process_group("nccl" if own_card else "gloo", init_method="env://")
+        else:
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     return init_device_mesh(device_type, (_world_size(), 1), mesh_dim_names=("data", "model"))
 
 
 def mesh_device(mesh) -> torch.device:
-    """The device of this rank's slice of ``mesh``: the current CUDA
-    device on a ``"cuda"`` mesh, else the mesh's device type."""
+    """The device of this rank's slice of ``mesh``: on a ``"cuda"`` mesh
+    this rank's card (`device.local_card`: ``LOCAL_RANK``'s on a host with
+    several, ``cuda:0`` where ranks share one), else the mesh's device
+    type."""
     if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
+        from ..device import local_card
+
+        return torch.device("cuda", local_card())
     return torch.device(mesh.device_type)
 
 

@@ -7,13 +7,14 @@ dtypes, no memory) and the sharding plan of those arguments
 its ``ShapeDtypeStruct`` arguments and its ``PartitionSpec`` trees.
 
 The reference's steps run over any mesh, since GSPMD partitions the
-jitted program.  PyTorch has no such compiler, and the port's models
-create plain tensors inside (rope tables, masks, concatenations), so a
-step here runs on a one-rank mesh only: on plain tensors on the mesh's
-device, which on the card means through the port's CUDA kernels.  On a
-mesh of more ranks a builder still returns the abstract arguments and the
-specs, which the dry-run places; calling its step raises
-`NotImplementedError` (sharded execution is ROADMAP queue A item 4).
+jitted program.  PyTorch has no such compiler.  On a one-rank mesh a
+step runs on plain tensors on the mesh's device (on the card through the
+port's CUDA kernels): the train step on ``{"params": Transformer, "opt":
+moments}``, prefill and decode on a `Transformer` and per-layer caches.
+On a mesh of more ranks it runs the same layers on each rank's shards
+(`repro_torch.sharding.execute`): its arguments are DTensors placed at
+the specs the builder returns (`execute.place_train_state`,
+`place_params`, `place_tree`, `place_caches`), and its results too.
 
 The reference's ``analysis`` flag unrolls the depth scan for XLA's cost
 analysis.  The port runs its layers in a Python loop, so there is nothing
@@ -29,6 +30,7 @@ import torch
 from ..interop import param_leaves, plain_shapes
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
+from ..sharding import execute
 from ..sharding import specs as sh
 from ..train.optimizer import AdamWConfig, init_opt_state
 from ..train.train_loop import make_train_step
@@ -51,11 +53,6 @@ SHAPES = {
     "decode_32k": (32_768, 128, "decode"),
     "long_500k": (524_288, 1, "decode"),
 }
-
-SHARDED_EXECUTION = ("running a step over more than one rank is not ported yet (ROADMAP "
-                     "queue A item 4, sharded execution); the abstract arguments and specs "
-                     "are for the dry-run")
-
 
 def needs_fsdp(cfg: ModelConfig, *, model_axis: int = 16,
                budget_bytes: float = 8e9) -> bool:
@@ -98,11 +95,9 @@ def _param_shardings(cfg, mesh, model, *, fsdp: bool) -> dict:
 
 
 def _on_one_rank(mesh, step, device_of):
-    """``step`` as the builder returns it: run on a one-rank mesh, with its
-    tensors on the mesh's device; refused on any other mesh."""
+    """``step`` as the builder returns it for a one-rank mesh: run with its
+    tensors on the mesh's device."""
     def run(*args, **kwargs):
-        if mesh.size() != 1:
-            raise NotImplementedError(f"mesh of {mesh.size()} ranks: {SHARDED_EXECUTION}")
         dev, want = device_of(*args), mesh_device(mesh)
         if dev.type != want.type:
             raise ValueError(f"the step's tensors are on {dev}, the mesh on {want}")
@@ -151,8 +146,12 @@ def make_train_setup(cfg: ModelConfig, mesh, *, multi_pod: bool,
     # vision_prefix: spec dict must cover exactly the batch keys.
     batch_specs = {k: batch_specs[k] for k in abstract}
 
-    step = make_train_step(cfg, opt_cfg, remat=True, microbatches=microbatches)
-    run = _on_one_rank(mesh, step, lambda state, *_, **__: state["params"].embed.device)
+    if mesh.size() > 1:
+        run = execute.make_sharded_train_step(cfg, opt_cfg, mesh, state_specs, batch_specs,
+                                              remat=True, microbatches=microbatches)
+    else:
+        step = make_train_step(cfg, opt_cfg, remat=True, microbatches=microbatches)
+        run = _on_one_rank(mesh, step, lambda state, *_, **__: state["params"].embed.device)
     return run, (state_shape, abstract), (state_specs, batch_specs)
 
 
@@ -185,7 +184,10 @@ def make_prefill_setup(cfg: ModelConfig, mesh, *, multi_pod: bool,
     def prefill_step(params, batch_, caches):
         return tfm.forward_prefill(params, cfg, batch_, caches)
 
-    run = _on_one_rank(mesh, prefill_step, lambda params, *_: params.embed.device)
+    if mesh.size() > 1:
+        run = execute.make_sharded_prefill(cfg, mesh, pspecs, batch_specs, cspecs)
+    else:
+        run = _on_one_rank(mesh, prefill_step, lambda params, *_: params.embed.device)
     return run, (params_shape, abstract, cache_shape), (pspecs, batch_specs, cspecs)
 
 
@@ -226,7 +228,11 @@ def make_decode_setup(cfg: ModelConfig, mesh, *, multi_pod: bool,
         return tfm.forward_decode(params, cfg, tokens, cur_pos, caches,
                                   long_context=long_context)
 
-    run = _on_one_rank(mesh, serve_step, lambda params, *_: params.embed.device)
+    if mesh.size() > 1:
+        run = execute.make_sharded_decode(cfg, mesh, pspecs, in_specs, cspecs,
+                                          long_context=long_context)
+    else:
+        run = _on_one_rank(mesh, serve_step, lambda params, *_: params.embed.device)
     return (
         run,
         (params_shape, abstract_tokens, abstract_pos, cache_shape),

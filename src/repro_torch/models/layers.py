@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import parallel
+
 __all__ = [
     "rms_norm",
     "init_rms_norm",
@@ -132,10 +134,18 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, gated: bool,
 
 
 def mlp(params: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """Under a sharded step whose ``down`` is row-sharded (``params.tp``),
+    this rank's columns of ``up``/``gate`` and rows of ``down``, the
+    partial sums added over ``model``."""
+    par = parallel.current() if getattr(params, "tp", False) else None
+    if par is not None:
+        x = parallel.enter(x, par.group(par.model))
     act = activation_fn(activation)
     up = x @ params.up
     if params.gate is not None:
         up = act(x @ params.gate) * up
     else:
         up = act(up)
+    if par is not None:
+        return parallel.row_parallel(up, params.down, par.group(par.model))
     return up @ params.down

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rglru import rglru_scan, rglru_scan_train
+from ..sharding import parallel
 from .layers import activation_fn, draw_device, init_dense
 
 __all__ = [
@@ -94,9 +95,10 @@ def init_rglru_block(gen: torch.Generator, d_model: int, width: int, conv_width:
 
 
 def _block_matmul(x, w):
-    """x: (..., W) x block-diagonal w (_NB, W/_NB, W/_NB) -> (..., W)."""
+    """x: (..., W) x block-diagonal w (nb, W/nb, W/nb) -> (..., W); nb is
+    `_NB`, or a sharded step's local blocks of it."""
     shape = x.shape
-    xb = x.reshape(shape[:-1] + (_NB, shape[-1] // _NB))
+    xb = x.reshape(shape[:-1] + (w.shape[0], shape[-1] // w.shape[0]))
     return torch.einsum("...ni,nij->...nj", xb, w).reshape(shape)
 
 
@@ -128,12 +130,31 @@ def _conv(params: RGLRU, x, tail):
     return out, padded[:, padded.shape[1] - (width - 1):]
 
 
+def _tp(params: RGLRU):
+    """The running step's context when this block's width is split over
+    ``model`` (``params.tp``: ``out`` row-sharded, with every width-indexed
+    leaf and the gates' blocks), else None."""
+    par = parallel.current()
+    return par if par is not None and getattr(params, "tp", False) else None
+
+
 def _branches(params: RGLRU, x, tail):
-    """(a, b) of the recurrent branch, its new conv tail, and the GeLU gate."""
+    """(a, b) of the recurrent branch, its new conv tail, and the GeLU gate;
+    under a sharded step (`_tp`), of this rank's run of the width."""
+    par = _tp(params)
+    if par is not None:
+        x = parallel.enter(x, par.group(par.model))
     gate = _gelu((x @ params.in_gate).float())
     xb, new_tail = _conv(params, x @ params.in_x, tail)
     a, b = _gates(params, xb)
     return a, b, new_tail, gate
+
+
+def _out(params: RGLRU, y):
+    par = _tp(params)
+    if par is None:
+        return y @ params.out
+    return parallel.row_parallel(y, params.out, par.group(par.model))
 
 
 def rglru_train(params: RGLRU, x):
@@ -146,7 +167,7 @@ def rglru_train(params: RGLRU, x):
                        device=x.device)
     a, b, _, gate = _branches(params, x, tail)
     h = rglru_scan_train(a, b)  # (B,S,W) float32
-    return (h * gate).to(x.dtype) @ params.out
+    return _out(params, (h * gate).to(x.dtype))
 
 
 def rglru_init_cache(batch: int, width: int, conv_width: int, dtype=torch.bfloat16,
@@ -163,7 +184,7 @@ def rglru_prefill(params: RGLRU, x, cache: dict):
     a, b, new_tail, gate = _branches(params, x, cache["conv"])
     h = rglru_scan(a, b, cache["h"])  # (B,S,W) float32
     cache["h"], cache["conv"] = h[:, -1].clone(), new_tail
-    return (h * gate).to(x.dtype) @ params.out, cache
+    return _out(params, (h * gate).to(x.dtype)), cache
 
 
 def rglru_decode(params: RGLRU, x, cache: dict):
@@ -171,4 +192,4 @@ def rglru_decode(params: RGLRU, x, cache: dict):
     a, b, new_tail, gate = _branches(params, x, cache["conv"])
     h = a[:, 0] * cache["h"] + b[:, 0]
     cache["h"], cache["conv"] = h, new_tail
-    return (h[:, None, :] * gate).to(x.dtype) @ params.out, cache
+    return _out(params, (h[:, None, :] * gate).to(x.dtype)), cache

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd import ssd_scan, ssd_scan_plain, ssd_scan_train
+from ..sharding import parallel
 from .layers import draw_device, init_dense, init_rms_norm, rms_norm
 
 __all__ = [
@@ -133,30 +134,67 @@ def _causal_conv(xbc, w, b, tail):
     return out, padded[:, padded.shape[1] - (width - 1):]
 
 
-def _ssd_io(params: Mamba2, x, d_inner, d_state, conv_tail):
+def _tp(params: Mamba2, d_inner: int):
+    """The running step's context when this block's d_inner is split over
+    ``model`` (``out_proj`` row-sharded), else None."""
+    par = parallel.current()
+    return par if par is not None and params.out_proj.shape[0] < d_inner else None
+
+
+def _ssd_io(params: Mamba2, x, d_inner, d_state, conv_tail, head_dim, want_tail=True):
     """conv_tail: the (B, w-1, d_inner + 2*d_state) combined tail.  Bm and
-    Cm are column slices of the conv output, not copies."""
-    z = x @ params.in_z
-    xs = x @ params.in_x
+    Cm are column slices of the conv output, not copies.
+
+    Under a sharded step (`_tp`), z, x and their conv are this rank's
+    columns of d_inner, that is its heads, and dt, A and D its heads'
+    entries; B, C and every head's dt are computed alike on each rank from
+    the replicated weights, entering the heads' work with `parallel.enter`.
+    The new tail, replicated over ``model`` as the cache's plan holds it,
+    gathers the x columns' tails; without ``want_tail`` (training) it is
+    None."""
+    par = _tp(params, d_inner)
+    xin = x if par is None else parallel.enter(x, par.group(par.model))
+    z = xin @ params.in_z
+    xs = xin @ params.in_x
     bc = x @ params.in_bc
     dt = x @ params.in_dt
-    tail_x, tail_bc = conv_tail[..., :d_inner], conv_tail[..., d_inner:]
+    cols = xs.shape[-1]
+    c0 = 0 if par is None else par.model_rank * cols
+    tail_x, tail_bc = conv_tail[..., c0:c0 + cols], conv_tail[..., d_inner:]
     xs, new_tail_x = _causal_conv(xs, params.conv_x_w, params.conv_x_b, tail_x)
     bc, new_tail_bc = _causal_conv(bc, params.conv_bc_w, params.conv_bc_b, tail_bc)
-    Bm, Cm = bc[..., :d_state], bc[..., d_state:]
     dt = F.softplus(dt.float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    new_tail = torch.cat([new_tail_x, new_tail_bc], dim=-1)
-    return z, xs, Bm, Cm, dt, A, new_tail
+    D = params.D
+    if par is not None:
+        pg = par.group(par.model)
+        bc, dt, A, D = (parallel.enter(t, pg) for t in (bc, dt, A, D))
+        h0, nh = c0 // head_dim, cols // head_dim
+        dt, A, D = dt[..., h0:h0 + nh].contiguous(), A[h0:h0 + nh].contiguous(), D[h0:h0 + nh]
+        if want_tail:
+            with torch.no_grad():
+                new_tail_x = parallel.gather(new_tail_x, -1, pg)
+    Bm, Cm = bc[..., :d_state], bc[..., d_state:]
+    new_tail = torch.cat([new_tail_x, new_tail_bc], dim=-1) if want_tail else None
+    return z, xs, Bm, Cm, dt, A, D, new_tail
 
 
-def _gate_and_project(params: Mamba2, y, xh, z, x_dtype, norm_eps):
+def _gate_and_project(params: Mamba2, y, xh, z, D, x_dtype, norm_eps, d_inner):
     """(y + D x) gated by silu(z), normed, projected; y and xh share a
-    shape whose last two dims are (H, P)."""
-    y = y.float() + params.D[:, None] * xh.float()
+    shape whose last two dims are (H, P).  Under a sharded step the norm's
+    mean of squares is over all of d_inner (its sum added over ``model``)
+    and the projection's partial sums are added too."""
+    y = y.float() + D[:, None] * xh.float()
     y = y.reshape(z.shape).to(x_dtype)
     y = y * F.silu(z.float()).to(x_dtype)
-    return rms_norm(y, params.norm, norm_eps) @ params.out_proj
+    par = _tp(params, d_inner)
+    if par is None:
+        return rms_norm(y, params.norm, norm_eps) @ params.out_proj
+    pg = par.group(par.model)
+    yf = y.float()
+    var = parallel.reduce_both(yf.square().sum(dim=-1, keepdim=True), pg) / d_inner
+    y = (yf * torch.rsqrt(var + norm_eps) * params.norm.float()).to(x_dtype)
+    return parallel.row_parallel(y, params.out_proj, pg)
 
 
 def mamba2_train(params: Mamba2, x, *, d_inner: int, d_state: int, head_dim: int,
@@ -167,10 +205,11 @@ def mamba2_train(params: Mamba2, x, *, d_inner: int, d_state: int, head_dim: int
     b, s, _ = x.shape
     width = params.conv_x_w.shape[0]
     tail = torch.zeros((b, width - 1, d_inner + 2 * d_state), dtype=x.dtype, device=x.device)
-    z, xs, Bm, Cm, dt, A, _ = _ssd_io(params, x, d_inner, d_state, tail)
-    xh = xs.reshape(b, s, d_inner // head_dim, head_dim)
+    z, xs, Bm, Cm, dt, A, D, _ = _ssd_io(params, x, d_inner, d_state, tail, head_dim,
+                                         want_tail=False)
+    xh = xs.reshape(b, s, -1, head_dim)
     y = ssd_scan_train(xh, dt, A, Bm, Cm, chunk=reference_chunk(s, chunk))
-    return _gate_and_project(params, y, xh, z, x.dtype, norm_eps)
+    return _gate_and_project(params, y, xh, z, D, x.dtype, norm_eps, d_inner)
 
 
 def mamba2_init_cache(batch: int, d_inner: int, d_state: int, head_dim: int,
@@ -189,19 +228,21 @@ def mamba2_prefill(params: Mamba2, x, cache: dict, *, d_inner: int, d_state: int
     """x (B,S,d_model) from the state in ``cache``; returns (out, cache)
     with the cache's entries replaced by the new state and conv tail."""
     b, s, _ = x.shape
-    z, xs, Bm, Cm, dt, A, new_tail = _ssd_io(params, x, d_inner, d_state, cache["conv"])
-    xh = xs.reshape(b, s, d_inner // head_dim, head_dim)
+    z, xs, Bm, Cm, dt, A, D, new_tail = _ssd_io(params, x, d_inner, d_state, cache["conv"],
+                                                head_dim)
+    xh = xs.reshape(b, s, -1, head_dim)
     y, h = ssd_scan(xh, dt, A, Bm, Cm, cache["ssm"], chunk=chunk)
     cache["ssm"], cache["conv"] = h, new_tail
-    return _gate_and_project(params, y, xh, z, x.dtype, norm_eps), cache
+    return _gate_and_project(params, y, xh, z, D, x.dtype, norm_eps, d_inner), cache
 
 
 def mamba2_decode(params: Mamba2, x, cache: dict, *, d_inner: int, d_state: int,
                   head_dim: int, norm_eps: float):
     """x: (B, 1, d_model)."""
     b = x.shape[0]
-    z, xs, Bm, Cm, dt, A, new_tail = _ssd_io(params, x, d_inner, d_state, cache["conv"])
-    xh = xs.reshape(b, d_inner // head_dim, head_dim)
+    z, xs, Bm, Cm, dt, A, D, new_tail = _ssd_io(params, x, d_inner, d_state, cache["conv"],
+                                                head_dim)
+    xh = xs.reshape(b, -1, head_dim)
     y, h = ssd_decode_step(cache["ssm"], xh, dt[:, 0], A, Bm[:, 0], Cm[:, 0])
     cache["ssm"], cache["conv"] = h, new_tail
-    return _gate_and_project(params, y, xh, z, x.dtype, norm_eps), cache
+    return _gate_and_project(params, y, xh, z, D, x.dtype, norm_eps, d_inner), cache

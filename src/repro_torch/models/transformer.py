@@ -26,7 +26,10 @@ flash attention's (`kernels.attention.FlashAttentionFn`), the SSD scan's
 and the grouped GEMM's (`kernels.grouped_gemm.GroupedGemmFn`, the
 ``"moe"`` layers' experts).  The reference's
 ``unroll`` and ``act_spec`` are XLA knobs (analysis unrolling, a mesh
-sharding constraint) with no counterpart on one card.
+sharding constraint) with no counterpart here.  Under a sharded step
+(`repro_torch.sharding.parallel.current()`), `embed_inputs` and `unembed`
+work on this rank's run of the vocabulary; `repro_torch.sharding.execute`
+runs the layer functions below on each rank's shards.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..sharding import parallel
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
@@ -161,6 +165,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dt: torch.dty
 def embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch: {"tokens": (B,S) or (B,S,K)} [+ "vision_embeds": (B,Nv,D)]."""
     tokens = batch["tokens"]
+    par = parallel.current()
+    lookup = _embed_lookup
+    if par is not None and params.embed.shape[1] < cfg.vocab_size:
+        lookup = functools.partial(_sharded_lookup, par)
     if cfg.num_codebooks > 1:
         # (B,S,K) EnCodec token lattice: sum codebook embeddings.
         if tokens.dim() != 3:
@@ -168,12 +176,18 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict) -> torch.Te
         x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=params.embed.dtype,
                         device=tokens.device)
         for k in range(cfg.num_codebooks):
-            x = x + params.embed[k][tokens[..., k]]
+            x = x + lookup(params.embed[k], tokens[..., k])
     else:
         tok = tokens if tokens.dim() == 2 else tokens[..., 0]
-        x = params.embed[0][tok]
+        x = lookup(params.embed[0], tok)
     if cfg.modality == "vision_prefix" and "vision_embeds" in batch:
-        vis = batch["vision_embeds"].to(x.dtype) @ params.vision_proj
+        vis = batch["vision_embeds"].to(x.dtype)
+        if par is not None and params.vision_proj.shape[1] < cfg.d_model:
+            # Column-parallel: each rank's columns, gathered for every rank alike.
+            pg = par.group(par.model)
+            vis = parallel.gather_alike(parallel.enter(vis, pg) @ params.vision_proj, -1, pg)
+        else:
+            vis = vis @ params.vision_proj
         x = torch.cat([vis, x], dim=1)
     if cfg.embed_scale_by_sqrt_dim:
         # The reference casts the scale to the activation type first.
@@ -181,14 +195,60 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict) -> torch.Te
     return x
 
 
+def _embed_lookup(table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    return table[tok]
+
+
+def _sharded_lookup(par, table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Rows of a vocab-sharded ``table`` (this rank's run of the vocabulary):
+    each token's row from the rank that holds it, zero elsewhere, summed
+    over ``model``."""
+    rows = table.shape[0]
+    local = tok.long() - par.model_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return parallel.leave(x, par.group(par.model))
+
+
+def _unembed_split(params: Transformer, cfg: ModelConfig) -> bool:
+    """Whether a sharded step holds this rank's columns of the unembedding
+    (the tied embedding's vocabulary, or the untied matrix's columns)."""
+    if parallel.current() is None:
+        return False
+    if cfg.tie_embeddings:
+        return params.embed.shape[1] < cfg.vocab_size
+    return params.unembed.shape[1] < cfg.num_codebooks * cfg.vocab_size
+
+
+def vocab_shard(params: Transformer, cfg: ModelConfig):
+    """``(first id, ids)`` of the vocabulary whose logits `unembed` gives
+    on this rank: all of it unless a sharded step splits the (one
+    codebook's or tied) unembedding over ``model``."""
+    if not _unembed_split(params, cfg) or (not cfg.tie_embeddings and cfg.num_codebooks > 1):
+        return 0, cfg.vocab_size
+    cols = (params.embed if cfg.tie_embeddings else params.unembed).shape[1]
+    return parallel.current().model_rank * cols, cols
+
+
 def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """float32 logits for every position: (B,S,V), or (B,S,K,V) with K codebooks."""
+    """float32 logits for every position: (B,S,V), or (B,S,K,V) with K codebooks.
+
+    Under a sharded step whose (un)embedding is split over ``model``, the
+    logits of this rank's run of the vocabulary (`vocab_shard`); with
+    several codebooks, whose columns do not split by codebook, every
+    rank's columns gathered."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    split = _unembed_split(params, cfg)
+    if split:
+        pg = parallel.current().group(parallel.current().model)
+        x = parallel.enter(x, pg)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,kvd->bskv", x, params.embed)
     else:
-        logits = (x @ params.unembed).reshape(
-            x.shape[0], x.shape[1], cfg.num_codebooks, cfg.vocab_size)
+        logits = x @ params.unembed
+        if split and cfg.num_codebooks > 1:
+            logits = parallel.gather_alike(logits, -1, pg)
+        logits = logits.reshape(x.shape[0], x.shape[1], cfg.num_codebooks, -1)
     logits = logits.float()
     if cfg.final_logit_softcap is not None:
         # cap * tanh(logits / cap), in place where nothing keeps the logits
@@ -206,13 +266,14 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 # ---- training -----------------------------------------------------------------
 
-def _moe_ffn(cfg: ModelConfig, layer: Block, h: torch.Tensor, dropless: bool = False):
+def _moe_ffn(cfg: ModelConfig, layer: Block, h: torch.Tensor, dropless: bool = False,
+             global_aux: bool = True):
     """A ``"moe"`` layer's experts on ``h``, as the config routes them:
     (output, router aux loss)."""
     return moe_lib.moe_ffn(
         layer.moe, h, num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
         capacity_factor=cfg.moe_capacity_factor, activation=cfg.mlp_activation,
-        dropless=dropless, dispatch_groups=cfg.moe_dispatch_groups)
+        dropless=dropless, dispatch_groups=cfg.moe_dispatch_groups, global_aux=global_aux)
 
 
 def _apply_slot_train(cfg: ModelConfig, kind: str, window: int | None, layer: Block,
@@ -363,7 +424,8 @@ def _apply_layer_serve(cfg: ModelConfig, window: int | None, layer: Block,
     x = x + h
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
     if layer.kind == "moe":
-        h, _ = _moe_ffn(cfg, layer, h, dropless=decode)  # decode: capacity = T, no drops
+        # decode: capacity = T, no drops; serving drops the aux loss
+        h, _ = _moe_ffn(cfg, layer, h, dropless=decode, global_aux=False)
     else:
         h = mlp(layer.mlp, h, cfg.mlp_activation)
     return x + h, cache

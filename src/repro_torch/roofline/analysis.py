@@ -13,9 +13,10 @@ runs on, at the peaks `chip_smoke.py`'s bounds use; the dry-run
 
 The reference's `parse_collectives` reads the collectives out of XLA's
 partitioned HLO.  No compiler partitions the port's program, so there is
-nothing to parse: the dry-run records no collectives until sharded
-execution counts them (`torch.distributed.tensor.debug.CommDebugMode`,
-ROADMAP queue A item 4).
+nothing to parse: the dry-run counts the collectives its sharded step
+issues on meta shards (`repro_torch.sharding.parallel.CollectiveCounter`,
+per device, result bytes, as `parse_collectives` sums them) and feeds
+their bytes into `roofline_terms`.
 """
 from __future__ import annotations
 

@@ -1,10 +1,4 @@
-"""Sharding rules (spec tuples and DTensor placements) for the production meshes."""
-from .specs import (  # noqa: F401
-    apply_fsdp,
-    cache_specs,
-    data_axes,
-    decode_input_specs,
-    param_specs,
-    placements,
-    train_batch_specs,
-)
+"""Sharding rules (`specs`: spec tuples and DTensor placements for the
+production meshes), the context of a sharded step and its collectives
+(`parallel`, which the models import), and placing and running a model
+by the plan (`execute`)."""

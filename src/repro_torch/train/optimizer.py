@@ -74,14 +74,21 @@ def init_opt_state(params: dict) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
+def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict, *,
+                 global_sq=None):
     """Returns (params, state, metrics), the parameters and moments updated
     in place.  ``params`` and ``grads`` are ``{path: leaf}`` with the same
     paths and structure (`init_opt_state`); metrics ``grad_norm`` and
-    ``lr`` are float32 scalars on the parameters' device."""
+    ``lr`` are float32 scalars on the parameters' device.  ``global_sq``,
+    given ``grads``, returns their float32 sum of squares over the whole
+    model, where each rank holds shards of it (a sharded step); by default
+    it is summed over ``grads``."""
     # Global-norm clip in fp32.
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for leaf in grads.values() for _, g in _pairs(leaf)))
+    if global_sq is None:
+        gnorm = torch.sqrt(sum(g.float().square().sum()
+                               for leaf in grads.values() for _, g in _pairs(leaf)))
+    else:
+        gnorm = torch.sqrt(global_sq(grads))
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)

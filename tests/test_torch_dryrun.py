@@ -6,7 +6,9 @@ yi-34b decode_32k on 16x16), without saving: the record's fields, the
 parameter bytes per device equal to the sum over the reference's leaves
 of JAX's shard shape on an ``AbstractMesh`` times the item size (under the
 reference's own plan: FSDP for train, `needs_fsdp` otherwise), and no
-process group left initialized.
+process group left initialized; the collectives the step issues on meta
+shards under the fake group, counted and fed into the roofline's
+collective term.
 """
 import math
 
@@ -70,8 +72,10 @@ def test_run_one_records_per_device_bytes(arch, shape, multi_pod):
     terms = rec["roofline"]
     assert terms["compute_s"] == pytest.approx(rec["model_flops"] / n_chips / 989e12)
     assert terms["memory_s"] == pytest.approx(b["total"] / 3.35e12)
-    assert terms["collective_s"] == 0.0
-    assert rec["collectives"] is None and "CommDebugMode" in rec["collectives_reason"]
+    coll = rec["collectives"]
+    assert coll["total"]["count"] == sum(v["count"] for k, v in coll.items() if k != "total")
+    assert coll["total"]["count"] > 0 and coll["total"]["bytes"] > 0
+    assert terms["collective_s"] == pytest.approx(coll["total"]["bytes"] / 450e9)
     assert rec["temp"] is None and rec["temp_reason"]
 
 

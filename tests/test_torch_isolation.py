@@ -6,7 +6,9 @@ point given no device must insist on the card.  The training launcher,
 `examples/torch_train_small.py` and the three ported examples (quickstart,
 allocation demo, camera serving) run on the CPU with the three blocked;
 the launcher's ``--production-mesh`` fails in one process, naming the
-ranks it needs.  The sharded controller (`core/shard.py`) and
+ranks it needs.  Sharded execution (`sharding/execute.py`) and the
+entry module of `tests/test_torch_sharded.py`'s ranks run with the three
+blocked.  The sharded controller (`core/shard.py`) and
 `chip_smoke.py`'s phase 4c, which runs `benchmarks/shard.py`'s scenarios
 from its own copy of their builders, run with the three blocked.  Of the
 port's scripts only the two that compute `chip_smoke.py`'s goldens import
@@ -78,7 +80,8 @@ print("ok", len({PORT_MODULES!r}))
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "examples/torch_train_small.py", "examples/torch_quickstart.py",
-       "examples/torch_allocation_demo.py", "examples/torch_serve_cameras.py"],
+       "examples/torch_allocation_demo.py", "examples/torch_serve_cameras.py",
+       "tests/torch_sharded_ranks.py"],
 )
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -168,6 +171,39 @@ print("ok")
     for name in ("launch", "example"):
         assert (tmp_path / f"{name}.npz").is_file()
         assert (tmp_path / f"{name}.manifest.json").is_file()
+
+
+def test_sharded_execution_runs_with_the_reference_blocked():
+    """`sharding/execute.py`, `sharding/parallel.py` and the entry module of
+    `tests/test_torch_sharded.py`'s ranks import with the three blocked, and
+    a sharded train, prefill and decode step run on meta shards under a fake
+    (2, 2) group (the dry-run's collective count)."""
+    body = f"""
+sys.path.insert(0, {str(ROOT / "tests")!r})
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+import torch_sharded_ranks as ranks
+from repro_torch.launch import dryrun
+from repro_torch.sharding import execute, parallel
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+totals = []
+for kind in ("train", "prefill", "decode"):
+    for arch in ranks.ARCHS:
+        coll = dryrun.count_collectives(ranks.config(arch), kind, mesh, multi_pod=False,
+                                        batch=ranks.B, seq_len=ranks.S)
+        totals.append(coll["total"]["count"])
+dist.destroy_process_group()
+assert min(totals) > 0, totals
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok", len(totals))
+"""
+    proc = _run_blocked(body)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ok 12")
 
 
 def test_examples_run_with_the_reference_blocked():

@@ -11,7 +11,8 @@ g / (|g| + eps), so where |g| is near the float32 noise of the two
 packages' different sum orders a weight may move by a few percent of
 lr = 1e-3 more or less); M = 2 against M = 1 in the port; the
 gradients' type AdamW gets; the prefill and decode builders against
-direct calls; and the refusal to run a step over more than one rank.
+direct calls; and that a step over more than one rank runs (on meta
+shards under a fake group).
 """
 import dataclasses
 
@@ -205,9 +206,15 @@ def test_prefill_and_decode_builders_equal_direct_calls(local_mesh):
 
 
 def test_steps_refuse_a_mesh_of_more_than_one_rank():
-    """On a fake group of 2 ranks the builders still give specs and
-    abstract arguments; calling any step raises."""
+    """On a fake group of 2 ranks the builders give specs and abstract
+    arguments, and their steps no longer refuse the mesh: each runs on its
+    arguments placed at those specs (meta shards: under the fake group
+    nothing is sent), the train step summing its gradients over ``data``.  The sharded steps' values
+    are held against one device in `tests/test_torch_sharded.py`."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.sharding import execute
+    from repro_torch.sharding.parallel import CollectiveCounter
 
     assert not dist.is_initialized()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
@@ -215,19 +222,31 @@ def test_steps_refuse_a_mesh_of_more_than_one_rank():
         mesh = tmesh.make_local_mesh("cpu")
         assert tsteps.mesh_axes(mesh) == {"data": 2, "model": 1}
         cfg = tsmoke_variant(tget_config("internlm2-1.8b"))
-        model = ttfm.init_params(cfg, seed=0, device="cpu")
-        train, (state, _), _ = tsteps.make_train_setup(cfg, mesh, multi_pod=False, batch=4,
-                                                       seq_len=16)
+        train, (state, batch), (state_specs, bspecs) = tsteps.make_train_setup(
+            cfg, mesh, multi_pod=False, batch=4, seq_len=16)
         assert state["params"].embed.device.type == "meta"
-        prefill, _, _ = tsteps.make_prefill_setup(cfg, mesh, multi_pod=False, batch=2,
-                                                  seq_len=16)
-        decode, _, _ = tsteps.make_decode_setup(cfg, mesh, multi_pod=False, batch=2,
-                                                cache_len=16, long_context=False)
-        for call in (lambda: train({"params": model, "opt": None}, {}),
-                     lambda: prefill(model, {}, []),
-                     lambda: decode(model, None, 0, [])):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-                call()
+        prefill, (params, pbatch, caches), (pspecs, pbspecs, cspecs) = (
+            tsteps.make_prefill_setup(cfg, mesh, multi_pod=False, batch=2, seq_len=16))
+        decode, (_, toks, _, dcaches), (_, dspecs, dcspecs) = tsteps.make_decode_setup(
+            cfg, mesh, multi_pod=False, batch=2, cache_len=16, long_context=False)
+        placed = execute.place_params(cfg, params, pspecs, mesh)
+        calls = (
+            lambda: train(execute.place_train_state(cfg, state["params"], state_specs, mesh,
+                                                    opt=state["opt"]),
+                          execute.place_tree(batch, bspecs, mesh)),
+            lambda: prefill(placed, execute.place_tree(pbatch, pbspecs, mesh),
+                            execute.place_caches(caches, cspecs, cfg, mesh)),
+            lambda: decode(placed, execute.place(toks, dspecs["tokens"], mesh), 15,
+                           execute.place_caches(dcaches, dcspecs, cfg, mesh)))
+        with CollectiveCounter() as counter:
+            _, metrics = calls[0]()
+        # The gradients of the data-parallel ranks are summed.
+        assert counter.counts["all_reduce"]["count"] > 0
+        assert metrics["loss"].device.type == "meta"
+        logits, _ = calls[1]()
+        assert tuple(logits.shape) == (2, 16, cfg.vocab_size)
+        logits, _ = calls[2]()
+        assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
     finally:
         tmesh.destroy_process_group()
     assert not dist.is_initialized()
