@@ -39,7 +39,10 @@ against its plain torch version.  Phases, each raising on failure:
    variant (all on ``cluster``), each pricing call's wall time split into
    the host's binary split, the kernel, the wait for it, the copy of
    ``best`` and the mask of steps taken, and the host's counts, and the
-   plan compared with the same fleet allocated with ``device="cpu"``;
+   plan compared with the same fleet allocated with ``device="cpu"``.
+   Phase 11's ranks run beside this phase (host work that times none of
+   the kernels line's kernels) and are joined before phase 4b, so its
+   wall and kernel times are taken beside them;
 4b. the live re-planning loop, each replay with the live loop's kernel
    counts set to 0 just before it and read just after: (a) phase 4's
    500-camera controller folds `LIVE_EVENTS` churn events over the same
@@ -275,7 +278,8 @@ against its plain torch version.  Phases, each raising on failure:
    process group of 256 or 512 ranks, every shard even, rank 0's bytes a
    device printed by kind, and each step run on those meta shards to
    count its collectives (CPU arithmetic; nothing runs on the card);
-11. sharded execution: the kernels built, four processes share the card
+11. sharded execution: the kernels built, four processes, started
+   beside phase 4 and joined before phase 4b, share the card
    over gloo on a (2, 2) ("data", "model") mesh (`SHARD_ARCHS`:
    internlm2-1.8b, qwen3-moe-30b-a3b (expert-parallel, 64 of 128 experts
    a rank) and mamba2-1.3b at one layer, recurrentgemma-9b at one
@@ -293,7 +297,17 @@ against its plain torch version.  Phases, each raising on failure:
    (the prompt's last 16 positions, each decode step's) within 0.15 or
    one bf16 ulp of the largest |logit| (the MoE by the reference test's
    mean error under 0.02 and share over 0.2 under 0.02), float32 within
-   1e-3 of the largest |logit|.
+   1e-3 of the largest |logit|; last, the grouped step: the same ranks as
+   a (4, 1) mesh train qwen3-moe-30b-a3b (one layer, bf16) at B 8 in 4
+   micro-batches of 2 rows, two side by side on sub-groups of two data
+   ranks (`GROUPED_*`), every count set to 0 just before it: each rank's
+   loss, router aux loss and grad norm, and the pairs the MoE dropped
+   summed over the ranks, against one rank's step on the same rows in
+   `execute.microbatch_rows`' order within `GROUPED_*_RTOL`, while a
+   control (one rank's step with each local step's two micro-batches
+   merged, as a reduction left over the whole data axis would merge them)
+   must fall outside every one of those limits; its launches
+   `expected_train_counts` for its 2 local steps, its seconds printed.
 
 float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  Every kernel time is taken with a cold L2 by `time_cold_ms`,
@@ -1445,7 +1459,7 @@ def pack_timing(pack_calls) -> dict:
     opened_before = (bt_rec >= 0).to(torch.int64).cumsum(dim=1) - (bt_rec >= 0).to(torch.int64)
     ms = time_cold_ms(lambda: pack._dispatch(*args), reps=10)
     empty_ms = time_cold_ms(lambda: pack.empty_walk(*args[:6], best_fit=args[6]), reps=10)
-    plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=3)
+    plain_ms = time_cold_ms(lambda: pack.pack_scan_plain(*args[:6], best_fit=args[6]), reps=1)
     bound = pack_bound(args, int(opened_before.sum()))
     pack.LAUNCHES = before[0]
     pack.LAUNCHES_BY_VARIANT.update(before[1])
@@ -3339,7 +3353,7 @@ def flex_attention_call(s: int, window, cap):
     return call
 
 
-def flex_yardstick(make, window, cap, s: int, want, reps: int = 5) -> dict:
+def flex_yardstick(make, window, cap, s: int, want, reps: int = 2) -> dict:
     """``library_ms``: the call ``make(fn)`` returns (the forward of
     `flex_attention_call` ``fn``, or a backward of a graph it kept) timed
     cold, with its largest difference from ``want`` (the plain version's
@@ -4225,7 +4239,7 @@ def phase_backward_vs_plain() -> tuple[list, dict]:
             t["ms"], t["dot_dkdv_ms"], t["dq_ms"] = time_cold_parts_ms(
                 lambda mid: flash._dispatch_bwd(*args, events=(None, mid)), reps=5)
             t["plain_ms"] = time_cold_ms(lambda: flash.flash_attention_backward_plain(
-                q, k, v, out, lse, do, window=window, logit_softcap=cap), reps=2)
+                q, k, v, out, lse, do, window=window, logit_softcap=cap), reps=1)
             if window is None and cap is None:
                 t["library"] = "scaled_dot_product_attention"
                 t["library_ms"] = time_cold_ms(_sdpa_backward(q, k, v, do), reps=5)
@@ -4347,7 +4361,7 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
             lambda marks: ssd._dispatch_bwd(*args, events=marks), len(passes), reps=5)
         t["passes_ms"] = dict(zip(passes, parts))
         t["plain_ms"] = time_cold_ms(lambda: ssd.ssd_scan_backward_plain(
-            x, dt, A, Bm, Cm, dy, chunk=chunk), reps=2)
+            x, dt, A, Bm, Cm, dy, chunk=chunk), reps=1)
         t["library_ms"] = None
         key = f"ssd_scan_backward {str(dtype).replace('torch.', '')}"
         timing[key] = t
@@ -4403,7 +4417,7 @@ def phase_scan_backward_vs_plain() -> tuple[list, dict]:
                         for k, e in check["grads"].items())
             + f"; bit-equal repeat; {t[key]:.4f} ms")
     del want
-    t["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_backward_plain(a, h_, dh), reps=2)
+    t["plain_ms"] = time_cold_ms(lambda: rglru.rglru_scan_backward_plain(a, h_, dh), reps=1)
     t["library_ms"] = None
     # The forward at the training shape (a measurement: its ring was tuned
     # at the served B 4), at `_lanes`'s width and at 128 lanes.
@@ -4607,7 +4621,7 @@ def phase_gg_backward_vs_plain() -> tuple[list, dict]:
                         t["simt_max_abs_err"] = errs["simt"]
                     t["max_abs_err"] = errs[design]
                     t["plain_ms"] = time_cold_ms(lambda: gg.grouped_gemm_backward_plain(
-                        x, w, offs, dy, **need), reps=2)
+                        x, w, offs, dy, **need), reps=1)
                     t.update(_grouped_mm_bwd_yardstick(kernel, x, w, offs, dy, want, t["rows"]))
                     key = f"{kernel} {label} {name}"
                     timing[key] = t
@@ -5214,6 +5228,23 @@ SHARD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 SHARD_KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
                  "ssd_scan_backward", "rglru_scan", "rglru_scan_backward", "grouped_gemm",
                  "grouped_gemm_bwd")
+#: The grouped step: micro-batches of fewer rows than there are data ranks.
+#: qwen3-moe-30b-a3b at one layer, full width, bf16, on the same four ranks
+#: as a (4, 1) mesh: B 8 in M 4 micro-batches of 2 rows, so two sub-groups
+#: of two data ranks each run one micro-batch side by side, in 2 local steps.
+GROUPED_ARCH, GROUPED_MESH, GROUPED_B, GROUPED_M = "qwen3-moe-30b-a3b", (4, 1), 8, 4
+#: The kernels every rank's grouped step must launch.
+GROUPED_KERNELS = ("grouped_gemm", "grouped_gemm_bwd", "flash_attention", "flash_attention_bwd")
+#: Each rank's grouped step against one rank's on the same rows, relative:
+#: the loss, the router aux loss and the grad norm; the (token, choice)
+#: pairs the MoE dropped, summed over the ranks, as a share of one rank's.
+#: The control, one rank's step with the sub-groups' micro-batches merged
+#: (what a reduction left over the whole data axis computes), must fall
+#: outside every limit.  Read on an H100 (sound / control): loss 1.5e-7 /
+#: 1.7e-4, aux 9.4e-8 / 9.8e-2, grad norm 7.0e-5 (8.3e-5 on another run) /
+#: 4.0e-4, dropped pairs 0 / 5.5e-2.
+GROUPED_LOSS_RTOL, GROUPED_AUX_RTOL, GROUPED_GNORM_RTOL = 1e-5, 1e-5, 2e-4
+GROUPED_DROP_RTOL = 1e-3
 
 
 def _shard_cfg(arch: str, dtype: str):
@@ -5281,6 +5312,62 @@ def _shard_serve(cfg, mesh, counted, batch, params) -> dict:
     return out
 
 
+def _grouped_batch(cfg):
+    return batch_to_device(make_batch(cfg, BatchSpec(GROUPED_B, SHARD_S), seed=0), "cuda")
+
+
+class DropCounter:
+    """Counts the (token, choice) pairs `moe._keep` drops while entered."""
+
+    def __enter__(self):
+        self.dropped, self._keep = 0, moe_lib._keep
+
+        def keep(*args, **kwargs):
+            out = self._keep(*args, **kwargs)
+            self.dropped += int((~out).sum())
+            return out
+
+        moe_lib._keep = keep
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib._keep = self._keep
+
+
+def _grouped_rank() -> dict:
+    """This rank's part of phase 11's grouped step (`GROUPED_ARCH` on
+    `GROUPED_MESH`): its metrics, the pairs its MoE dropped, the launches
+    of that step alone (every count set to 0 just before it), its
+    collectives and seconds."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import execute as ex
+    from repro_torch.sharding.parallel import CollectiveCounter
+
+    t_part = time.perf_counter()
+    mesh = init_device_mesh("cuda", GROUPED_MESH, mesh_dim_names=("data", "model"))
+    cfg = _shard_cfg(GROUPED_ARCH, "bfloat16")
+    step, _, (state_specs, bspecs) = steps_lib.make_train_setup(
+        cfg, mesh, multi_pod=False, batch=GROUPED_B, seq_len=SHARD_S,
+        opt_cfg=AdamWConfig(**SHARD_OPT), microbatches=GROUPED_M)
+    state = _in_turn(lambda: ex.place_train_state(cfg, tfm.init_params(cfg, seed=0),
+                                                  state_specs, mesh))
+    batch = ex.place_tree(_grouped_batch(cfg), bspecs, mesh)
+    torch.cuda.synchronize()
+    reset_train_counts()
+    t0 = time.perf_counter()
+    with CollectiveCounter() as counter, DropCounter() as drops:
+        _, metrics = step(state, batch)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "dropped": drops.dropped}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = train_counts()
+    out["collectives"] = {op: v for op, v in counter.counts.items() if v["count"]}
+    del state, batch
+    torch.cuda.empty_cache()
+    out["part_s"] = time.perf_counter() - t_part
+    return out
+
+
 def sharded_rank(rank: int, world: int, run_dir: str) -> None:
     """One of phase 11's ranks: gloo on the card, a (2, 2) mesh, each
     config's sharded steps; its results, launches and collectives to
@@ -5292,6 +5379,7 @@ def sharded_rank(rank: int, world: int, run_dir: str) -> None:
     from repro_torch.sharding.parallel import CollectiveCounter
 
     torch.cuda.set_device(0)
+    torch.set_num_threads(1)  # host work beside phase 4's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -5356,6 +5444,7 @@ def sharded_rank(rank: int, world: int, run_dir: str) -> None:
     torch.cuda.synchronize()
     out["launches"] = _shard_counts()
     out["collectives"] = collectives
+    out["grouped"] = _grouped_rank()
     out["seconds"] = time.perf_counter() - t0
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     dist.barrier()
@@ -5403,29 +5492,62 @@ def _shard_compare(label, got, want, moe: bool, dtype: str) -> float:
     return err
 
 
-def phase_sharded_execution() -> dict:
-    """Phase 11: four ranks on a (2, 2) mesh sharing the card over gloo (the
-    kernels are built; the ranks load them), each config's train step,
-    prefill and decode held against one rank's on the card."""
-    import torch.multiprocessing as mp
+class ShardedRanks:
+    """Phase 11's four ranks (`sharded_rank`), started beside phase 4 and
+    joined before phase 4b: phase 4 is host work and times none of the
+    kernels line's kernels, while phase 4b and the phases after it do.  The
+    kernels are built; the ranks load them."""
 
-    t0 = time.perf_counter()
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    # Four processes share the card: their caches grow in segments.
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
-            mp.start_processes(sharded_rank, args=(SHARD_RANKS, run_dir), nprocs=SHARD_RANKS,
-                               start_method="spawn")
-            ranks = [torch.load(f"{run_dir}/rank{r}.pt") for r in range(SHARD_RANKS)]
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    t_ranks = time.perf_counter() - t0
-    log(f"  the ranks: {t_ranks:.1f} s from the spawn to the last's exit")
-    out = {"ranks_s": t_ranks, "rank_s": [r["seconds"] for r in ranks],
+    def __init__(self):
+        import torch.multiprocessing as mp
+
+        self.t0 = time.perf_counter()
+        self.dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        # Four processes share the card: their caches grow in segments.
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            self.ctx = mp.start_processes(sharded_rank, args=(SHARD_RANKS, self.dir.name),
+                                          nprocs=SHARD_RANKS, join=False, start_method="spawn")
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        self.ranks = None
+
+    def join(self) -> float:
+        """Waits for the ranks (raising if one failed) and loads their
+        results; the seconds waited."""
+        t = time.perf_counter()
+        try:
+            while not self.ctx.join():
+                pass
+            self.ranks = [torch.load(f"{self.dir.name}/rank{r}.pt") for r in range(SHARD_RANKS)]
+        finally:
+            self.close()
+        self.ranks_s = time.perf_counter() - self.t0
+        self.waited_s = time.perf_counter() - t
+        return self.waited_s
+
+    def close(self) -> None:
+        """Ends any rank still running and removes the run's directory."""
+        for proc in self.ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        self.dir.cleanup()
+
+
+def phase_sharded_execution(started: ShardedRanks) -> dict:
+    """Phase 11: the four ranks of ``started`` on a (2, 2) mesh sharing the
+    card over gloo, each config's train step, prefill and decode, then the
+    grouped step on (4, 1), held against one rank's on the card."""
+    ranks, t_ranks = started.ranks, started.ranks_s
+    log(f"  the ranks: spawned beside phase 4, joined {t_ranks:.1f} s later, "
+        f"{started.waited_s:.1f} s of it waited for after phase 4")
+    out = {"ranks_s": t_ranks, "waited_s": started.waited_s,
+           "rank_s": [r["seconds"] for r in ranks],
            "peak_gb": [r["peak_gb"] for r in ranks], "launches": [], "collectives": [],
            "bf16": {}, "float32": {}}
     for r, res in enumerate(ranks):
@@ -5441,6 +5563,7 @@ def phase_sharded_execution() -> dict:
         log(f"  rank {r}: gloo collectives on CUDA tensors "
             + ", ".join(f"{op} x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
                         for op, v in res["collectives"].items()))
+    out["grouped"] = _grouped_compare(ranks)
     for dtype, archs in (("bf16", SHARD_ARCHS), ("float32", SHARD_F32)):
         for arch in archs:
             t_arch = time.perf_counter()
@@ -5492,6 +5615,101 @@ def phase_sharded_execution() -> dict:
                 for k, v in row.items() if k not in ("resident_gb", "one_rank_s"))
                 + (f"; rank 0 holds {row['resident_gb'][0]:.2f} GB of state"
                    if "resident_gb" in row else ""))
+    return out
+
+
+def _grouped_one_rank(cfg, batch, order, microbatches: int) -> dict:
+    """One rank's step of `GROUPED_ARCH` on ``batch``'s rows in ``order``
+    at ``microbatches``: its metrics and the pairs its MoE dropped."""
+    model = tfm.init_params(cfg, seed=0)
+    with local_mesh() as mesh:
+        step, _, _ = steps_lib.make_train_setup(
+            cfg, mesh, multi_pod=False, batch=GROUPED_B, seq_len=SHARD_S,
+            opt_cfg=AdamWConfig(**SHARD_OPT), microbatches=microbatches)
+        model.requires_grad_(True)
+        with DropCounter() as drops:
+            _, metrics = step({"params": model, "opt": init_opt_state(param_leaves(cfg, model))},
+                              {k: v[order] for k, v in batch.items()})
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "dropped": drops.dropped}
+    del model, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grouped_compare(ranks: list) -> dict:
+    """Phase 11's grouped step against one rank's step on the card on the
+    same rows in `execute.microbatch_rows`' order: every rank's loss, router
+    aux loss and grad norm, and the pairs dropped over the ranks, within
+    `GROUPED_*_RTOL`, and its launches those of `expected_train_counts` for
+    its local steps.  The control, one rank's step on the same rows with
+    each local step's G micro-batches merged into one, must fall outside
+    every limit: else that limit could not see a reduction left over the
+    whole data axis."""
+    from repro_torch.sharding import execute as ex
+
+    t0 = time.perf_counter()
+    cfg = _shard_cfg(GROUPED_ARCH, "bfloat16")
+    shards = GROUPED_MESH[0]
+    groups = ex.microbatch_groups(GROUPED_B, shards, GROUPED_M)
+    if groups != 2:
+        raise AssertionError(f"phase 11 grouped step: {groups} micro-batches side by side")
+    want_counts = expected_train_counts(cfg, GROUPED_M // groups, remat=True)
+    for r, res in enumerate(ranks):
+        launches = res["grouped"]["launches"]
+        missing = [k for k in GROUPED_KERNELS if not launches[k]]
+        if missing or launches != want_counts:
+            raise AssertionError(f"phase 11 grouped step, rank {r}: launches {launches}, "
+                                 f"expected {want_counts}")
+    batch = _grouped_batch(cfg)
+    order = torch.tensor(ex.microbatch_rows(GROUPED_B, shards, GROUPED_M), device="cuda")
+    one = _grouped_one_rank(cfg, batch, order, GROUPED_M)
+    control = _grouped_one_rank(cfg, batch, order, GROUPED_M // groups)
+    out = {"groups": groups, "step_s": [r["grouped"]["seconds"] for r in ranks],
+           "part_s": [r["grouped"]["part_s"] for r in ranks],
+           "launches": ranks[0]["grouped"]["launches"],
+           "collectives": [r["grouped"]["collectives"] for r in ranks],
+           "one_rank": one, "control": control, "err": {}, "control_err": {}}
+
+    def rel(got, want):
+        return abs(got - want) / abs(want) if want else abs(got)
+
+    limits = {"loss": GROUPED_LOSS_RTOL, "router_aux": GROUPED_AUX_RTOL,
+              "grad_norm": GROUPED_GNORM_RTOL}
+    for key in limits:
+        want = one["metrics"][key]
+        out[key] = ([r["grouped"]["metrics"][key] for r in ranks], want)
+        out["err"][key] = max(rel(g, want) for g in out[key][0])
+        out["control_err"][key] = rel(control["metrics"][key], want)
+    dropped = sum(r["grouped"]["dropped"] for r in ranks)
+    out["dropped"] = (dropped, one["dropped"], control["dropped"])
+    out["err"]["dropped"] = rel(dropped, one["dropped"])
+    out["control_err"]["dropped"] = rel(control["dropped"], one["dropped"])
+    limits["dropped"] = GROUPED_DROP_RTOL
+    del batch
+    torch.cuda.empty_cache()
+    out["one_rank_s"] = time.perf_counter() - t0
+    log(f"  grouped step, {GROUPED_ARCH} on {GROUPED_MESH} at B {GROUPED_B}, M {GROUPED_M} "
+        f"({groups} side by side): the ranks' step {max(out['step_s']):.1f} s (with the "
+        f"mesh, draw and placement {max(out['part_s']):.1f} s), one rank's and the "
+        f"control's {out['one_rank_s']:.1f} s; launches a rank "
+        + ", ".join(f"{k} {out['launches'][k]}" for k in GROUPED_KERNELS)
+        + "; gloo " + ", ".join(f"{op} x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
+                                for op, v in out["collectives"][0].items()))
+    log("    ranks vs one rank (relative; the control's, the merged micro-batches', in "
+        "brackets; the limit after the slash): "
+        + ", ".join(f"{k} {out[k][1]!r}: {out['err'][k]:.3g} [{out['control_err'][k]:.3g}] "
+                    f"/ {limits[k]:g}" for k in ("loss", "router_aux", "grad_norm"))
+        + f"; pairs dropped, summed over the ranks {dropped}, one rank {one['dropped']}, "
+        f"control {control['dropped']}: {out['err']['dropped']:.3g} "
+        f"[{out['control_err']['dropped']:.3g}] / {GROUPED_DROP_RTOL:g}")
+    bad = [k for k, lim in limits.items() if out["err"][k] > lim]
+    if bad:
+        raise AssertionError(f"phase 11 grouped step: {bad} outside their limits: "
+                             f"{ {k: out['err'][k] for k in bad} }")
+    blind = [k for k, lim in limits.items() if out["control_err"][k] <= lim]
+    if blind:
+        raise AssertionError(f"phase 11 grouped step: the control lands within the limits of "
+                             f"{blind}, which therefore cannot see a whole-axis reduction")
     return out
 
 
@@ -5550,6 +5768,7 @@ def main(argv=None) -> int:
     parity_dir = tempfile.TemporaryDirectory()
     workdir = pathlib.Path(parity_dir.name)
     parity = {} if args.kernel_only else {"cells": start_parity("cells", workdir)}
+    sharded = None
     try:
         timer.begin("phase 2", "build")
         t0 = time.perf_counter()
@@ -5578,12 +5797,15 @@ def main(argv=None) -> int:
         result["checks"] = checks
 
         if not args.kernel_only:
-            timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras)")
+            timer.begin("phase 4", f"manager path ({N_CAMERAS} cameras), beside phase 11's "
+                        "ranks")
+            sharded = ShardedRanks()
             result["quickstart_savings"] = phase_quickstart()
             main_path = phase_main_path()
             largest = main_path.pop("_largest")
             managers = main_path.pop("_managers")
             result["main_path"] = main_path
+            log(f"  waited {sharded.join():.1f} s for phase 11's ranks")
             timer.begin("phase 4b", "live re-planning loop: (a) the 500-camera fleet's churn, "
                         "(b) churn_replan, (c) lifecycle experiment 3")
             result["live_loop"] = phase_live_loop(managers)
@@ -5594,6 +5816,8 @@ def main(argv=None) -> int:
             parity["flat"] = start_parity("flat", workdir)
             result["sharded"] = phase_sharded(parity, workdir)
     finally:
+        if sharded is not None and sharded.ranks is None:
+            sharded.close()
         for proc, _ in parity.values():
             if proc.poll() is None:
                 proc.kill()
@@ -5661,8 +5885,9 @@ def main(argv=None) -> int:
         timer.begin("phase 10", "dry-run on meta under fake process groups (CPU arithmetic)")
         result["dryrun"] = phase_dryrun()
         torch.cuda.empty_cache()
-        timer.begin("phase 11", "sharded execution: four ranks on a (2, 2) mesh sharing the card")
-        result["sharded_execution"] = phase_sharded_execution()
+        timer.begin("phase 11", "sharded execution: four ranks on a (2, 2) mesh sharing the card, "
+                    "then a grouped step on (4, 1) (the ranks ran beside phase 4)")
+        result["sharded_execution"] = phase_sharded_execution(sharded)
 
         timing = result["timing"]
         result["kernels"] = [{
@@ -5778,10 +6003,18 @@ def main(argv=None) -> int:
     result["phase_seconds"] = timer.finish()
     if not args.kernel_only:
         sec, parts = result["phase_seconds"], result["training"]["part_seconds"]
-        log(f"  phase 11 took {sec['phase 11']:.1f} s; the phases cut to give it back: "
-            f"8 {sec['phase 8']:.1f} s (its float32 models at about half depth), 9 (b) "
+        grouped = result["sharded_execution"]["grouped"]
+        sharded_run = result["sharded_execution"]
+        log(f"  phase 11 took {sec['phase 11']:.1f} s after its ranks ran beside phase 4 "
+            f"({sharded_run['ranks_s']:.1f} s from their spawn to their join, "
+            f"{sharded_run['waited_s']:.1f} s of it waited for); the phases cut to give it "
+            f"back: 8 {sec['phase 8']:.1f} s (its float32 models at about half depth), 9 (b) "
             f"{parts['b']:.1f} s (one layer a config, not two), (c) {parts['c']:.1f} s (3 "
-            f"steps, not 4), (d) {parts['d']:.1f} s (2 steps, not 3)")
+            f"steps, not 4), (d) {parts['d']:.1f} s (2 steps, not 3); its grouped step "
+            f"{max(grouped['part_s']):.1f} s on the ranks and {grouped['one_rank_s']:.1f} s on "
+            "one, given back beside phase 4 and by timing repeats: the plain pack scan's 1 "
+            "(not 3; phases 4b, 4c), the plain backwards' 1 (not 2; 9 (a)), flex_attention's "
+            "2 (not 5; 8, 9 (a))")
     result["seconds"] = time.perf_counter() - t_start
     if args.json:
         path = pathlib.Path(args.json)

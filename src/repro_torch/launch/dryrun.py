@@ -54,7 +54,7 @@ import torch.distributed as dist
 from ..configs import ARCH_IDS, get_config
 from ..interop import param_leaves
 from ..roofline.analysis import H100, H100_MEMORY_BYTES, model_flops, roofline_terms
-from ..sharding import parallel
+from ..sharding import execute, parallel
 from ..sharding.specs import placements
 from . import steps as steps_lib
 from .mesh import MESH_SHAPES, destroy_process_group, make_production_mesh
@@ -128,8 +128,6 @@ def _abstract_run(cfg, kind: str, mesh, *, multi_pod: bool, batch: int, seq_len:
                   microbatches: int, long_context: bool) -> None:
     """Build the step for ``mesh`` and run it once on meta shards of its
     abstract arguments."""
-    from ..sharding import execute
-
     kw = dict(multi_pod=multi_pod, batch=batch)
     if kind == "train":
         step, (state, inputs), (state_specs, in_specs) = steps_lib.make_train_setup(
@@ -225,13 +223,16 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, save: bool = True) -> dic
                    "caches": (place(stacked_caches(cfg, caches), cspecs, mesh)
                               if caches is not None else 0)}
         t_place = time.perf_counter() - t0 - t_build
-        rows = batch // (n_chips // steps_lib.mesh_axes(mesh)["model"])
         coll, coll_reason = None, None
-        if kind == "train" and rows % microbatches:
-            # The sharded step cuts each rank's rows into the micro-batches.
-            coll_reason = (f"not counted: a data rank's {rows} rows do not cut into "
-                           f"{microbatches} micro-batches")
-        else:
+        if kind == "train":
+            # The sharded step cuts the micro-batches from each batch rank's
+            # rows, or runs them side by side on sub-groups of the ranks.
+            shards = n_chips // steps_lib.mesh_axes(mesh)["model"]
+            try:
+                execute.microbatch_groups(batch, shards, microbatches)
+            except ValueError as e:
+                coll_reason = f"not counted: {e}"
+        if coll_reason is None:
             coll = count_collectives(cfg, kind, mesh, multi_pod=multi_pod, batch=batch,
                                      seq_len=seq_len, microbatches=microbatches,
                                      long_context=long_context)

@@ -124,8 +124,9 @@ def _keep(top_i: torch.Tensor, num_experts: int, capacity: int, groups: int, par
     """(T·k,) bool: a pair is kept when its rank among its expert's pairs
     in its dispatch group is below ``capacity``.  Under a sharded step
     whose batch rows are split (``par.batch_shards > 1``), ``top_i`` holds
-    this rank's tokens, the ``groups`` cut the global tokens, and a group
-    that reaches into earlier ranks' tokens counts their pairs first."""
+    this rank's tokens, the ``groups`` cut the tokens of every shard of
+    ``par``'s batch dims, and a group that reaches into earlier ranks'
+    tokens counts their pairs first."""
     flat_e = top_i.reshape(-1)
     if par is None or par.batch_shards == 1:
         return (_slots(flat_e.reshape(groups, -1), num_experts) < capacity).reshape(-1)
@@ -174,10 +175,11 @@ def moe_ffn(params: MoE, x: torch.Tensor, *, num_experts: int, experts_per_token
     over ``model`` (``params.tp``), every rank routes its tokens alike and
     runs its own experts (expert-parallel) or its own columns of every
     expert (tensor-parallel) on them; the partial outputs are summed over
-    ``model``.  T, the groups and the capacity are the global batch's, as
-    on one device, so the same pairs are dropped; with ``global_aux`` the
-    aux loss is over the global batch too (the serving path, which drops
-    it, passes False).
+    ``model``.  T, the groups and the capacity are those of the rows the
+    context's batch dims split (the global batch, or one micro-batch's
+    sub-group of ranks), as on one device, so the same pairs are dropped;
+    with ``global_aux`` the aux loss is over those rows too (the serving
+    path, which drops it, passes False).
     """
     par = parallel.current()
     shards = 1 if par is None or dropless else par.batch_shards
@@ -223,9 +225,9 @@ def moe_ffn(params: MoE, x: torch.Tensor, *, num_experts: int, experts_per_token
 
 
 def _global_aux(par, probs: torch.Tensor, top_i: torch.Tensor, num_experts: int):
-    """`router_aux_loss` over the batch rows of every shard: the counts and
-    the mean probabilities summed over the batch dims (the gradient of each
-    rank's own probabilities passed through)."""
+    """`router_aux_loss` over the rows of every shard of the context's
+    batch dims: the counts and the mean probabilities summed over them (the
+    gradient of each rank's own probabilities passed through)."""
     counts = torch.zeros(num_experts, dtype=torch.float32, device=probs.device)
     flat = top_i.reshape(-1)
     counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32, device=probs.device))

@@ -33,10 +33,23 @@ on its experts (or its columns of every expert), `decode_attention` on
 its heads and, where the decode caches' slots are split, on its slots,
 merged by log-sum-exp.
 
-Gradients: every rank's loss is the global one; a parameter's gradient is
-summed over the batch dims its spec does not use (the others were
-reduce-scattered or summed to their owner); the global-norm clip adds the
-squares of each distinct shard once, over the whole mesh.
+Gradients: every rank's loss is its micro-batch's; a parameter's gradient
+is summed over the batch dims its spec does not use (the others were
+reduce-scattered or summed to their owner), so each micro-batch's rows
+count once; the global-norm clip adds the squares of each distinct shard
+once, over the whole mesh.
+
+Micro-batches (`make_sharded_train_step`): with M micro-batches of B/M
+rows over D batch ranks, each rank cuts every micro-batch from its own
+rows where B/M >= D.  Where B/M < D (grok-1-314b's train_4k: 8 rows over
+16 or 32), the batch ranks split, in mesh order, into G = D / (B/M)
+sub-groups of B/M ranks; in local step j every rank takes its row j, so
+the G sub-groups each run one micro-batch side by side.  The step's layers
+then run under a step-local mesh of the same ranks whose batch dims are
+cut into (G, B/M) (`microbatch_mesh`): the loss, the MoE's token count,
+capacity, dispatch groups and aux reduce over a micro-batch's sub-group,
+while the FSDP gathers, the gradient sums and the clip stay over the whole
+mesh.
 """
 from __future__ import annotations
 
@@ -73,7 +86,11 @@ __all__ = [
     "make_sharded_decode",
     "to_decode_caches",
     "sharded_forward_train",
+    "microbatch_groups",
     "microbatch_rows",
+    "microbatch_mesh",
+    "SIDE_BY_SIDE",
+    "WITHIN",
 ]
 
 
@@ -273,11 +290,15 @@ _OPTIONAL = {"attn": ("q_norm", "k_norm"), "mlp": ("gate",), "moe": ("gate",)}
 
 class _Layers:
     """The parameters of each layer group at use, from the local shards of
-    the stacked leaves (see the module's docstring)."""
+    the stacked leaves (see the module's docstring).  ``par`` places them
+    (the gathers run over its mesh); ``ctx``, the context the layers run
+    under, is ``par`` unless the step's micro-batches run side by side on
+    sub-groups of the batch ranks (`microbatch_mesh`)."""
 
-    def __init__(self, cfg: ModelConfig, local: dict, pspecs: dict, par: parallel.Parallel):
+    def __init__(self, cfg: ModelConfig, local: dict, pspecs: dict, par: parallel.Parallel,
+                 ctx: parallel.Parallel | None = None):
         self.cfg, self.local, self.pspecs, self.par = cfg, local, pspecs, par
-        self.fsdp = tuple(d for d in par.mesh.mesh_dim_names if d != par.model)
+        self.ctx = par if ctx is None else ctx
 
     def _gather_fsdp(self, t: torch.Tensor, spec) -> torch.Tensor:
         for dim, entry in enumerate(spec):
@@ -337,8 +358,11 @@ class _Layers:
                 sub = types.SimpleNamespace(**{k: None for k in _OPTIONAL.get(name, ())})
                 for leaf, path in value.items():
                     setattr(sub, leaf, self._row(path, g))
+                # Any dim of the row-parallel weight over ``model``: its rows
+                # (heads, width, experts), or the hidden columns of every
+                # expert where the experts do not divide the axis.
                 row = value[_ROW_PARALLEL[name]]
-                sub.tp = self.par.model in axes_of(layer_spec(self.pspecs[row])[0])
+                sub.tp = self.par.model in _used(layer_spec(self.pspecs[row]))
                 setattr(layer, name, sub)
             layers.append(layer)
         return layers
@@ -354,14 +378,14 @@ def _local(t):
 
 
 def _group_fn(cfg, layers: _Layers, g: int, positions, x):
-    with parallel.active(layers.par):
+    with parallel.active(layers.ctx):
         return tfm._apply_group_train(cfg, layers.group(g), positions, x)
 
 
 def _forward(cfg: ModelConfig, layers: _Layers, batch: dict, *, remat: bool):
     """(local logits, aux, the vocabulary's ``(first id, ids)`` on this
     rank) of `transformer.forward_train` on this rank's rows."""
-    with parallel.active(layers.par):
+    with parallel.active(layers.ctx):
         top = layers.top()
         x = tfm.embed_inputs(top, cfg, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -401,9 +425,10 @@ def _cross_entropy_sum(logits, labels, vocab, par: parallel.Parallel):
 
 
 def _loss(cfg: ModelConfig, layers: _Layers, batch: dict, *, remat: bool):
-    """`transformer.loss_fn` over the global batch: (total, parts), alike on
-    every rank."""
-    par = layers.par
+    """`transformer.loss_fn` over the micro-batch this rank's rows belong
+    to (the global batch, or a sub-group's): (total, parts), alike on each
+    of its ranks."""
+    par = layers.ctx
     logits, aux, vocab = _forward(cfg, layers, batch, remat=remat)
     labels = batch["labels"]
     if cfg.num_codebooks > 1 and labels.dim() != 3:
@@ -454,15 +479,57 @@ def _logits_dtensor(cfg, logits, vocab, par, batch_entry):
 
 # ---- the train step ---------------------------------------------------------------
 
+#: The dims of `microbatch_mesh` that take the batch dims' place: which of
+#: the micro-batches run side by side, and the ranks one is split over.
+SIDE_BY_SIDE, WITHIN = "microbatch", "microbatch_rank"
+
+
+def microbatch_groups(batch: int, shards: int, microbatches: int) -> int:
+    """G, the micro-batches a sharded step runs side by side: 1 where a
+    micro-batch's B/M rows are cut from every one of the D batch ranks'
+    rows (B/M a multiple of D), D / (B/M) where it has fewer rows than there
+    are batch ranks (B/M dividing D: a row on each rank of a sub-group).
+    Raises `ValueError` naming B, M and D where the rows cut neither way."""
+    if microbatches > 0 and batch % microbatches == 0 and batch % shards == 0:
+        rows = batch // microbatches
+        if rows % shards == 0:
+            return 1
+        if shards % rows == 0:
+            return shards // rows
+    raise ValueError(f"B {batch} rows in M {microbatches} micro-batches over D {shards} batch "
+                     "ranks: B/M must be a multiple of D or divide it")
+
 
 def microbatch_rows(batch: int, shards: int, microbatches: int) -> list[int]:
-    """The global row order whose one-device micro-batches are the sharded
-    step's: micro-batch ``i`` cuts the ``i``-th slice of every data shard's
-    rows, shard by shard."""
+    """The global row order whose one-device micro-batches (contiguous, in
+    order) are the sharded step's: micro-batch ``j·G + g`` (G from
+    `microbatch_groups`) takes ``c`` rows from each of the ``q = D / G``
+    ranks of sub-group ``g``, rows ``(g·q + s)·per + j·c + t``.  With G = 1
+    that is the ``j``-th slice of every shard's rows; with G > 1, ``c`` is 1:
+    row ``j`` of each rank of the sub-group."""
+    groups = microbatch_groups(batch, shards, microbatches)
     per = batch // shards
-    n = per // microbatches
-    return [s * per + i * n + j for i in range(microbatches)
-            for s in range(shards) for j in range(n)]
+    c = batch // microbatches * groups // shards
+    q = shards // groups
+    return [(g * q + s) * per + j * c + t for j in range(per // c) for g in range(groups)
+            for s in range(q) for t in range(c)]
+
+
+def microbatch_mesh(mesh, batch_dims: tuple, groups: int):
+    """``mesh``'s ranks with its batch dims (its leading dims) flattened in
+    mesh order, as `Parallel.batch_rank` counts them, and cut into
+    ``(groups, D / groups)`` over ``(SIDE_BY_SIDE, WITHIN)``: sub-group
+    ``g`` holds batch ranks ``g·D/G`` to ``(g + 1)·D/G - 1``.  Its other
+    dims are ``mesh``'s.  It makes process groups, so every rank calls it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = tuple(mesh.mesh_dim_names)
+    k = len(batch_dims)
+    if names[:k] != tuple(batch_dims):
+        raise ValueError(f"batch dims {batch_dims} do not lead the mesh's {names}")
+    ranks = mesh.mesh
+    grid = ranks.reshape((groups, -1) + tuple(ranks.shape[k:]))
+    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=(SIDE_BY_SIDE, WITHIN) + names[k:])
 
 
 def _used(spec) -> set:
@@ -483,18 +550,32 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state_
     """``step(state, batch, events=None) -> (state, metrics)`` over the
     mesh: `train_loop.make_train_step`'s step on `place_train_state`'s
     state and a batch of DTensors at ``batch_specs``.  The M micro-batches
-    are cut from each rank's own rows (`microbatch_rows` gives the row
-    order of the equal one-device step).  The state's shards are updated
-    in place; ``events``, as the one-device step's."""
+    are cut from each rank's own rows or, where they have fewer rows than
+    there are batch ranks, run side by side on sub-groups of them (see the
+    module's docstring; `microbatch_groups` raises where neither fits);
+    `microbatch_rows` gives the row order of the equal one-device step.
+    The state's shards are updated in place; ``events``, as the one-device
+    step's."""
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}")
     pspecs = state_specs["params"]
     weights = _grad_weights(pspecs, mesh)
     names = mesh.mesh_dim_names
+    sub_mesh = []  # [G, its `microbatch_mesh`], made on the first grouped call
 
     def record(events, i):
         if events is not None:
             events[i].record()
+
+    def context(par: parallel.Parallel, rows: int) -> tuple[int, parallel.Parallel]:
+        """(G, the context the layers run under) for a batch of ``rows``
+        rows a rank."""
+        groups = microbatch_groups(rows * par.batch_shards, par.batch_shards, microbatches)
+        if groups == 1:
+            return 1, par
+        if not sub_mesh or sub_mesh[0] != groups:
+            sub_mesh[:] = [groups, microbatch_mesh(mesh, par.batch_dims, groups)]
+        return groups, parallel.Parallel(sub_mesh[1], batch_dims=(WITHIN,))
 
     def train_step(state: dict, batch: dict, events=None):
         par = _train_par(mesh, batch_specs)
@@ -503,10 +584,11 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state_
             t.requires_grad_(True)
             t.grad = None
         rows = {k: _local(v) for k, v in batch.items()}
-        layers = _Layers(cfg, local, pspecs, par)
+        groups, ctx = context(par, next(iter(rows.values())).shape[0])
+        layers = _Layers(cfg, local, pspecs, par, ctx)
         record(events, 0)
         totals, parts, sums = [], [], None
-        for one in _micro_batches(rows, microbatches):
+        for one in _micro_batches(rows, microbatches // groups):
             total, part = _loss(cfg, layers, one, remat=remat)
             if microbatches == 1:
                 record(events, 1)
@@ -529,7 +611,8 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state_
             record(events, 1)
             sums = {p: g.div_(microbatches) for p, g in sums.items()}
         # Each rank's gradient covers its own rows: add them over the batch
-        # dims the leaf does not use (the others were reduce-scattered).
+        # dims the leaf does not use (the others were reduce-scattered), so
+        # each of the G sub-groups' micro-batches counts once.
         grads = {}
         for p, g in sums.items():
             for dim in par.batch_dims:
@@ -554,9 +637,15 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state_
                                                  global_sq=global_sq)
         opt["step"] = _dtensor(local_opt["step"], (), mesh, ())
         record(events, 3)
-        total = sum(totals[1:], totals[0]) / microbatches
-        parts = {k: torch.stack([row[k] for row in parts]).mean() for k in parts[0]}
-        metrics = {"loss": total, **parts, **opt_metrics}
+        # The loss and its parts, a row a local step; summed over the other
+        # sub-groups' micro-batches, then averaged over all M.
+        keys = list(parts[0])
+        table = torch.stack([torch.stack([t.float()] + [row[k].float() for k in keys])
+                             for t, row in zip(totals, parts)])
+        if groups > 1:
+            table = parallel.all_reduce(table, ctx.group(SIDE_BY_SIDE))
+        means = table.sum(0) / microbatches
+        metrics = {"loss": means[0], **dict(zip(keys, means[1:])), **opt_metrics}
         return state, metrics
 
     return train_step

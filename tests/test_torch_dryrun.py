@@ -2,7 +2,10 @@
 
 `repro_torch.launch.dryrun.run_one` on one combination of each step kind
 (qwen3-moe-30b-a3b train_4k on 16x16, gemma2-2b long_500k on 2x16x16,
-yi-34b decode_32k on 16x16), without saving: the record's fields, the
+yi-34b decode_32k on 16x16) and on grok-1-314b's train_4k on both meshes,
+whose 32 micro-batches of 8 rows run side by side on two sub-groups of
+the 16 data ranks (four of the 32 on 2x16x16), without saving: the
+record's fields, the
 parameter bytes per device equal to the sum over the reference's leaves
 of JAX's shard shape on an ``AbstractMesh`` times the item size (under the
 reference's own plan: FSDP for train, `needs_fsdp` otherwise), and no
@@ -26,7 +29,8 @@ from repro.sharding import specs as jsh
 from repro_torch.launch import dryrun
 
 COMBOS = [("qwen3-moe-30b-a3b", "train_4k", False), ("gemma2-2b", "long_500k", True),
-          ("yi-34b", "decode_32k", False)]
+          ("yi-34b", "decode_32k", False), ("grok-1-314b", "train_4k", False),
+          ("grok-1-314b", "train_4k", True)]
 
 
 def _reference_param_bytes(arch, kind, multi_pod) -> int:
@@ -62,7 +66,10 @@ def test_run_one_records_per_device_bytes(arch, shape, multi_pod):
     assert b["params"] == _reference_param_bytes(arch, kind, multi_pod)
     assert b["total"] == b["params"] + b["opt"] + b["batch"] + b["caches"]
     if kind == "train":
-        assert b["opt"] > 2 * b["params"] and b["caches"] == 0 and rec["microbatches"] == 8
+        # the reference's rule (src/repro/launch/dryrun.py:55)
+        microbatches = 32 if cfg.param_count() > 1e11 else 8
+        assert b["opt"] > 2 * b["params"] and b["caches"] == 0
+        assert rec["microbatches"] == microbatches
     else:
         assert b["opt"] == 0 and b["caches"] > 0 and rec["microbatches"] is None
     assert rec["fits_device"] == (b["total"] <= 80e9)
@@ -73,6 +80,7 @@ def test_run_one_records_per_device_bytes(arch, shape, multi_pod):
     assert terms["compute_s"] == pytest.approx(rec["model_flops"] / n_chips / 989e12)
     assert terms["memory_s"] == pytest.approx(b["total"] / 3.35e12)
     coll = rec["collectives"]
+    assert rec["collectives_reason"] is None
     assert coll["total"]["count"] == sum(v["count"] for k, v in coll.items() if k != "total")
     assert coll["total"]["count"] > 0 and coll["total"]["bytes"] > 0
     assert terms["collective_s"] == pytest.approx(coll["total"]["bytes"] / 450e9)

@@ -41,7 +41,18 @@ counts on a fake 4-rank group.  The tests then hold:
 * each rank's resident parameter and moment bytes equal to the dry-run's
   count of the plan's bytes for that rank (fake 4-rank group);
 * the collectives `CommDebugMode` counted on the real group in the M = 1
-  step equal to the dry-run's count for the same step on a fake group.
+  step equal to the dry-run's count for the same step on a fake group;
+* smoke grok-1-314b with 3 experts (tensor-parallel over ``model``, as
+  its 8 over 16 at full size) on (2, 2): ``forward_train``'s logits against
+  the reference's as the MoE above;
+* train steps whose micro-batches have fewer rows than there are data
+  ranks (`ranks.GROUPED`, from the reference's parameters): smoke grok-1-314b
+  with tensor-parallel experts on (2, 2) at M = 1 and M = 4, smoke
+  qwen3-moe-30b-a3b with one dispatch group and dropped pairs on the
+  group's (4, 1) mesh at M = 4; every rank's against the port's one-device
+  step on the rows in `execute.microbatch_rows`' order within the limits
+  above, the pairs dropped (summed over the ranks) equal to one device's,
+  and (b)'s collectives equal to the dry-run's count on a fake group.
 """
 import os
 import pickle
@@ -77,12 +88,12 @@ def _jcfg(arch, dtype="float32"):
     return ranks.cut(jconfigs.smoke_variant(jconfigs.get_config(arch)), arch, dtype)
 
 
-def _fake_mesh(rank):
+def _fake_mesh(rank, shape=(2, 2)):
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=WORLD)
-    return init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
 
 
 def _plan_bytes(arch) -> dict:
@@ -102,11 +113,11 @@ def _plan_bytes(arch) -> dict:
     return out
 
 
-def _dry_counts(arch) -> dict:
-    mesh = _fake_mesh(0)
+def _dry_counts(cfg, shape=(2, 2), batch=ranks.B, seq_len=ranks.S, microbatches=1) -> dict:
+    mesh = _fake_mesh(0, shape)
     try:
-        coll = dryrun.count_collectives(ranks.config(arch), "train", mesh, multi_pod=False,
-                                        batch=ranks.B, seq_len=ranks.S)
+        coll = dryrun.count_collectives(cfg, "train", mesh, multi_pod=False, batch=batch,
+                                        seq_len=seq_len, microbatches=microbatches)
     finally:
         dist.destroy_process_group()
     return {op: v["count"] for op, v in coll.items() if op != "total" and v["count"]}
@@ -133,19 +144,40 @@ def run(tmp_path_factory):
             with open(run_dir / "params.part", "wb") as f:
                 pickle.dump(jax.tree.map(lambda a: np.asarray(a, np.float32), p), f)
             os.replace(run_dir / "params.part", run_dir / f"params-{arch}.pkl")
+        # The `GROUPED` cases' parameters that `ARCHS` does not give.
+        for case in ranks.GROUPED:
+            if ranks.grouped_params(case) != case:
+                continue
+            cfg = ranks.grouped_config(case, jconfigs)
+            p = jax.jit(lambda key, c=cfg: jtfm.init_params(key, c))(jax.random.PRNGKey(0))
+            jparams[case] = p
+            with open(run_dir / "params.part", "wb") as f:
+                pickle.dump(jax.tree.map(lambda a: np.asarray(a, np.float32), p), f)
+            os.replace(run_dir / "params.part", run_dir / f"params-{case}.pkl")
         # The bf16 model: the same weights rounded once, as its init rounds them.
         jparams[ranks.BF16, "bfloat16"] = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
                                                        jparams[ranks.BF16, "float32"])
         # While they run: the reference's logits, the dry-run's counts.
-        for (arch, dtype), p in jparams.items():
+        for (arch, dtype), p in ((k, v) for k, v in jparams.items() if isinstance(k, tuple)):
             batch = {k: jnp.asarray(v) for k, v in
                      jmake_batch(_jcfg(arch, dtype), JBatchSpec(ranks.B, ranks.S), seed=1).items()}
             logits, _ = jax.jit(lambda p_, b_, c=_jcfg(arch, dtype): jtfm.forward_train(
                 p_, c, b_))(p, batch)
             here["ref"][arch, dtype] = np.asarray(logits.astype(jnp.float32))
+        # smoke grok-1-314b's logits with its 3 experts (`GROUPED`'s tp_experts).
+        cfg = ranks.grouped_config("tp_experts", jconfigs)
+        batch = {k: jnp.asarray(v) for k, v in jmake_batch(
+            cfg, JBatchSpec(ranks.GROUPED["tp_experts"][2], ranks.GROUPED_S),
+            seed=ranks.GROUPED_SEED).items()}
+        logits, _ = jax.jit(lambda p_, b_: jtfm.forward_train(p_, cfg, b_))(
+            jparams["tp_experts"], batch)
+        here["ref"]["tp_experts"] = np.asarray(logits)
         for arch in ARCHS:
             here["plan_bytes"][arch] = _plan_bytes(arch)
-            here["dry_counts"][arch] = _dry_counts(arch)
+            here["dry_counts"][arch] = _dry_counts(ranks.config(arch))
+        _, shape, b, (mb,), _ = ranks.GROUPED["dispatch"]
+        here["dry_counts"]["dispatch"] = _dry_counts(ranks.grouped_config("dispatch"), shape, b,
+                                                     ranks.GROUPED_S, mb)
         t_parent = time.perf_counter() - t0
         while not procs.join(timeout=1):
             if time.perf_counter() - t0 > 600:
@@ -158,6 +190,8 @@ def run(tmp_path_factory):
     assert not dist.is_initialized()
     here["ranks"] = [torch.load(run_dir / f"rank{r}.pt") for r in range(WORLD)]
     here["one"] = {r["one"]["arch"]: r["one"] for r in here["ranks"]}
+    here["one_grouped"] = {(g["case"], g["microbatches"]): g for r in here["ranks"]
+                           for g in r["one_grouped"]}
     here["one_launcher"] = {r["one_launcher"]["arch"]: r["one_launcher"]["losses"]
                             for r in here["ranks"]}
     here["seconds"] = time.perf_counter() - t0
@@ -179,12 +213,23 @@ def _rel(got, want) -> float:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_forward_matches_reference(run, arch):
-    got = run["ranks"][0][arch]["logits"].numpy()
-    want = run["ref"][arch, "float32"]
+    _check_forward(run["ranks"][0][arch]["logits"], run["ref"][arch, "float32"],
+                   moe="moe" in arch)
+
+
+def _check_forward(got, want, moe: bool):
+    got = got.numpy()
     diff = np.abs(got - want)
     assert float(diff.max()) <= 1e-4 * float(np.abs(want).max()), float(diff.max())
-    if "moe" in arch:  # the reference test's own bounds for a routed model
+    if moe:  # the reference test's own bounds for a routed model
         assert float(diff.mean()) < 0.02 and float((diff > 0.2).mean()) < 0.02
+
+
+def test_tensor_parallel_experts_forward_matches_reference(run):
+    """smoke grok-1-314b with 3 experts on (2, 2): each expert's hidden
+    columns split over ``model``, the partial outputs summed over it."""
+    _check_forward(run["ranks"][0]["grouped"]["tp_experts"]["logits"],
+                   run["ref"]["tp_experts"], moe=True)
 
 
 def test_sharded_bf16_forward_matches_reference(run):
@@ -276,3 +321,29 @@ def test_collectives_counted_on_the_group_equal_the_dry_runs(run, arch):
     assert want
     for r in range(WORLD):
         assert run["ranks"][r][arch]["train1"]["comm"] == want, r
+
+
+@pytest.mark.parametrize("case,microbatches", ranks.GROUPED_ONE)
+def test_grouped_train_step_matches_one_device(run, case, microbatches):
+    """Micro-batches of fewer rows than there are data ranks (at M = 1 the
+    step cuts its one micro-batch from every rank's rows, as before): every
+    rank's loss, parts and grad norm, and the whole moments and parameters,
+    against one device's step on the rows in `microbatch_rows`' order."""
+    want = run["one_grouped"][case, microbatches]
+    assert want["groups"] == (1 if microbatches == 1 else 2)
+    for r in range(WORLD):
+        _check_train(run["ranks"][r]["grouped"][case][microbatches], want)
+    # The pairs dropped over every rank's layers are one device's (each
+    # counted twice, as remat runs each forward again).
+    got = sum(run["ranks"][r]["grouped"][case][microbatches]["dropped"] for r in range(WORLD))
+    shape = ranks.GROUPED[case][1]
+    assert got == want["dropped"] * shape[1]
+    if case == "dispatch":
+        assert want["dropped"] > 0
+
+
+def test_grouped_collectives_equal_the_dry_runs(run):
+    want = run["dry_counts"]["dispatch"]
+    assert want
+    for r in range(WORLD):
+        assert run["ranks"][r]["grouped"]["dispatch"][4]["comm"] == want, r

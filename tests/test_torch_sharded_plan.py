@@ -14,6 +14,15 @@
   `attention.merge_by_lse`, against the reference's `decode_attention_ref`
   over the whole cache within 2e-5; the plain lse against a direct
   logsumexp of the masked scores.
+* `execute.microbatch_rows`: for B/M >= D the order it always gave; for
+  grok-1-314b's B 256, M 32 over 16 and 32 data ranks a permutation whose
+  every micro-batch takes one row from each rank of one contiguous
+  sub-group; a B/M that neither is a multiple of D nor divides it raises
+  naming B, M and D.  `execute.microbatch_mesh` on a fake 2x16x16 group:
+  sub-group ``g`` is batch ranks ``8g`` to ``8g + 7``, pod-major.
+* The ``tp`` flag `_Layers` gives a sub-module: set for grok-style
+  tensor-parallel experts (3 experts over a model axis of 2) as for
+  expert-parallel ones.
 * `device.resolve_device` in a process group on a host with several
   cards: ``LOCAL_RANK``'s card; with one card ``cuda:0``; without a card
   it raises.
@@ -115,6 +124,99 @@ def test_layer_spec_drops_the_group_entry_and_caches_follow_their_slot(fake_mesh
     slots = attn["k"].shape[1]
     assert attn["k"].to_local().shape[1] == slots // 2
     assert attn["pos"].to_local().shape == (slots // 2,)
+
+
+def _rows_before(batch, shards, microbatches):
+    """`microbatch_rows` as it was before micro-batches could be smaller
+    than the data axis."""
+    per = batch // shards
+    n = per // microbatches
+    return [s * per + i * n + j for i in range(microbatches)
+            for s in range(shards) for j in range(n)]
+
+
+@pytest.mark.parametrize("batch,shards,microbatches", [(4, 2, 1), (4, 2, 2), (8, 4, 2),
+                                                       (256, 16, 8), (256, 32, 8),
+                                                       (256, 16, 16)])
+def test_microbatch_rows_unchanged_where_a_microbatch_spans_every_shard(batch, shards,
+                                                                        microbatches):
+    assert execute.microbatch_groups(batch, shards, microbatches) == 1
+    assert execute.microbatch_rows(batch, shards, microbatches) == _rows_before(
+        batch, shards, microbatches)
+
+
+@pytest.mark.parametrize("batch,shards,microbatches", [(256, 16, 32), (256, 32, 32),
+                                                       (8, 4, 4), (4, 2, 4)])
+def test_microbatch_rows_spread_a_microbatch_over_a_sub_group(batch, shards, microbatches):
+    rows = execute.microbatch_rows(batch, shards, microbatches)
+    assert sorted(rows) == list(range(batch))
+    n, per = batch // microbatches, batch // shards
+    groups = execute.microbatch_groups(batch, shards, microbatches)
+    assert groups == shards // n > 1
+    for i in range(microbatches):
+        mine = rows[i * n:(i + 1) * n]
+        owners = [r // per for r in mine]
+        # one row from each of n consecutive shards, starting on a sub-group
+        assert owners == list(range(owners[0], owners[0] + n)) and owners[0] % n == 0
+        # local step j = i // G takes row j of each rank
+        assert {r % per for r in mine} == {i // groups}
+
+
+@pytest.mark.parametrize("batch,shards,microbatches", [(12, 8, 4), (256, 24, 32), (12, 4, 2),
+                                                       (8, 4, 3)])
+def test_microbatch_groups_refuse_rows_that_cut_neither_way(batch, shards, microbatches):
+    with pytest.raises(ValueError, match=rf"B {batch} .* M {microbatches} .* D {shards} "):
+        execute.microbatch_groups(batch, shards, microbatches)
+
+
+@pytest.mark.parametrize("rank", [0, 307, 511])
+def test_microbatch_mesh_cuts_the_batch_ranks_pod_major(rank):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=512)
+    try:
+        mesh = init_device_mesh("cpu", (2, 16, 16), mesh_dim_names=("pod", "data", "model"))
+        sub = execute.microbatch_mesh(mesh, ("pod", "data"), 4)
+        assert sub.mesh_dim_names == (execute.SIDE_BY_SIDE, execute.WITHIN, "model")
+        assert tuple(sub.mesh.shape) == (4, 8, 16)
+        batch_rank = mesh.get_local_rank("pod") * 16 + mesh.get_local_rank("data")
+        assert sub.get_local_rank(execute.SIDE_BY_SIDE) == batch_rank // 8
+        assert sub.get_local_rank(execute.WITHIN) == batch_rank % 8
+        assert sub.get_local_rank("model") == mesh.get_local_rank("model")
+        # a sub-group lies inside one pod
+        within = sub.mesh[batch_rank // 8, :, mesh.get_local_rank("model")]
+        assert len({int(r) // 256 for r in within}) == 1
+        with pytest.raises(ValueError, match="do not lead"):
+            execute.microbatch_mesh(mesh, ("data",), 2)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("num_experts", [3, 4])
+def test_layers_flag_tensor_and_expert_parallel_experts(num_experts, fake_mesh):
+    """3 experts do not divide the model axis of 2: each rank holds its
+    columns of every expert (grok-1-314b's plan), 4 do: each holds 2
+    experts.  Either way the experts' partial outputs are summed over
+    ``model`` (``tp``)."""
+    import dataclasses
+
+    from repro_torch.sharding import parallel
+
+    cfg = dataclasses.replace(smoke_variant(get_config("grok-1-314b")),
+                              num_experts=num_experts)
+    model = tfm.init_params(cfg, seed=0, device="cpu")
+    specs = sh.param_specs(model, cfg, model_axis=2)
+    mesh = fake_mesh(1)
+    placed = execute.place_params(cfg, model, specs, mesh)
+    layers = execute._Layers(cfg, {p: dt.to_local() for p, dt in placed.items()}, specs,
+                             parallel.Parallel(mesh, batch_dims=("data",)))
+    moe = layers.group(0)[0].moe
+    assert moe.tp
+    tensor_parallel = num_experts % 2 != 0
+    assert moe.up.shape[0] == (num_experts if tensor_parallel else num_experts // 2)
+    assert moe.down.shape[1] == (cfg.d_ff // 2 if tensor_parallel else cfg.d_ff)
 
 
 def _ring_positions(cache_len, cur):

@@ -205,12 +205,12 @@ def test_prefill_and_decode_builders_equal_direct_calls(local_mesh):
         tok = got.argmax(-1)
 
 
-def test_steps_refuse_a_mesh_of_more_than_one_rank():
+def test_steps_run_on_meta_shards_of_a_two_rank_mesh():
     """On a fake group of 2 ranks the builders give specs and abstract
-    arguments, and their steps no longer refuse the mesh: each runs on its
-    arguments placed at those specs (meta shards: under the fake group
-    nothing is sent), the train step summing its gradients over ``data``.  The sharded steps' values
-    are held against one device in `tests/test_torch_sharded.py`."""
+    arguments, and their steps run on those arguments placed at those specs
+    (meta shards: under the fake group nothing is sent), the train step
+    summing its gradients over ``data``.  The sharded steps' values are held
+    against one device in `tests/test_torch_sharded.py`."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from repro_torch.sharding import execute

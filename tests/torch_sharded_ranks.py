@@ -2,12 +2,15 @@
 
 Each rank runs, for every architecture of `ARCHS`, the sharded steps of
 `repro_torch` on a (2, 2) ``("data", "model")`` mesh from the reference's
-parameters (handed over as numpy arrays), and one of them (rank ``i``
-then the training launcher on the group's (4, 1) mesh; off the group,
-rank ``i`` runs ``ARCHS[i]``'s work on one device, and the launcher in one
-process, for comparison.  It imports
-`torch` and `repro_torch` only: the JAX package stays in the parent.
-Results are written to ``rank<r>.pt`` in the run's directory.
+parameters (handed over as numpy arrays), then the training launcher on
+the group's (4, 1) mesh, then the train steps of `GROUPED` (micro-batches
+of fewer rows than there are data ranks, also from the reference's
+parameters, and smoke grok-1-314b's forward with tensor-parallel experts);
+off the group, rank ``i`` runs ``ARCHS[i]``'s work and the
+``i``-th of `GROUPED_ONE` on one device, and the launcher in one process,
+for comparison.  It imports `torch` and `repro_torch` only: the JAX
+package stays in the parent.  Results are written to ``rank<r>.pt`` in
+the run's directory.
 """
 from __future__ import annotations
 
@@ -42,6 +45,46 @@ CUTS = {"recurrentgemma-9b": dict(layer_pattern=("recurrent", "recurrent", "atte
                                   window_pattern=(None, None, 16), num_layers=3)}
 
 
+#: Train steps whose micro-batches have fewer rows than there are data
+#: ranks: case -> (architecture, mesh, batch, micro-batch counts, config
+#: changes).  ``tp_experts``: smoke grok-1-314b with 3 experts, which do
+#: not divide the model axis of 2 (as 8 do not divide 16 at full size), so
+#: they are tensor-parallel; at M 4 two micro-batches of one row run side
+#: by side, one data rank each.  ``dispatch``: smoke qwen3-moe-30b-a3b on
+#: the (4, 1) mesh, one dispatch group and a capacity of 12 pairs an expert
+#: for a micro-batch's 64 (so some are dropped); at M 4 two sub-groups of
+#: two data ranks, the keep's gather, the capacity and the aux reaching
+#: across a sub-group.
+GROUPED = {
+    "tp_experts": ("grok-1-314b", (2, 2), 4, (1, 4), dict(num_experts=3)),
+    "dispatch": ("qwen3-moe-30b-a3b", (4, 1), 8, (4,),
+                 dict(moe_dispatch_groups=1, moe_capacity_factor=0.75)),
+}
+GROUPED_S = 16
+#: The one-device steps to hold them against, rank ``i`` the ``i``-th.
+GROUPED_ONE = (("tp_experts", 1), ("dispatch", 4), ("tp_experts", 4))
+#: The batch seed of the `GROUPED` cases.
+GROUPED_SEED = 2
+
+
+def grouped_params(case: str) -> str:
+    """The name of the reference's parameters ``case`` trains from: its
+    architecture's where `ARCHS` has it (the config changes leave the
+    shapes), else its own."""
+    arch = GROUPED[case][0]
+    return arch if arch in ARCHS else case
+
+
+def grouped_config(case: str, configs=None):
+    """`GROUPED`'s config of ``case`` from ``configs`` (either package's
+    `configs` module; the port's by default), in float32."""
+    if configs is None:
+        from repro_torch import configs
+    arch, _, _, _, changes = GROUPED[case]
+    return dataclasses.replace(configs.smoke_variant(configs.get_config(arch)),
+                               dtype="float32", **changes)
+
+
 def cut(cfg, arch: str, dtype: str):
     """``cfg`` (either package's smoke config) at `CUTS`' depth in ``dtype``."""
     return dataclasses.replace(cfg, dtype=dtype, **CUTS.get(arch, {}))
@@ -58,17 +101,125 @@ def _counts(comm) -> dict:
             if n}
 
 
-def _arch_run(arch: str, tree, mesh) -> dict:
+def _trained(step, state, batch: dict) -> dict:
+    """One sharded step's collectives (`CommDebugMode`), metrics, and whole
+    parameters and moments after it."""
     from torch.distributed.tensor.debug import CommDebugMode
 
+    from repro_torch.sharding import execute as ex
+
+    with CommDebugMode() as comm:
+        state, metrics = step(state, batch)
+    return {"comm": _counts(comm), "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {p: ex.full(dt) for p, dt in state["params"].items()},
+            "mu": {p: ex.full(dt) for p, dt in state["opt"]["mu"].items()},
+            "nu": {p: ex.full(dt) for p, dt in state["opt"]["nu"].items()}}
+
+
+class DropCounter:
+    """Counts the (token, choice) pairs `moe._keep` drops while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.dropped, self._keep = 0, moe._keep
+
+        def keep(*args, **kwargs):
+            out = self._keep(*args, **kwargs)
+            self.dropped += int((~out).sum())
+            return out
+
+        moe._keep = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._keep = self._keep
+
+
+def _grouped_run(case: str, tree, mesh) -> dict:
+    """`GROUPED`'s train steps of ``case`` on ``mesh`` from the reference's
+    parameters ``tree``: each M's result (as `_trained`'s) and the pairs
+    this rank's MoE layers dropped; on the (2, 2) mesh also
+    ``forward_train``'s logits at the reference test's plan (no FSDP)."""
     from repro_torch.data import BatchSpec, make_batch
-    from repro_torch.interop import param_leaves, params_from_plain
+    from repro_torch.interop import params_from_plain
+    from repro_torch.launch import steps
+    from repro_torch.sharding import execute as ex
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import batch_to_device
+
+    cfg = grouped_config(case)
+    _, shape, b, mbs, _ = GROUPED[case]
+    batch = batch_to_device(make_batch(cfg, BatchSpec(b, GROUPED_S), seed=GROUPED_SEED), "cpu")
+    out = {}
+    if shape[1] > 1:
+        m = params_from_plain(cfg, tree, device="cpu")
+        pspecs = sh.param_specs(m, cfg, model_axis=shape[1])
+        bspecs = {k: v for k, v in sh.train_batch_specs(cfg, multi_pod=False).items()
+                  if k in batch}
+        logits, _ = ex.sharded_forward_train(cfg, mesh, pspecs, bspecs)(
+            ex.place_params(cfg, m, pspecs, mesh), ex.place_tree(batch, bspecs, mesh))
+        out["logits"] = ex.full(logits)
+    for mb in mbs:
+        step, _, (state_specs, bspecs) = steps.make_train_setup(
+            cfg, mesh, multi_pod=False, batch=b, seq_len=GROUPED_S,
+            opt_cfg=AdamWConfig(**OPT), microbatches=mb)
+        state = ex.place_train_state(cfg, params_from_plain(cfg, tree, device="cpu"),
+                                     state_specs, mesh)
+        with DropCounter() as drops:
+            out[mb] = _trained(step, state, ex.place_tree(batch, bspecs, mesh))
+        out[mb]["dropped"] = drops.dropped
+    return out
+
+
+def _one_step(cfg, model, batch: dict, microbatches: int) -> dict:
+    """The port's one-device train step (remat, as the builders') from
+    ``model``: its metrics, parameters and moments after it."""
+    from repro_torch.interop import param_leaves
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    model.requires_grad_(True)
+    st = {"params": model, "opt": init_opt_state(param_leaves(cfg, model))}
+    st, met = make_train_step(cfg, AdamWConfig(**OPT), remat=True, microbatches=microbatches)(
+        st, batch)
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "params": {p: (t if isinstance(t, torch.Tensor) else torch.stack(list(t))).detach()
+                       for p, t in param_leaves(cfg, model).items()},
+            "mu": dict(st["opt"]["mu"]), "nu": dict(st["opt"]["nu"])}
+
+
+def _grouped_one(case: str, microbatches: int, tree) -> dict:
+    """`_grouped_run`'s step on one device on the rows in the sharded
+    step's order (`execute.microbatch_rows`), and the pairs it dropped."""
+    from repro_torch.data import BatchSpec, make_batch
+    from repro_torch.interop import params_from_plain
+    from repro_torch.sharding import execute as ex
+    from repro_torch.train.train_loop import batch_to_device
+
+    cfg = grouped_config(case)
+    _, shape, b, _, _ = GROUPED[case]
+    batch = batch_to_device(make_batch(cfg, BatchSpec(b, GROUPED_S), seed=GROUPED_SEED), "cpu")
+    order = torch.tensor(ex.microbatch_rows(b, shape[0], microbatches))
+    with DropCounter() as drops:
+        out = _one_step(cfg, params_from_plain(cfg, tree, device="cpu"),
+                        {k: v[order] for k, v in batch.items()}, microbatches)
+    return {"case": case, "microbatches": microbatches, "dropped": drops.dropped,
+            "groups": ex.microbatch_groups(b, shape[0], microbatches), **out}
+
+
+def _arch_run(arch: str, tree, mesh) -> dict:
+    from repro_torch.data import BatchSpec, make_batch
+    from repro_torch.interop import params_from_plain
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import execute as ex
     from repro_torch.sharding import specs as sh
-    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-    from repro_torch.train.train_loop import batch_to_device, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import batch_to_device
 
     cfg = config(arch)
     opt_cfg = AdamWConfig(**OPT)
@@ -91,16 +242,9 @@ def _arch_run(arch: str, tree, mesh) -> dict:
         step, _, (state_specs, bspecs) = steps.make_train_setup(
             cfg, mesh, multi_pod=False, batch=B, seq_len=S, opt_cfg=opt_cfg, microbatches=mb)
         state = ex.place_train_state(cfg, model(), state_specs, mesh)
-        res = {"params_bytes": ex.resident_bytes(state["params"]),
-               "opt_bytes": ex.resident_bytes(state["opt"])}
-        with CommDebugMode() as comm:
-            state, metrics = step(state, ex.place_tree(batch, bspecs, mesh))
-        res["comm"] = _counts(comm)
-        res["metrics"] = {k: float(v) for k, v in metrics.items()}
-        res["params"] = {p: ex.full(dt) for p, dt in state["params"].items()}
-        res["mu"] = {p: ex.full(dt) for p, dt in state["opt"]["mu"].items()}
-        res["nu"] = {p: ex.full(dt) for p, dt in state["opt"]["nu"].items()}
-        out[f"train{mb}"] = res
+        out[f"train{mb}"] = {"params_bytes": ex.resident_bytes(state["params"]),
+                             "opt_bytes": ex.resident_bytes(state["opt"]),
+                             **_trained(step, state, ex.place_tree(batch, bspecs, mesh))}
     if arch == GROUP_FSDP:
         # FSDP at min_elements 1 << 10 shards the 2-group leaves' group axis
         # over data: each data rank holds one group, the other reaches it
@@ -168,27 +312,18 @@ def _one_device(arch: str, tree, serve: list) -> dict:
     order the shards cut them, and the prefill and decode steps on the
     sharded run's tokens."""
     from repro_torch.data import BatchSpec, make_batch
-    from repro_torch.interop import param_leaves, params_from_plain
+    from repro_torch.interop import params_from_plain
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import execute as ex
-    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-    from repro_torch.train.train_loop import batch_to_device, make_train_step
+    from repro_torch.train.train_loop import batch_to_device
 
     cfg = config(arch)
     batch = batch_to_device(make_batch(cfg, BatchSpec(B, S), seed=1), "cpu")
     out: dict = {}
     for mb in (1, 2):
         order = torch.tensor(ex.microbatch_rows(B, 2, mb))
-        m1 = params_from_plain(cfg, tree, device="cpu")
-        m1.requires_grad_(True)
-        st = {"params": m1, "opt": init_opt_state(param_leaves(cfg, m1))}
-        st, met = make_train_step(cfg, AdamWConfig(**OPT), remat=True, microbatches=mb)(
-            st, {k: v[order] for k, v in batch.items()})
-        out[f"train{mb}"] = {
-            "metrics": {k: float(v) for k, v in met.items()},
-            "params": {p: (t if isinstance(t, torch.Tensor) else torch.stack(list(t))).detach()
-                       for p, t in param_leaves(cfg, m1).items()},
-            "mu": dict(st["opt"]["mu"]), "nu": dict(st["opt"]["nu"])}
+        out[f"train{mb}"] = _one_step(cfg, params_from_plain(cfg, tree, device="cpu"),
+                                      {k: v[order] for k, v in batch.items()}, mb)
     m = params_from_plain(cfg, tree, device="cpu")
     caches = tfm.init_serve_cache(cfg, B, CACHE, device="cpu")
     lg, caches = tfm.forward_prefill(m, cfg, {"tokens": batch["tokens"]}, caches)
@@ -210,10 +345,11 @@ def _launch(arch: str) -> list:
     return rec["losses"]
 
 
-def _params(run_dir: str, arch: str) -> dict:
-    """The reference's parameters of ``arch``, which the parent writes (one
-    file an architecture, renamed into place) while the ranks work."""
-    path = pathlib.Path(run_dir) / f"params-{arch}.pkl"
+def _params(run_dir: str, name: str) -> dict:
+    """The reference's parameters of ``name`` (an architecture of `ARCHS`
+    or a case of `GROUPED`), which the parent writes (one file each,
+    renamed into place) while the ranks work."""
+    path = pathlib.Path(run_dir) / f"params-{name}.pkl"
     while not path.exists():
         time.sleep(0.02)
     with open(path, "rb") as f:
@@ -255,6 +391,16 @@ def main(rank: int, world: int, run_dir: str) -> None:
     t = time.perf_counter()
     results["launcher"] = {arch: _launch(arch) for arch in ARCHS}
     results["seconds"]["launcher"] = time.perf_counter() - t
+    # Micro-batches of fewer rows than there are data ranks.
+    t = time.perf_counter()
+    meshes = {(2, 2): mesh,
+              (4, 1): init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))}
+    for case in GROUPED:
+        name = grouped_params(case)
+        trees[case] = trees[name] if name in trees else _params(run_dir, name)
+    results["grouped"] = {case: _grouped_run(case, trees[case], meshes[GROUPED[case][1]])
+                          for case in GROUPED}
+    results["seconds"]["grouped"] = time.perf_counter() - t
     dist.barrier()
     dist.destroy_process_group()
     # Off the group: this rank's architecture on one device, and the
@@ -264,6 +410,10 @@ def main(rank: int, world: int, run_dir: str) -> None:
     results["one"] = {"arch": arch, **_one_device(arch, trees[arch], results[arch]["serve"])}
     results["one_launcher"] = {"arch": arch, "losses": _launch(arch)}
     results["seconds"]["one"] = time.perf_counter() - t
+    t = time.perf_counter()
+    results["one_grouped"] = [_grouped_one(case, mb, trees[case])
+                              for case, mb in GROUPED_ONE[rank::world]]
+    results["seconds"]["one_grouped"] = time.perf_counter() - t
     results["seconds"]["total"] = time.perf_counter() - t0
     torch.save(results, f"{run_dir}/rank{rank}.pt")
 
